@@ -1,0 +1,15 @@
+"""repro_torch — the PyTorch/CUDA port of the repro package's accelerator half.
+
+Layers (module names mirror the JAX package):
+  repro_torch.configs  — architecture configs (gemma2-2b so far)
+  repro_torch.models   — dense decoder LM: params as nested dicts of tensors
+  repro_torch.kernels  — hand-written CUDA kernels for Hopper (sm_90a), each
+                         beside its plain PyTorch version
+  repro_torch.runtime  — prefill / decode / greedy generation
+  repro_torch.launch   — serve entry point
+  repro_torch.bridge   — numpy <-> torch param trees, for parity tests
+
+Entry points run on "cuda" unless the caller passes device="cpu".
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,87 @@
+"""Shared building blocks: init helpers, norms, activations, softcap.
+
+Parameters are plain nested dicts of tensors.  Layer-stacked parameters carry
+a leading ``(L, ...)`` dim, as in the JAX package, and the model loops over it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------------------
+# Initializers (fp32 params, as the JAX package keeps them)
+# ---------------------------------------------------------------------------
+
+_TRUNC_LO = math.erf(-2.0 / math.sqrt(2.0))   # 2*Phi(-2) - 1
+
+
+def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
+               device="cuda", dtype=torch.float32):
+    """Truncated-normal (+-2 sigma) fan-in init. `shape` may include a leading
+    stack dim — pass `in_axis_size` explicitly for stacked weights."""
+    fan_in = in_axis_size if in_axis_size is not None else shape[-2]
+    t = torch.empty(shape, device=device, dtype=torch.float32)
+    # inverse-CDF sampling of a normal truncated to [-2, 2]
+    t.uniform_(_TRUNC_LO, -_TRUNC_LO, generator=gen)
+    t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    return t.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, device="cuda", dtype=torch.float32):
+    t = torch.empty(shape, device=device, dtype=torch.float32)
+    return t.normal_(0.0, 0.02, generator=gen).to(dtype)
+
+
+def ones_init(shape, device="cuda", dtype=torch.float32):
+    return torch.ones(shape, device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms & activations (computed in fp32, cast back)
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, scale, eps: float = 1e-6, *, plus_one: bool = False):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    s = scale.float()
+    if plus_one:            # gemma-style (1 + scale)
+        s = 1.0 + s
+    return (y * s).to(dtype)
+
+
+def activation(name: str):
+    return {
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+        "relu2": lambda x: torch.square(F.relu(x)),
+    }[name]
+
+
+def softcap(x, cap: float):
+    """Logit soft-capping: cap * tanh(x / cap) (Gemma2)."""
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+class Options:
+    """Runtime knobs threaded through model apply.
+
+    q_block / kv_block size the blocks of the plain blockwise attention, the
+    path tensors on the CPU take; the CUDA kernel tiles on its own."""
+
+    def __init__(self, *, q_block: int = 1024, kv_block: int = 1024):
+        self.q_block = q_block
+        self.kv_block = kv_block
+
+    def replace(self, **kw):
+        cur = dict(q_block=self.q_block, kv_block=self.kv_block)
+        cur.update(kw)
+        return Options(**cur)
