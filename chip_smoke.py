@@ -4,16 +4,19 @@
     python3 chip_smoke.py
 
 Phases; any failure exits non-zero:
-  (a) card: name and power limit from nvidia-smi; build the kernel from
-      src/repro_torch/csrc with nvcc, with seconds;
+  (a) card: name and power limit from nvidia-smi; build every kernel from
+      src/repro_torch/csrc, one nvcc per source, all started together, with
+      each build's seconds and its register and spill lines;
   (b) each kernel against its plain PyTorch version on the card, at the main
-      path's shapes and a small ragged case, in bf16 and fp32: max-abs error
+      paths' shapes and small cases: flash attention in bf16 and fp32, the
+      chunked WKV in fp32 (two decay regimes, an initial state); error
       against the stated tolerance, kernel / plain / library ms and the bound;
-  (c) the main path: serve 4 requests of 4200-token prompts through
-      full-width gemma2-2b (26 layers, random weights from a seed) with the
-      launch counts set to 0 just before; every kernel of the path must have
-      launched, and the prefill logits of the kernel path must agree with
-      those of the plain path;
+  (c) the main paths, each with the launch counts set to 0 just before and
+      read just after: serve 4 requests of 4200-token prompts through
+      full-width gemma2-2b (26 layers) and through full-width rwkv6-1.6b (24
+      layers), random weights from a seed; every kernel of the path must
+      have launched once per layer and prefill batch, and the kernel path's
+      prefill must agree with the plain path's;
   (d) last lines: the card, a JSON line of per-kernel results, and
       {"ok": true, "device": {...}}.
 """
@@ -24,6 +27,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -35,6 +39,11 @@ sys.path.insert(0, str(ROOT / "src"))
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, same sheet
 H100_BYTES_S = 3.35e12       # HBM3 rate, same sheet
+# exp issue rate: 16 results per clock per SM for the special-function unit's
+# base-2 exponential, which expf runs once (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0), x 132 SMs x
+# 1.98 GHz maximum boost clock (H100 SXM data sheet)
+H100_EXP_S = 16 * 132 * 1.98e9
 ARGV = ["--no-reduced", "--requests", "4", "--prompt-len", "4200",
         "--max-new", "16", "--device", "cuda"]
 B, S, HQ, G, HD = 4, 4200, 16, 4, 256      # gemma2-2b prefill attention
@@ -42,6 +51,21 @@ SCALE, CAP = HD ** -0.5, 50.0              # 1/sqrt(query_pre_attn_scalar)
 FP32_TOL = 1e-4       # fp32 output vs plain version: summation order only
 BF16_ATOL = 1e-5      # bf16 output: one rounding of the fp32 result, see below
 LOGIT_TOL = 0.15               # prefill logits, kernel path vs plain path
+# rwkv6-1.6b prefill WKV: 4200 tokens padded to 66 chunks of 64
+WB, WS, WH, WHD, WQ = 4, 4224, 32, 64, 64
+# The kernel and the plain chunked version compute the same fp32 sums in
+# other orders, so they differ by a few ulps of the largest terms: max |diff|
+# <= 1e-5 * max(1, max |plain|), for y and for the final state alike.
+WKV_TOL = 1e-5
+# rwkv6 prefill, kernel path vs plain path, compared in fp32 compute: in
+# bf16 the two paths' rounding flips compound over 24 layers (at full width
+# their logits differ by ~0.3, more than LOGIT_TOL, though layer 0's state
+# agrees to ~1e-6), so bf16 cannot tell a kernel fault from rounding; the
+# bf16 figures are printed, not held.  States: layer 0 runs the WKV on the
+# same inputs on both paths (WKV_TOL); later layers carry the summation-order
+# differences forward, and 1e-3 of the layer's largest |S| lets them grow
+# over 24 layers and still fails a wrong state, which is off by O(1).
+STATE_TOL = 1e-3
 
 
 def card_line() -> str:
@@ -89,6 +113,109 @@ def attention_bound(b, s, hq, g, hd, window, itemsize, flops_peak):
     t_ops, t_bytes = flops / flops_peak, nbytes / H100_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes"), flops
+
+
+def build_all(_build, names):
+    """One nvcc per source, all started together; each build's seconds and
+    its -Xptxas -v register and spill lines."""
+    def one(name):
+        t0 = time.perf_counter()
+        return _build.build(name), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        done = dict(zip(names, pool.map(one, names)))
+    for name, (log, secs) in done.items():
+        print(f"[a] {name} built in {secs:.1f}s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"[a] {name}: {line.strip()}")
+
+
+def wkv_bound(b, s, h, hd, q, with_state):
+    """Least time for the chunked WKV, from counts per chunk and (b, h):
+    exps (intra-chunk pairs j < t over hd; r and k rescaled; the chunk's
+    decay) at the exp issue rate; fp32 FLOPs (cumsum, the intra-chunk
+    products, A.v, the bonus, r.S, the state update) at the fp32 rate; r, k,
+    v, logw, u and the initial state read once, y and the final state
+    written once.  Returns (ms, bound_by, exps, flops, bytes)."""
+    pairs, n = q * (q - 1) // 2, (s // q) * b * h
+    exps = n * (pairs * hd + (q - 1) * hd + q * hd + hd)
+    flops = n * (q * hd + pairs * hd * 4 + pairs * hd * 2 + q * hd * 5
+                 + (q - 1) * hd + q * hd * 2 + q * hd * hd * 2
+                 + hd * hd * 2 + q * hd * hd * 2)
+    nbytes = 4 * (5 * b * s * h * hd + h * hd
+                  + (2 if with_state else 1) * b * h * hd * hd)
+    t_ops = max(exps / H100_EXP_S, flops / H100_FP32_FLOPS)
+    t_bytes = nbytes / H100_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", exps, flops,
+            nbytes)
+
+
+def phase_wkv(torch, wkv_ops, wkv_ref):
+    """Chunked-WKV kernel vs plain version in fp32; returns the row for the
+    main-path case (rwkv6-1.6b prefill, test-sweep inputs)."""
+    print("[b] wkv6 kernel vs plain chunked version")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    row = None
+    main = (WB, WS, WH, WHD, WQ)
+    # (name, (B, S, H, hd, Q), decay, initial state)
+    cases = [("main", main, "sweep", False),
+             ("main slow decay", main, "slow", False),
+             ("small", (2, 96, 4, 32, 16), "sweep", False),
+             ("small", (2, 96, 4, 32, 32), "sweep", False),
+             ("small", (1, 64, 2, 64, 32), "sweep", False),
+             ("initial state", (2, 256, 4, 64, 64), "sweep", True)]
+    for name, (b, s, h, hd, q), decay, with_state in cases:
+        n = lambda: torch.randn((b, s, h, hd), generator=gen,  # noqa: E731
+                                device="cuda")
+        # as tests/test_kernels.py draws them; "slow": near the model's
+        # w0 init, log-decay ~ -exp(-6), so the state holds ~400 steps
+        r, k, v = n() * 0.5, n() * 0.5, n()
+        logw = -torch.exp(n() * 0.5 - 1.0 if decay == "sweep"
+                          else n() * 0.1 - 6.0)
+        u = torch.randn((h, hd), generator=gen, device="cuda") * 0.1
+        s0 = (torch.randn((b, h, hd, hd), generator=gen, device="cuda")
+              if with_state else None)
+        args = (r, k, v, logw, u)
+        y, st = wkv_ops.wkv6(*args, chunk=q, initial_state=s0)
+        py, ps = wkv_ref.wkv6_chunked(*args, chunk=q, initial_state=s0)
+        torch.cuda.synchronize()
+        errs = {}
+        for what, out, plain in (("y", y, py), ("state", st, ps)):
+            err = float((out - plain).abs().max())
+            lim = WKV_TOL * max(1.0, float(plain.abs().max()))
+            errs[what] = (err, lim, err <= lim and
+                          bool(torch.isfinite(out).all()))
+        ok = all(e[2] for e in errs.values())
+        is_main = (b, s, h, hd, q) == main
+        ms = cuda_ms(lambda: wkv_ops.wkv6(*args, chunk=q, initial_state=s0),
+                     5 if is_main else 20)
+        plain_ms = cuda_ms(lambda: wkv_ref.wkv6_chunked(
+            *args, chunk=q, initial_state=s0), 1 if is_main else 5)
+        bound_ms, bound_by, exps, flops, nbytes = wkv_bound(
+            b, s, h, hd, q, with_state)
+        print(f"[b] wkv6 {name}: (B,S,H,hd)={(b, s, h, hd)} Q={q}: "
+              + " ".join(f"{w}_max_abs_err={e:.3e} (tol {lim:.3e})"
+                         for w, (e, lim, _) in errs.items())
+              + f" kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}"
+              f" bound_ms={bound_ms:.4f} ({bound_by}; {exps:.3e} exp,"
+              f" {flops:.3e} FLOP, {nbytes:.3e} B) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"wkv6 disagrees with its plain version: "
+                             f"{name} {(b, s, h, hd, q)} {errs}")
+        if is_main and decay == "sweep":
+            row = {"name": "wkv6", "route": "cuda",
+                   "source": "src/repro_torch/csrc/wkv6.cu",
+                   "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:19",
+                   "launches": None, "max_abs_err": errs["y"][0], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by,
+                   # no single PyTorch call computes the chunked WKV
+                   "library_ms": None}
+        del args, r, k, v, logw, y, st, py, ps
+        torch.cuda.empty_cache()
+    return row
 
 
 def phase_kernel(torch, fa_ops, fa_ref):
@@ -224,6 +351,106 @@ def phase_serve(torch, fa_ops, attention, fa_ref, serve):
     return launches
 
 
+def wkv6_rechunked(fn, q, *args, chunk, initial_state=None):
+    """`fn` in chunks of q steps in place of `chunk`."""
+    return fn(*args, chunk=q, initial_state=initial_state)
+
+
+def top2_margin(logits):
+    top = logits.topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref, serve):
+    """The rwkv6 path at full width, then kernel-path vs plain-path prefill
+    logits and states."""
+    torch.cuda.reset_peak_memory_stats()
+    wkv_ops.wkv6.launches = 0
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", "rwkv6-1.6b", *ARGV])
+    wall = time.perf_counter() - t0
+    launches = wkv_ops.wkv6.launches
+    model, params = res["model"], res["params"]
+    cfg = model.cfg
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab_size) == (24, 2048, 65536)
+    p50, p95, p99 = np.percentile(res["latency_ms"], [50, 95, 99])
+    print(f"[c] rwkv6-1.6b served {len(res['replies'])} requests in "
+          f"{wall:.1f}s (weights included); prefill_ms="
+          f"{res['prefill_s'] * 1e3:.1f} decode_ms_per_token="
+          f"{res['decode_s'] * 1e3 / res['decode_steps']:.2f} latency_ms "
+          f"p50={p50:.1f} p95={p95:.1f} p99={p99:.1f} "
+          f"max_memory_allocated_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    want = cfg.n_layers * len(res["batches"])
+    print(f"[c] wkv6 launches={launches} "
+          f"(want {cfg.n_layers} layers x {len(res['batches'])} batches)")
+    if launches != want:
+        raise SystemExit(f"wkv6 kernel launched {launches} times, want {want}")
+    if len(res["replies"]) != 4:
+        raise SystemExit("not every request was answered")
+    for row in res["replies"]:
+        if row.shape != (16,) or row.min() < 0 or row.max() >= cfg.vocab_size:
+            raise SystemExit(f"bad reply {row}")
+
+    toks = torch.as_tensor(np.stack(res["prompts"]), device="cuda").long()
+    V = cfg.vocab_size
+    results = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            lg_kernel, st_kernel = model.forward(
+                params, {"tokens": toks}, mode="prefill", dtype=dtype)
+            n = wkv_ops.wkv6.launches
+            with mock.patch.object(rwkv, "wkv6", wkv_ref.wkv6_chunked):
+                lg_plain, st_plain = model.forward(
+                    params, {"tokens": toks}, mode="prefill", dtype=dtype)
+            if wkv_ops.wkv6.launches != n:
+                raise SystemExit("the plain path launched the kernel")
+            a, b = lg_kernel[:, :V].float(), lg_plain[:, :V].float()
+            if not (bool(torch.isfinite(a).all())
+                    and bool(torch.isfinite(b).all())):
+                raise SystemExit("non-finite prefill logits")
+            rel = [float((sk - sp).abs().max() / sp.abs().max().clamp(min=1.0))
+                   for sk, sp in zip(st_kernel["S"], st_plain["S"])]
+            results[dtype] = (a, b, rel)
+            del lg_kernel, st_kernel, lg_plain, st_plain
+        # yardstick for the bf16 figures: the plain path against itself with
+        # chunks of 32, the same function summed in another order
+        with mock.patch.object(rwkv, "wkv6", functools.partial(
+                wkv6_rechunked, wkv_ref.wkv6_chunked, 32)):
+            lg32, _ = model.forward(params, {"tokens": toks}, mode="prefill")
+        err32 = float((lg32[:, :V].float() - results[torch.bfloat16][1])
+                      .abs().max())
+        print(f"[c] rwkv6 prefill in bfloat16, plain path at chunk 32 vs "
+              f"{cfg.rwkv.chunk}: last-position logits max_abs_err="
+              f"{err32:.4f}")
+    for dtype, (a, b, rel) in results.items():
+        print(f"[c] rwkv6 prefill in {str(dtype)[6:]}, kernel vs plain path: "
+              f"last-position logits max_abs_err="
+              f"{float((a - b).abs().max()):.4f}; |logit|max="
+              f"{float(b.abs().max()):.3f}; top-2 margins="
+              f"{[round(float(m), 4) for m in top2_margin(b)]}; S per layer "
+              f"max|diff|/max(1, max|S|): {[float(f'{x:.3e}') for x in rel]}")
+    # the served first tokens are the bf16 kernel path's argmax
+    a = results[torch.bfloat16][0]
+    served = torch.as_tensor([r[0] for r in res["replies"]], device="cuda")
+    if not bool(((served == a.argmax(-1)) | (top2_margin(a) <= LOGIT_TOL))
+                .all()):
+        raise SystemExit("rwkv6: served first tokens are not the prefill's")
+    a, b, rel = results[torch.float32]
+    err, sure = float((a - b).abs().max()), top2_margin(b) > LOGIT_TOL
+    same = (a.argmax(-1) == b.argmax(-1)) | ~sure
+    print(f"[c] rwkv6 fp32 check: logits max_abs_err={err:.3e} (tol "
+          f"{LOGIT_TOL}); first tokens compared where margin > tol: "
+          f"{int(sure.sum())}/{len(sure)}; S layer 0 {rel[0]:.3e} (tol "
+          f"{WKV_TOL:.0e}), all layers max {max(rel):.3e} (tol "
+          f"{STATE_TOL:.0e})")
+    if err >= LOGIT_TOL or not bool(same.all()):
+        raise SystemExit("rwkv6: kernel path and plain path disagree")
+    if rel[0] > WKV_TOL or max(rel) > STATE_TOL:
+        raise SystemExit("rwkv6: kernel-path and plain-path states disagree")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -233,8 +460,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
     from repro_torch.launch import serve
-    from repro_torch.models import attention
+    from repro_torch.models import attention, rwkv
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -242,18 +471,16 @@ def main() -> int:
     card = card_line()
     print(f"[a] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; devices={torch.cuda.device_count()}")
-    t_build = time.perf_counter()
-    log = _build.build("flash_attention")
-    print(f"[a] flash_attention built in {time.perf_counter() - t_build:.1f}s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"[a] flash_attention: {line.strip()}")
+    build_all(_build, ("flash_attention", "wkv6"))
 
     row = phase_kernel(torch, fa_ops, fa_ref)
+    wkv_row = phase_wkv(torch, wkv_ops, wkv_ref)
     row["launches"] = phase_serve(torch, fa_ops, attention, fa_ref, serve)
+    wkv_row["launches"] = phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref,
+                                           serve)
     print(f"[d] total {time.perf_counter() - t_start:.1f}s")
     print(card_line())
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": [row, wkv_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

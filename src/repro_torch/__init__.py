@@ -1,8 +1,9 @@
 """repro_torch — the PyTorch/CUDA port of the repro package's accelerator half.
 
 Layers (module names mirror the JAX package):
-  repro_torch.configs  — architecture configs (gemma2-2b so far)
-  repro_torch.models   — dense decoder LM: params as nested dicts of tensors
+  repro_torch.configs  — architecture configs (gemma2-2b, rwkv6-1.6b so far)
+  repro_torch.models   — dense decoder LM and RWKV6: params as nested dicts of
+                         tensors
   repro_torch.kernels  — hand-written CUDA kernels for Hopper (sm_90a), each
                          beside its plain PyTorch version
   repro_torch.runtime  — prefill / decode / greedy generation

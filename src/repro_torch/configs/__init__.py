@@ -16,8 +16,10 @@ from repro_torch.configs.base import (
     input_specs,
 )
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2_2b
+from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6_1p6b
 
-REGISTRY: dict[str, ModelConfig] = {c.name: c for c in [_gemma2_2b]}
+REGISTRY: dict[str, ModelConfig] = {c.name: c for c in [_gemma2_2b,
+                                                        _rwkv6_1p6b]}
 
 ARCH_IDS = list(REGISTRY)
 

@@ -3,9 +3,12 @@ batches of up to --requests, through prefill + greedy decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \
         --requests 4 --prompt-len 4200 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --no-reduced --requests 4 --prompt-len 4200 --max-new 16
 
 Runs on the card unless --device cpu.  Weights are random, made from --seed
-on the device, and cast to bf16 once at load (norm scales stay fp32).
+on the device, and cast to bf16 once at load, except the leaves the model
+reads in fp32 (norms; rwkv's decay and bonus params).
 Per-request latency runs from submit to reply.
 """
 from __future__ import annotations
@@ -48,7 +51,7 @@ def main(argv=None):
         cfg = cfg.reduced()
     model = build_model(cfg, Options(q_block=64, kv_block=64))
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = serving_params(model.init(gen, device))
+    params = serving_params(model, model.init(gen, device))
 
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(2, cfg.vocab_size, size=args.prompt_len)

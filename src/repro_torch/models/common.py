@@ -35,8 +35,19 @@ def embed_init(gen: torch.Generator, shape, device="cuda", dtype=torch.float32):
     return t.normal_(0.0, 0.02, generator=gen).to(dtype)
 
 
+def zeros_init(shape, device="cuda", dtype=torch.float32):
+    return torch.zeros(shape, device=device, dtype=dtype)
+
+
 def ones_init(shape, device="cuda", dtype=torch.float32):
     return torch.ones(shape, device=device, dtype=dtype)
+
+
+def layer_params(tree, i: int):
+    """Layer i of a stacked param tree."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 # ---------------------------------------------------------------------------
@@ -53,6 +64,15 @@ def rms_norm(x, scale, eps: float = 1e-6, *, plus_one: bool = False):
     if plus_one:            # gemma-style (1 + scale)
         s = 1.0 + s
     return (y * s).to(dtype)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
 
 
 def activation(name: str):

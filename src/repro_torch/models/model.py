@@ -14,7 +14,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import rwkv, transformer
 from repro_torch.models.common import Options
 
 
@@ -42,6 +42,10 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device="cuda"):
+        """KV cache, or for an ssm model its fp32 recurrent state (max_len
+        and dtype unused)."""
+        if self.cfg.family == "ssm":
+            return self._mod.init_state(self.cfg, batch, device=device)
         return self._mod.init_cache(self.cfg, batch, max_len, dtype=dtype,
                                     device=device)
 
@@ -49,7 +53,7 @@ class Model:
         return Model(self.cfg, self.opts.replace(**kw), self._mod)
 
 
-_FAMILY_MODULES = {"dense": transformer}
+_FAMILY_MODULES = {"dense": transformer, "ssm": rwkv}
 
 
 def build_model(cfg, opts: Options = None) -> Model:

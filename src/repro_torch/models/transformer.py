@@ -12,8 +12,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (Options, activation, dense_init,
-                                       embed_init, ones_init, rms_norm,
-                                       softcap)
+                                       embed_init, layer_params, ones_init,
+                                       rms_norm, softcap)
 from repro_torch.models.rope import apply_rope, rope_angles
 
 
@@ -133,13 +133,6 @@ def init_lm(gen, cfg, device="cuda"):
     return p
 
 
-def _layer(tree, i: int):
-    """Layer i of a stacked param tree."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 def _layer_windows(cfg, n_layers: int, seq_len: int):
     """Per-layer attention window (None = causal only)."""
     if not cfg.sliding_window:
@@ -183,8 +176,8 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
     windows = _layer_windows(cfg, L, S)
     ks, vs = [], []
     for i in range(L):
-        x, (k, v) = apply_block(_layer(params["blocks"], i), x, cfg, sin, cos,
-                                opts=opts, window=windows[i])
+        x, (k, v) = apply_block(layer_params(params["blocks"], i), x, cfg,
+                                sin, cos, opts=opts, window=windows[i])
         if mode == "prefill" and cache is None:
             ks.append(k)
             vs.append(v)
@@ -225,8 +218,8 @@ def decode_step(params, cfg, tokens, positions, cache, *, opts: Options = None,
     k_all, v_all = cache["layers"]
     windows = _layer_windows(cfg, cfg.n_layers, k_all.shape[2])
     for i in range(cfg.n_layers):
-        x, _ = apply_block(_layer(params["blocks"], i), x, cfg, sin, cos,
-                           opts=opts, window=windows[i],
+        x, _ = apply_block(layer_params(params["blocks"], i), x, cfg, sin,
+                           cos, opts=opts, window=windows[i],
                            cache=(k_all[i], v_all[i]), positions=positions)
     x = _norm(x, params["final_norm"], cfg)
     return _head(params, cfg, x)[:, 0], cache

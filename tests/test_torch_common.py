@@ -1,4 +1,4 @@
-"""Port parity: norms, activation, softcap, RoPE and the config copy against
+"""Port parity: norms, activation, softcap, RoPE and the config copies against
 the JAX package, on the CPU, fp32.  Tolerance 1e-6 (fp32 rounding of the
 same formula)."""
 import pytest
@@ -39,6 +39,20 @@ def test_rms_norm(plus_one):
     assert _err(out, ref) < TOL
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm(dtype):
+    """fp32 inside, cast back: bf16 outputs agree to the bit after the cast
+    of equal fp32 values; compared as fp32 within TOL."""
+    x, s, b = _rand((3, 5, 64)) * 3 + 1, 1 + _rand((64,), 1) * 0.1, \
+        _rand((64,), 2) * 0.1
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    out = common.layer_norm(tx, torch.from_numpy(s), torch.from_numpy(b))
+    ref = jcommon.layer_norm(jx, jnp.asarray(s), jnp.asarray(b))
+    assert out.dtype == tx.dtype
+    assert _err(out.float(), ref.astype(jnp.float32)) < TOL
+
+
 @pytest.mark.parametrize("cap", [0.0, 30.0, 50.0])
 def test_gelu_tanh_and_softcap(cap):
     x = _rand((4, 257), 2) * 4
@@ -68,6 +82,15 @@ def test_config_copy(reduced):
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     assert ours.padded_vocab == theirs.padded_vocab
     assert ours.resolved_head_dim == theirs.resolved_head_dim
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_rwkv_config_copy(reduced):
+    ours, theirs = get_config("rwkv6-1.6b"), jax_get_config("rwkv6-1.6b")
+    if reduced:
+        ours, theirs = ours.reduced(), theirs.reduced()
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.padded_vocab == theirs.padded_vocab
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])

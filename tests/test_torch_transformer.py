@@ -121,7 +121,7 @@ def test_greedy_generate_bf16_tokens(setup):
     jtoks, margins = np.stack(jtoks, 1), np.stack(margins, 1)
 
     model = build_model(cfg, OPTS_T)
-    out = greedy_generate(model, serving_params(params),
+    out = greedy_generate(model, serving_params(model, params),
                           {"tokens": torch.from_numpy(tokens).long()},
                           max_new, S + max_new + 1).numpy()
     assert out.shape == (B, max_new)
