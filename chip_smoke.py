@@ -8,21 +8,31 @@ Phases; any failure exits non-zero:
       src/repro_torch/csrc, one nvcc per source, all started together, with
       each build's seconds and its register and spill lines;
   (b) each kernel against its plain PyTorch version on the card, at the main
-      paths' shapes and small cases: flash attention in bf16 and fp32, the
-      chunked WKV in fp32 (two decay regimes, an initial state); error
-      against the stated tolerance, kernel / plain / library ms and the bound;
+      paths' shapes and small cases: flash attention in bf16 and fp32 (head
+      dims 256, 80 and 32), the chunked WKV in fp32 (two decay regimes, an
+      initial state), the chunked SSD in fp32 (the JAX sweep, slow and fast
+      decay); error against the stated tolerance, kernel / plain / library
+      ms and the bound; then the gradients through the flash and SSD ops
+      against autograd through their plain versions, and the backward's ms;
   (c) the main paths, each with the launch counts set to 0 just before and
       read just after: serve 4 requests of 4200-token prompts through
       full-width gemma2-2b (26 layers) and through full-width rwkv6-1.6b (24
       layers), random weights from a seed; every kernel of the path must
       have launched once per layer and prefill batch, and the kernel path's
-      prefill must agree with the plain path's;
-  (d) last lines: the card, a JSON line of per-kernel results, and
-      {"ok": true, "device": {...}}.
+      prefill must agree with the plain path's.  Then zamba2-2.7b training:
+      one fp32 train step at full width and one group of depth, kernel path
+      against plain path (loss, grad norm, every gradient); then the full
+      model (54 Mamba2 layers) trained 6 steps through launch.train at batch
+      2 x 1024, with 54 SSD and 9 flash launches per forward, a finite,
+      non-zero gradient on every leaf, and 4 more steps on one repeated
+      batch whose loss must fall;
+  (d) last lines: the card, a JSON line of per-kernel results (flash
+      attention once per path), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import subprocess
 import sys
@@ -66,6 +76,27 @@ WKV_TOL = 1e-5
 # differences forward, and 1e-3 of the layer's largest |S| lets them grow
 # over 24 layers and still fails a wrong state, which is off by O(1).
 STATE_TOL = 1e-3
+# zamba2-2.7b training at batch 2 x 1024: the SSD at (B, S, H, hd, N, Q) and
+# the shared block's attention at q/k/v (B, S, 32, 80), no GQA, causal only
+SSD_MAIN = (2, 1024, 80, 64, 64, 64)
+ZB, ZS, ZH, ZHD = 2, 1024, 32, 80
+TRAIN_ARGV = ["--arch", "zamba2-2.7b", "--no-reduced", "--steps", "6",
+              "--global-batch", "2", "--seq", "1024", "--device", "cuda"]
+# SSD kernel vs plain chunked version, fp32: summation order only, as WKV_TOL
+SSD_TOL = 1e-5
+# Gradients through a kernel op vs autograd through its plain version, fp32:
+# the backward IS the plain version's autograd, recomputed from the same
+# inputs, so only the cotangent path differs; max |diff| <= 1e-5 * max(1,
+# max |plain grad|).
+GRAD_TOL = 1e-5
+# One fp32 train step at full width and one group of depth, kernel path vs
+# plain path: the kernels' summation-order differences (~1e-6 relative) pass
+# through 6 Mamba2 layers and the shared block and back.  Loss within 1e-5
+# relative, grad norm within 1e-4 relative, each leaf's gradient within 1e-3
+# of its largest |plain grad|; a wrong kernel or a dropped backward term is
+# off by O(1).
+STEP_LOSS_TOL, STEP_NORM_TOL, STEP_GRAD_TOL = 1e-5, 1e-4, 1e-3
+REPEAT_LR = 1e-5     # the repeated-batch steps (see phase_train)
 
 
 def card_line() -> str:
@@ -218,15 +249,152 @@ def phase_wkv(torch, wkv_ops, wkv_ref):
     return row
 
 
+def ssd_bound(b, s, h, hd, n, q, itemsize=4):
+    """Least time for the chunked SSD, from counts of what the function
+    needs: C.B^T over the lower triangle j <= t once per (b, chunk), since
+    with one group B and C are shared by every head (the Pallas kernel
+    computes it once for all heads); per (b, h, chunk) the cumsum, the
+    decay exps and M over j <= t, M.x, C.S and its scaling, the state
+    update.  fp32 FLOPs at the fp32 rate, exps at the exp rate; x, dA, B
+    and C read once, Y written once.  Returns (ms, bound_by, exps, flops,
+    bytes)."""
+    pairs, chunks = q * (q + 1) // 2, (s // q) * b
+    nblk = chunks * h
+    exps = nblk * (pairs + 2 * q)
+    flops = chunks * pairs * n * 2 + nblk * (
+        q + pairs * 2 + pairs * hd * 2 + q * n * hd * 2 + q * hd * 2
+        + q * hd + q * hd * n * 2 + hd * n * 2)
+    nbytes = itemsize * (2 * b * s * h * hd + b * s * h + 2 * b * s * n)
+    t_ops = max(exps / H100_EXP_S, flops / H100_FP32_FLOPS)
+    t_bytes = nbytes / H100_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", exps, flops,
+            nbytes)
+
+
+def ssd_inputs(torch, gen, b, s, h, hd, n, decay):
+    """As tests/test_kernels.py draws them: xdt, B, C ~ N(0, 0.25), dA =
+    -softplus(N(0, 1)); "slow": dA scaled by 1e-3 (near 0, the state holds
+    ~thousands of steps); "fast": dA - 5 (exp underflows within a chunk)."""
+    nrm = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                     device="cuda")
+    dA = -torch.nn.functional.softplus(nrm(b, s, h))
+    dA = {"sweep": dA, "slow": dA * 1e-3, "fast": dA - 5.0}[decay]
+    return [nrm(b, s, h, hd) * 0.5, dA, nrm(b, s, 1, n) * 0.5,
+            nrm(b, s, 1, n) * 0.5]
+
+
+def phase_ssd(torch, ssd_ops, ssd_ref):
+    """Chunked-SSD kernel vs plain version in fp32; returns the row for the
+    main-path case (zamba2-2.7b training, test-sweep inputs)."""
+    print("[b] mamba2_ssd kernel vs plain chunked version")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    row = None
+    cases = [("main", SSD_MAIN, "sweep"), ("main slow decay", SSD_MAIN, "slow"),
+             ("main fast decay", SSD_MAIN, "fast")]
+    cases += [("JAX sweep", (b, s, h, hd, n, q), "sweep")
+              for b, s, h, hd, n in [(2, 128, 8, 16, 16), (1, 64, 4, 32, 8)]
+              for q in (16, 32)]
+    for name, (b, s, h, hd, n, q), decay in cases:
+        args = ssd_inputs(torch, gen, b, s, h, hd, n, decay)
+        y = ssd_ops.ssd(*args, chunk=q)
+        plain, _ = ssd_ref.ssd_chunked(*args, chunk=q)
+        torch.cuda.synchronize()
+        err = float((y - plain).abs().max())
+        lim = SSD_TOL * max(1.0, float(plain.abs().max()))
+        ok = err <= lim and bool(torch.isfinite(y).all())
+        is_main = (b, s, h, hd, n, q) == SSD_MAIN
+        ms = cuda_ms(lambda: ssd_ops.ssd(*args, chunk=q), 10 if is_main else 20)
+        plain_ms = cuda_ms(lambda: ssd_ref.ssd_chunked(*args, chunk=q),
+                           3 if is_main else 5)
+        bound_ms, bound_by, exps, flops, nbytes = ssd_bound(b, s, h, hd, n, q)
+        print(f"[b] mamba2_ssd {name}: (B,S,H,hd,N)={(b, s, h, hd, n)} Q={q}:"
+              f" max_abs_err={err:.3e} (tol {lim:.3e}) kernel_ms={ms:.4f}"
+              f" plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by};"
+              f" {exps:.3e} exp, {flops:.3e} FLOP, {nbytes:.3e} B)"
+              f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"mamba2_ssd disagrees with its plain version: "
+                             f"{name} {(b, s, h, hd, n, q)} {err} > {lim}")
+        if is_main and decay == "sweep":
+            row = {"name": "mamba2_ssd", "path": "zamba2-2.7b train",
+                   "route": "cuda", "source": "src/repro_torch/csrc/mamba2_ssd.cu",
+                   "replaces": "src/repro/kernels/mamba2_ssd/kernel.py:17",
+                   "launches": None, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by,
+                   # no single PyTorch call computes the chunked SSD
+                   "library_ms": None}
+        del args, y, plain
+        torch.cuda.empty_cache()
+    return row
+
+
+def grad_check(torch, name, kernel_fn, plain_fn, ins, g):
+    """Gradients of sum(out * g) through the kernel op against autograd
+    through the plain version on the same inputs; then the kernel op's
+    backward ms (recompute and its autograd).  Returns (max rel err, ms)."""
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    out = kernel_fn(*a)
+    ga = torch.autograd.grad(out, a, g, retain_graph=True)
+    gb = torch.autograd.grad(plain_fn(*b), b, g)
+    errs = [float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+            for x, y in zip(ga, gb)]
+    ok = max(errs) <= GRAD_TOL and all(bool(torch.isfinite(x).all())
+                                       for x in ga)
+    ms = cuda_ms(lambda: torch.autograd.grad(out, a, g, retain_graph=True), 3)
+    print(f"[b] grad {name}: max|diff|/max(1, max|plain|) per input "
+          f"{[float(f'{e:.3e}') for e in errs]} (tol {GRAD_TOL:.0e}) "
+          f"backward_ms={ms:.2f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: kernel-op gradients disagree with the "
+                         f"plain version's autograd: {errs}")
+    return max(errs), ms
+
+
+def phase_grads(torch, fa_ops, fa_ref, ssd_ops, ssd_ref):
+    """Gradients through the flash and SSD ops at zamba2's training shapes,
+    fp32, against autograd through the plain versions; the backward ms per
+    layer in the types training runs (SSD fp32, attention bf16)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, s, h, hd, n, q = SSD_MAIN
+    ins = ssd_inputs(torch, gen, b, s, h, hd, n, "sweep")
+    g = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+    _, ssd_bwd = grad_check(
+        torch, f"mamba2_ssd fp32 {SSD_MAIN[:5]} Q={q}",
+        lambda *a: ssd_ops.ssd(*a, chunk=q),
+        lambda *a: ssd_ref.ssd_chunked(*a, chunk=q)[0], ins, g)
+    kw = dict(scale=ZHD ** -0.5, q_block=512, kv_block=512)
+    qkv = [torch.randn((ZB, ZS, ZH, ZHD), generator=gen, device="cuda")
+           for _ in range(3)]
+    g = torch.randn((ZB, ZS, ZH, ZHD), generator=gen, device="cuda")
+    grad_check(torch, f"flash_attention fp32 {(ZB, ZS, ZH, ZHD)} causal",
+               lambda *a: fa_ops.flash_attention(*a, **kw),
+               lambda *a: fa_ref.flash_attention_blockwise(*a, **kw), qkv, g)
+    qkv = [t.bfloat16().requires_grad_() for t in qkv]
+    out = fa_ops.flash_attention(*qkv, **kw)
+    fa_bwd = cuda_ms(lambda: torch.autograd.grad(out, qkv, g.bfloat16(),
+                                                 retain_graph=True), 3)
+    print(f"[b] flash_attention bf16 {(ZB, ZS, ZH, ZHD)} backward_ms="
+          f"{fa_bwd:.2f} (recompute of the blockwise version, q/kv blocks 512)")
+    del ins, qkv, out
+    torch.cuda.empty_cache()
+    return ssd_bwd, fa_bwd
+
+
 def phase_kernel(torch, fa_ops, fa_ref):
-    """Kernel vs plain version; returns the row for the main-path case."""
+    """Kernel vs plain version; returns the rows for the two main paths'
+    cases (gemma2-2b serving, zamba2-2.7b training)."""
     print("[b] flash_attention kernel vs plain blockwise version")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    row = None
+    row = zrow = None
     cases = [(dt, B, S, HQ, G, HD, w, CAP) for dt in ("bfloat16", "float32")
              for w in (4096, S + 1)]
+    cases += [(dt, ZB, ZS, ZH, ZH, ZHD, None, 0.0)
+              for dt in ("bfloat16", "float32")]
     cases += [(dt, 2, 203, 8, 2, hd, 50, CAP) for dt in ("bfloat16", "float32")
-              for hd in (32, 256)]
+              for hd in (32, 80, 256)]
     for dt, b, s, hq, g, hd, window, cap in cases:
         dtype = getattr(torch, dt)
         q = torch.randn((b, s, hq, hd), generator=gen, device="cuda").to(dtype)
@@ -266,7 +434,8 @@ def phase_kernel(torch, fa_ops, fa_ref):
             raise SystemExit(f"flash_attention disagrees with its plain "
                              f"version: {dt} window={window} {check}")
         if main_shape and dt == "bfloat16" and window == S + 1:
-            row = {"name": "flash_attention", "route": "cuda",
+            row = {"name": "flash_attention", "path": "gemma2-2b serve",
+                   "route": "cuda",
                    "source": "src/repro_torch/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention/kernel.py:24",
                    "launches": None, "max_abs_err": err, "ms": ms,
@@ -287,9 +456,28 @@ def phase_kernel(torch, fa_ops, fa_ref):
             print(f"[b] causal only (softcap 0, no window), bf16 main shape: "
                   f"kernel_ms={ms_causal:.3f} sdpa_ms={sdpa_ms:.3f} "
                   f"max_abs_err vs sdpa={sdpa_err:.3e}")
+        if (b, s, hq, g, hd) == (ZB, ZS, ZH, ZH, ZHD) and dt == "bfloat16":
+            # SDPA computes exactly this function: causal, no window, no
+            # softcap, one K/V head per query head
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = functools.partial(
+                torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
+                is_causal=True, scale=hd ** -0.5)
+            sdpa_err = float((sdpa().transpose(1, 2).float() - out.float())
+                             .abs().max())
+            sdpa_ms = cuda_ms(sdpa, 20)
+            print(f"[b] zamba2 shape: sdpa_ms={sdpa_ms:.4f} max_abs_err vs "
+                  f"sdpa={sdpa_err:.3e}")
+            zrow = {"name": "flash_attention", "path": "zamba2-2.7b train",
+                    "route": "cuda",
+                    "source": "src/repro_torch/csrc/flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention/kernel.py:24",
+                    "launches": None, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": sdpa_ms}
         del q, k, v, out, plain, plain32
         torch.cuda.empty_cache()
-    return row
+    return row, zrow
 
 
 def phase_serve(torch, fa_ops, attention, fa_ref, serve):
@@ -348,7 +536,7 @@ def phase_serve(torch, fa_ops, attention, fa_ref, serve):
           f"where margin > tol: {int(sure.sum())}/{len(sure)}")
     if err >= LOGIT_TOL or not bool(same.all()) or not bool(same_served.all()):
         raise SystemExit("kernel path and plain path disagree")
-    return launches
+    return launches, launches // len(res["batches"])
 
 
 def wkv6_rechunked(fn, q, *args, chunk, initial_state=None):
@@ -448,7 +636,145 @@ def phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref, serve):
         raise SystemExit("rwkv6: kernel path and plain path disagree")
     if rel[0] > WKV_TOL or max(rel) > STATE_TOL:
         raise SystemExit("rwkv6: kernel-path and plain-path states disagree")
-    return launches
+    return launches, launches // len(res["batches"])
+
+
+def leaf_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_items(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention):
+    """One fp32 train step's loss and gradients at full width and one group
+    of depth (6 Mamba2 layers, one shared block), kernel path vs plain
+    path, the same params and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.common import Options, softmax_xent
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.runtime.train_step import value_and_grad
+
+    cfg = get_config("zamba2-2.7b").replace(n_layers=6)
+    model = build_model(cfg, Options(q_block=512, kv_block=512))
+    params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
+    batch = to_device(next(Pipeline(cfg.vocab_size, ZS, ZB).batches(1)),
+                      "cuda")
+
+    def loss_fn(p, b):
+        logits = model.forward(p, b, dtype=torch.float32)
+        return softmax_xent(logits, b["labels"], cfg.vocab_size), {}
+
+    ssd_ops.ssd.launches = fa_ops.flash_attention.launches = 0
+    (lk, _), gk = value_and_grad(loss_fn, params, batch)
+    launches = (ssd_ops.ssd.launches, fa_ops.flash_attention.launches)
+    with mock.patch.object(ssd_ops, "ssd", ssd_ops.ssd_plain), \
+            mock.patch.object(attention, "flash_attention",
+                              fa_ref.flash_attention_blockwise):
+        (lp, _), gp = value_and_grad(loss_fn, params, batch)
+    if (ssd_ops.ssd.launches, fa_ops.flash_attention.launches) != launches:
+        raise SystemExit("the plain path launched a kernel")
+    nk, np_ = float(global_norm(gk)), float(global_norm(gp))
+    worst, bad = 0.0, []
+    for (path, a), (_, b) in zip(leaf_items(gk), leaf_items(gp)):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, rel)
+        if rel > STEP_GRAD_TOL or not bool(torch.isfinite(a).all()):
+            bad.append((path, rel))
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    norm_rel = abs(nk - np_) / np_
+    print(f"[c] zamba2 one group (6 Mamba2 layers + shared block), fp32 "
+          f"train step, kernel vs plain path: launches (ssd, flash)="
+          f"{launches}; loss {float(lk):.6f} vs {float(lp):.6f} (rel "
+          f"{loss_rel:.2e}, tol {STEP_LOSS_TOL:.0e}); grad norm {nk:.6f} vs "
+          f"{np_:.6f} (rel {norm_rel:.2e}, tol {STEP_NORM_TOL:.0e}); worst "
+          f"leaf max|diff|/max|plain| {worst:.2e} (tol {STEP_GRAD_TOL:.0e}) "
+          f"over {len(list(leaf_items(gk)))} leaves")
+    if launches != (6, 1):
+        raise SystemExit(f"launches {launches}, want 6 SSD and 1 flash")
+    if loss_rel > STEP_LOSS_TOL or norm_rel > STEP_NORM_TOL or bad:
+        raise SystemExit(f"kernel-path train step disagrees: {bad}")
+    del params, gk, gp
+
+
+def phase_train(torch, ssd_ops, fa_ops, train):
+    """Full-width zamba2-2.7b through `launch.train.main`, then gradient
+    and repeated-batch checks.  Returns the launches of the run and per
+    forward: ((ssd, per forward), (flash, per forward))."""
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.models.common import param_count, tree_leaves
+    from repro_torch.runtime.train_step import (make_loss_fn, make_train_step,
+                                                value_and_grad)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_ops.ssd.launches = fa_ops.flash_attention.launches = 0
+    res = train.main(TRAIN_ARGV)
+    n_ssd, n_fa = ssd_ops.ssd.launches, fa_ops.flash_attention.launches
+    model, params, opt_state = res["model"], res["params"], res["opt_state"]
+    cfg, steps = model.cfg, len(res["losses"])
+    n_params = param_count(params)
+    if (cfg.n_layers, cfg.d_model, cfg.vocab_size) != (54, 2560, 32000):
+        raise SystemExit(f"not zamba2-2.7b at full width: {cfg}")
+    print(f"[c] zamba2-2.7b trained {steps} steps at batch {ZB} x {ZS}: "
+          f"params={n_params:,}; losses={[round(x, 4) for x in res['losses']]}"
+          f"; peak max_memory_allocated_GB="
+          f"{res['peak_bytes'] / 1e9:.2f}")
+    for r in res["records"]:
+        print(f"[c]   step {r['step']}: step_ms={r['step_ms']:.1f} fwd_ms="
+              f"{r['fwd_ms']:.1f} bwd_ms={r['bwd_ms']:.1f} opt_ms="
+              f"{r['opt_ms']:.1f} tokens_per_s={r['tokens_per_s']:.0f} "
+              f"grad_norm={r['grad_norm']:.4f}")
+    print(f"[c] launches per forward: mamba2_ssd {n_ssd / steps:g}, "
+          f"flash_attention {n_fa / steps:g} (want 54 and 9; totals "
+          f"{n_ssd}, {n_fa})")
+    if n_params != 2_501_316_000:
+        raise SystemExit(f"param count {n_params}")
+    if (n_ssd, n_fa) != (54 * steps, 9 * steps):
+        raise SystemExit(f"launches {n_ssd}, {n_fa} over {steps} steps")
+    if not np.isfinite(res["losses"]).all():
+        raise SystemExit("non-finite training loss")
+
+    # one repeated batch: every leaf's gradient, then 4 steps at warmup 0
+    batch = train.to_device(next(Pipeline(cfg.vocab_size, ZS, ZB, seed=1)
+                                 .batches(1)), "cuda")
+    timings: dict = {}
+    (loss0, _), grads = value_and_grad(make_loss_fn(model), params, batch,
+                                       timings)
+    leaves = list(leaf_items(grads))
+    bad = [p for p, g in leaves
+           if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    print(f"[c] gradients of the repeated batch: {len(leaves)} leaves, "
+          f"{len(leaves) - len(bad)} finite and not all zero; loss "
+          f"{float(loss0):.4f}; fwd_ms={timings['fwd_s'] * 1e3:.1f} "
+          f"bwd_ms={timings['bwd_s'] * 1e3:.1f}")
+    if bad:
+        raise SystemExit(f"zero or non-finite gradients: {bad}")
+    del grads
+    # Fresh moments (zeroed in place: a second set would not fit beside the
+    # first) and a small constant lr, so 4 Adam steps on one batch stay in
+    # the regime where the loss must descend; at launch.train's default
+    # lr 3e-4 the 2.5B-parameter model overshoots in its first steps.
+    for t in (*tree_leaves(opt_state.m), *tree_leaves(opt_state.v)):
+        t.zero_()
+    opt_state = opt_state._replace(count=torch.zeros_like(opt_state.count))
+    step_fn = make_train_step(model, res["rc"].replace(
+        lr=REPEAT_LR, warmup_steps=0, total_steps=1000))
+    rep = []
+    for _ in range(4):
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        rep.append(float(m["loss"]))
+    print(f"[c] repeated batch, 4 steps at lr {REPEAT_LR:g}, warmup 0, "
+          f"fresh moments: losses "
+          f"{[round(x, 4) for x in rep]}")
+    if not (np.isfinite(rep).all() and rep[-1] < rep[0]):
+        raise SystemExit("the repeated batch's loss did not fall")
+    return (n_ssd, n_ssd // steps), (n_fa, n_fa // steps)
 
 
 def main() -> int:
@@ -462,7 +788,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
     from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
-    from repro_torch.launch import serve
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
+    from repro_torch.launch import serve, train
     from repro_torch.models import attention, rwkv
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
@@ -471,16 +799,27 @@ def main() -> int:
     card = card_line()
     print(f"[a] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; devices={torch.cuda.device_count()}")
-    build_all(_build, ("flash_attention", "wkv6"))
+    build_all(_build, ("flash_attention", "wkv6", "mamba2_ssd"))
 
-    row = phase_kernel(torch, fa_ops, fa_ref)
+    row, zrow = phase_kernel(torch, fa_ops, fa_ref)
     wkv_row = phase_wkv(torch, wkv_ops, wkv_ref)
-    row["launches"] = phase_serve(torch, fa_ops, attention, fa_ref, serve)
-    wkv_row["launches"] = phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref,
-                                           serve)
+    ssd_row = phase_ssd(torch, ssd_ops, ssd_ref)
+    ssd_row["bwd_ms"], zrow["bwd_ms"] = phase_grads(torch, fa_ops, fa_ref,
+                                                    ssd_ops, ssd_ref)
+    # "launches": the count over the path's run (a serve: its prefill
+    # batches; training: its steps); "launches_per_forward": per prefill
+    # batch or training forward
+    row["launches"], row["launches_per_forward"] = phase_serve(
+        torch, fa_ops, attention, fa_ref, serve)
+    wkv_row["launches"], wkv_row["launches_per_forward"] = phase_serve_rwkv(
+        torch, wkv_ops, rwkv, wkv_ref, serve)
+    phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention)
+    (ssd_row["launches"], ssd_row["launches_per_forward"]), \
+        (zrow["launches"], zrow["launches_per_forward"]) = phase_train(
+            torch, ssd_ops, fa_ops, train)
     print(f"[d] total {time.perf_counter() - t_start:.1f}s")
     print(card_line())
-    print(json.dumps({"kernels": [row, wkv_row]}))
+    print(json.dumps({"kernels": [row, zrow, wkv_row, ssd_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

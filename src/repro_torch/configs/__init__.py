@@ -17,9 +17,11 @@ from repro_torch.configs.base import (
 )
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2_2b
 from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6_1p6b
+from repro_torch.configs.zamba2_2p7b import CONFIG as _zamba2_2p7b
 
 REGISTRY: dict[str, ModelConfig] = {c.name: c for c in [_gemma2_2b,
-                                                        _rwkv6_1p6b]}
+                                                        _rwkv6_1p6b,
+                                                        _zamba2_2p7b]}
 
 ARCH_IDS = list(REGISTRY)
 

@@ -24,8 +24,9 @@
 //   * Q for the tile and one K and V tile live in shared memory as fp32
 //     (132 KB at head_dim 256, above 48 KB, so the launch opts in);
 //   * each warp owns 8 query rows; a lane owns one key column of the scores
-//     and head_dim/32 output columns, so softmax statistics are warp
-//     shuffles and the accumulator stays in registers;
+//     and ceil(head_dim/32) output columns (lane + 32c < head_dim: at head
+//     dim 80 the third column exists on lanes 0-15 only), so softmax
+//     statistics are warp shuffles and the accumulator stays in registers;
 //   * K rows are padded to head_dim+4 floats so the float4 reads of the
 //     score loop are free of bank conflicts;
 //   * tiles move in 16-byte loads staged in registers, and the next K/V
@@ -34,6 +35,9 @@
 //     strides are required; the wrapper checks).
 // A query row with no allowed key (not reachable on the causal path) writes
 // zeros, guarded by max(l, 1e-37) as in the Pallas kernel.
+// Head dims 32, 64, 80 (zamba2-2.7b's shared block), 128 and 256.  Training
+// differentiates the plain blockwise version recomputed from q, k and v
+// (kernels/flash_attention/ops.py): this file is the forward only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -152,7 +156,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd(const Args a) {
   constexpr int LD = HD + 4;     // padded row stride of sQ and sK
-  constexpr int DPL = HD / 32;   // output columns per lane
+  constexpr int DPL = (HD + 31) / 32;   // output columns per lane, the
+                                        // last one guarded by lane + 32c < HD
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);   // BQ x LD
   float* sK = sQ + BQ * LD;                       // BK x LD
@@ -254,7 +259,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd(const Args a) {
     for (int j = 0; j < BK; ++j) {
       float vv[DPL];
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) vv[c] = sV[j * HD + lane + 32 * c];
+      for (int c = 0; c < DPL; ++c)
+        vv[c] = lane + 32 * c < HD ? sV[j * HD + lane + 32 * c] : 0.f;
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const float pj = __shfl_sync(FULL, s[r], j);
@@ -271,7 +277,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd(const Args a) {
     const float den = fmaxf(l[r], 1e-37f);
     T* orow = op + (long long)qpos * a.oss;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) orow[lane + 32 * c] = from_f<T>(acc[r][c] / den);
+    for (int c = 0; c < DPL; ++c)
+      if (lane + 32 * c < HD) orow[lane + 32 * c] = from_f<T>(acc[r][c] / den);
   }
 }
 
@@ -292,6 +299,7 @@ int launch_hd(const Args& a, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<T, 32>(a, stream);
     case 64: return launch<T, 64>(a, stream);
+    case 80: return launch<T, 80>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     case 256: return launch<T, 256>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
 from repro_torch.kernels.flash_attention.ref import NEG_INF, expand_kv  # noqa: F401
-from repro_torch.models.common import dense_init, softcap
+from repro_torch.models.common import dense_init, grad_cast, softcap
 
 MODEL_AXIS_SIZE = 16          # the JAX package's production model-axis width
 
@@ -79,15 +79,16 @@ def project_qkv(p, x, cfg):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return (q.reshape(B, S, hq_pad, hd), k.reshape(B, S, cfg.n_kv_heads, hd),
-            v.reshape(B, S, cfg.n_kv_heads, hd))
+    return (grad_cast(q.reshape(B, S, hq_pad, hd)),
+            grad_cast(k.reshape(B, S, cfg.n_kv_heads, hd)),
+            grad_cast(v.reshape(B, S, cfg.n_kv_heads, hd)))
 
 
 def project_out(p, ctx, cfg):
     """ctx (B,S,Hq_pad,hd) -> (B,S,d_out); masks padded heads first."""
     B, S = ctx.shape[:2]
     mask = head_mask(cfg, ctx.device)[None, None, :, None].to(ctx.dtype)
-    return (ctx * mask).reshape(B, S, -1) @ p["wo"].to(ctx.dtype)
+    return (grad_cast(ctx) * mask).reshape(B, S, -1) @ p["wo"].to(ctx.dtype)
 
 
 # ---------------------------------------------------------------------------

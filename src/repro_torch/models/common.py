@@ -1,4 +1,5 @@
-"""Shared building blocks: init helpers, norms, activations, softcap.
+"""Shared building blocks: init helpers, norms, activations, softcap, the
+loss, and the cotangent cast at the attention boundary.
 
 Parameters are plain nested dicts of tensors.  Layer-stacked parameters carry
 a leading ``(L, ...)`` dim, as in the JAX package, and the model loops over it.
@@ -50,6 +51,40 @@ def layer_params(tree, i: int):
     return tree[i]
 
 
+def unstack(tree, n: int) -> list:
+    """The n layers of a stacked param tree, as a list of trees of views.
+
+    One `unbind` per leaf: its backward stacks the n layer gradients once,
+    where indexing each layer (`layer_params`) would add a zero-filled
+    full-size gradient per layer."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    if tree.shape[0] != n:
+        raise ValueError(f"stacked dim {tree.shape[0]} is not {n}")
+    return list(tree.unbind(0))
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a nested dict tree (a param tree), in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of a nested dict tree (and of same-shaped trees
+    `rest`)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def param_count(params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))
+
+
 # ---------------------------------------------------------------------------
 # Norms & activations (computed in fp32, cast back)
 # ---------------------------------------------------------------------------
@@ -89,6 +124,52 @@ def softcap(x, cap: float):
     if not cap:
         return x
     return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits, labels, vocab_size: int, z_loss: float = 1e-4):
+    """Cross-entropy with optional z-loss; logits in fp32.  labels == -1 are
+    masked out.  `vocab_size` masks the padded vocab columns."""
+    logits = logits.float()
+    if vocab_size < logits.shape[-1]:
+        vmask = torch.arange(logits.shape[-1], device=logits.device) \
+            < vocab_size
+        logits = torch.where(vmask, logits, -1e9)
+    valid = labels >= 0
+    labels = torch.where(valid, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    nll = torch.where(valid, nll, 0.0)
+    denom = torch.clamp(valid.sum(), min=1)
+    return nll.sum() / denom
+
+
+class _GradCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def grad_cast(x):
+    """Identity whose cotangent is cast to the primal's dtype: the
+    mixed-precision boundary guard the JAX model puts on q, k, v and the
+    attention context, so fp32 attention internals hand bf16 cotangents to
+    the projections.  Outside autograd it returns `x` itself."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _GradCast.apply(x)
 
 
 class Options:

@@ -14,7 +14,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import rwkv, transformer
+from repro_torch.models import rwkv, transformer, zamba
 from repro_torch.models.common import Options
 
 
@@ -53,7 +53,7 @@ class Model:
         return Model(self.cfg, self.opts.replace(**kw), self._mod)
 
 
-_FAMILY_MODULES = {"dense": transformer, "ssm": rwkv}
+_FAMILY_MODULES = {"dense": transformer, "ssm": rwkv, "hybrid": zamba}
 
 
 def build_model(cfg, opts: Options = None) -> Model:

@@ -60,3 +60,21 @@ def test_cuda_launcher_refuses_a_ragged_sequence():
                         for a in _inputs(1, 40, 2, 32, seed=0))
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ops.wkv6(r, k, v, logw, u, chunk=16)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_to_drop_a_gradient():
+    """No backward yet: while autograd records through an input the kernel
+    raises instead of returning a y with no gradient; without a graph it
+    runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    r, k, v, logw, u = (torch.from_numpy(a).cuda()
+                        for a in _inputs(1, 64, 2, 32, seed=0))
+    before = ops.wkv6.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.wkv6(r.requires_grad_(), k, v, logw, u, chunk=16)
+    assert ops.wkv6.launches == before
+    with torch.no_grad():
+        ops.wkv6(r, k, v, logw, u, chunk=16)
+    assert ops.wkv6.launches == before + 1
