@@ -11,11 +11,18 @@ Phases; any failure exits non-zero:
       paths' shapes and small cases: flash attention in bf16 and fp32 (head
       dims 256, 80 and 32), the chunked WKV in fp32 (two decay regimes, an
       initial state), the chunked SSD in fp32 (the JAX sweep, slow and fast
-      decay); error against the stated tolerance, kernel / plain / library
-      ms and the bound; then the gradients through the flash and SSD ops
-      against autograd through their plain versions, and the backward's ms;
+      decay), A^T B in fp32 and bf16 (the JAX sweep, a ragged shape, the
+      METG ladder); error against the stated tolerance, kernel / plain /
+      library ms and the bound; then the gradients through the flash and SSD
+      ops against autograd through their plain versions, and the backward's
+      ms;
   (c) the main paths, each with the launch counts set to 0 just before and
-      read just after: serve 4 requests of 4200-token prompts through
+      read just after: the paper's dwork scheduler running the METG ladder
+      of A^T B tasks (launch.metg: n = 256 ... 4096, backlogs of up to
+      20,000 tasks and a gather task each, through Client.run_loop and
+      OverlapClient), with every task completed without error and one
+      kernel launch per task besides the launches made without the
+      scheduler; serve 4 requests of 4200-token prompts through
       full-width gemma2-2b (26 layers) and through full-width rwkv6-1.6b (24
       layers), random weights from a seed; every kernel of the path must
       have launched once per layer and prefill batch, and the kernel path's
@@ -27,7 +34,8 @@ Phases; any failure exits non-zero:
       non-zero gradient on every leaf, and 4 more steps on one repeated
       batch whose loss must fall;
   (d) last lines: the card, a JSON line of per-kernel results (flash
-      attention once per path), and {"ok": true, "device": {...}}.
+      attention once per path; A^T B at the ladder's top, with every shape
+      it was held at), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -97,6 +105,21 @@ GRAD_TOL = 1e-5
 # off by O(1).
 STEP_LOSS_TOL, STEP_NORM_TOL, STEP_GRAD_TOL = 1e-5, 1e-4, 1e-3
 REPEAT_LR = 1e-5     # the repeated-batch steps (see phase_train)
+# A^T B as (K, M, N): the JAX kernel sweep (tests/test_kernels.py:18-29), a
+# ragged shape, and the METG ladder's squares (launch/metg.py)
+MATMUL_SWEEP = [(256, 256, 256), (512, 256, 384), (384, 128, 512),
+                (128, 128, 128)]
+MATMUL_RAGGED = [(1000, 130, 70)]
+MATMUL_LADDER = [(n, n, n) for n in (256, 512, 1024, 2048, 4096)]
+# A^T B kernel vs plain version.  fp32: only the order of the sums differs,
+# so max |diff| <= 1e-5 * sqrt(K) * max(1, max|a| * max|b|)
+# (`launch.metg.tolerance`: the roundings of K terms add up as a random walk;
+# a wrong index or a dropped k-slice is off by O(1), inputs rounded to TF32
+# by 5-7 times the limit).  At the JAX sweep's shapes also its own 1e-4
+# absolute.  bf16: the kernel rounds its fp32 sum once, so it lies within
+# half a bf16 ulp of the plain version's fp32 result plus that fp32 bound
+# (bf16_excess); at the sweep's shapes also the sweep's 0.25 absolute.
+MATMUL_SWEEP_ATOL = {"float32": 1e-4, "bfloat16": 0.25}
 
 
 def card_line() -> str:
@@ -328,6 +351,136 @@ def phase_ssd(torch, ssd_ops, ssd_ref):
         del args, y, plain
         torch.cuda.empty_cache()
     return row
+
+
+def matmul_bound(k, m, n, itemsize, flops_peak):
+    """Least time for C = A^T B: 2 K M N FLOPs at the type's rate (fp32
+    outside the tensor cores, bf16 on them), A and B read once and C
+    written once.  Returns (ms, bound_by, flops, bytes)."""
+    flops = 2.0 * k * m * n
+    nbytes = itemsize * (k * m + k * n + m * n)
+    t_ops, t_bytes = flops / flops_peak, nbytes / H100_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def phase_matmul(torch, mm_ops, mm_ref, metg):
+    """A^T B kernel vs plain version in fp32 and bf16 at the JAX sweep, a
+    ragged shape and the METG ladder; beside each, torch.matmul(a.t(), b)
+    with TF32 off.  Each is timed as launch.metg times the kernel: launches
+    queued behind a sleep, so that the events bracket the card's work and
+    not the host's pace (a small product takes less time on the card than
+    its launch on the host).  Returns the row for the ladder's top in fp32,
+    with every case under "shapes"."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("[b] tiled_matmul kernel vs plain version; library call "
+          "torch.matmul(a.t(), b) timed with "
+          f"torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    row, shapes = None, []
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for kind, cases in (("sweep", MATMUL_SWEEP),
+                            ("ragged", MATMUL_RAGGED),
+                            ("ladder", MATMUL_LADDER)):
+            for k, m, n in cases:
+                a = torch.randn((k, m), generator=gen, device="cuda").to(dtype)
+                b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+                out = mm_ops.tiled_matmul(a, b)
+                exact = mm_ref.tiled_matmul_ref(a.float(), b.float())
+                plain = mm_ref.tiled_matmul_ref(a, b)
+                torch.cuda.synchronize()
+                tol = metg.tolerance(k, float(a.abs().max()),
+                                     float(b.abs().max()))
+                err = float((out.float() - plain.float()).abs().max())
+                if dt == "float32":
+                    check, ok = f"(tol {tol:.3e})", err <= tol
+                else:
+                    excess = bf16_excess(out, exact)
+                    check = (f"beyond one bf16 rounding of the fp32 result: "
+                             f"{excess:.3e} (tol {tol:.3e})")
+                    ok = excess <= tol
+                if kind == "sweep":
+                    check += f", sweep atol {MATMUL_SWEEP_ATOL[dt]:g}"
+                    ok = ok and err <= MATMUL_SWEEP_ATOL[dt]
+                ok = ok and bool(torch.isfinite(out).all())
+                reps = 10 if k * m * n >= 2048 ** 3 else 100
+
+                def timed(fn):
+                    fn(0)                               # warm-up
+                    return 1e3 * metg.device_seconds(fn, reps, a.device)[0]
+                ms, plain_ms, lib_ms = (
+                    timed(lambda i: mm_ops.tiled_matmul(a, b)),
+                    timed(lambda i: mm_ref.tiled_matmul_ref(a, b)),
+                    timed(lambda i: torch.matmul(a.t(), b)))
+                bound_ms, bound_by, flops, nbytes = matmul_bound(
+                    k, m, n, a.element_size(),
+                    H100_BF16_FLOPS if dt == "bfloat16" else H100_FP32_FLOPS)
+                print(f"[b] tiled_matmul {dt:8s} {kind} (K,M,N)={(k, m, n)}: "
+                      f"max_abs_err={err:.3e} {check} kernel_ms={ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                      f"bound_ms={bound_ms:.4f} ({bound_by}; {flops:.3e} "
+                      f"FLOP, {nbytes:.3e} B; {flops / ms / 1e9:.2f} TFLOP/s)"
+                      f" {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"tiled_matmul disagrees with its plain "
+                                     f"version: {dt} {(k, m, n)} {check}")
+                shapes.append({"dtype": dt, "kind": kind, "kmn": [k, m, n],
+                               "max_abs_err": err, "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "library_ms": lib_ms})
+                if (k, m, n) == MATMUL_LADDER[-1] and dt == "float32":
+                    row = {"name": "tiled_matmul",
+                           "path": f"dwork METG ladder, n = {n}, fp32",
+                           "route": "cuda",
+                           "source": "src/repro_torch/csrc/tiled_matmul.cu",
+                           "replaces":
+                               "src/repro/kernels/tiled_matmul/kernel.py:19",
+                           "launches": None, "max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "library_ms": lib_ms}
+                del a, b, out, exact, plain
+                torch.cuda.empty_cache()
+    row["shapes"] = shapes
+    return row
+
+
+def phase_metg(torch, mm_ops, metg):
+    """The paper's dwork scheduler at the full METG ladder and backlog
+    (launch.metg.main with its defaults); returns the kernel's launches over
+    the run, which must be one per task run plus the launches made without
+    the scheduler (warm-up, timing, the plain loop)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    mm_ops.tiled_matmul.launches = 0
+    t0 = time.perf_counter()
+    res = metg.main(["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = mm_ops.tiled_matmul.launches
+    want, tasks = 0, 0
+    for r in res["rows"]:
+        for run in (r["loop"], r["overlap"]):
+            st = run["stats"]
+            if st["errors"] or st["completed"] != st["created"] \
+                    or st["created"] != r["tasks"] + 1 or not run["gathered"]:
+                raise SystemExit(f"dwork {run['client']} at n={r['n']}: {st}")
+            tasks += run["matmul_tasks"]
+        if r["launched"] != r["direct_launches"] + r["loop"]["matmul_tasks"] \
+                + r["overlap"]["matmul_tasks"]:
+            raise SystemExit(f"launch accounting at n={r['n']}: {r}")
+        if r["checked"] == 0 or r["worst_err_over_tol"] > 1.0:
+            raise SystemExit(f"sampled checks at n={r['n']}: {r['checked']} "
+                             f"checked, worst/tol {r['worst_err_over_tol']}")
+        want += r["launched"]
+    print(f"[c] dwork METG ladder {[r['n'] for r in res['rows']]} in "
+          f"{wall:.1f}s: {tasks} tasks run through the kernel, every server "
+          f"completed == created with 0 errors and its gather done; "
+          f"tiled_matmul launches={launches} (want {want}: the tasks plus "
+          f"{want - tasks} launches without the scheduler)")
+    if launches != want:
+        raise SystemExit(f"tiled_matmul launched {launches} times, want {want}")
+    return launches
 
 
 def grad_check(torch, name, kernel_fn, plain_fn, ins, g):
@@ -790,7 +943,9 @@ def main() -> int:
     from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
-    from repro_torch.launch import serve, train
+    from repro_torch.kernels.tiled_matmul import ops as mm_ops
+    from repro_torch.kernels.tiled_matmul import ref as mm_ref
+    from repro_torch.launch import metg, serve, train
     from repro_torch.models import attention, rwkv
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
@@ -799,13 +954,16 @@ def main() -> int:
     card = card_line()
     print(f"[a] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; devices={torch.cuda.device_count()}")
-    build_all(_build, ("flash_attention", "wkv6", "mamba2_ssd"))
+    build_all(_build, ("flash_attention", "wkv6", "mamba2_ssd",
+                       "tiled_matmul"))
 
     row, zrow = phase_kernel(torch, fa_ops, fa_ref)
     wkv_row = phase_wkv(torch, wkv_ops, wkv_ref)
     ssd_row = phase_ssd(torch, ssd_ops, ssd_ref)
     ssd_row["bwd_ms"], zrow["bwd_ms"] = phase_grads(torch, fa_ops, fa_ref,
                                                     ssd_ops, ssd_ref)
+    mm_row = phase_matmul(torch, mm_ops, mm_ref, metg)
+    mm_row["launches"] = phase_metg(torch, mm_ops, metg)
     # "launches": the count over the path's run (a serve: its prefill
     # batches; training: its steps); "launches_per_forward": per prefill
     # batch or training forward
@@ -819,7 +977,7 @@ def main() -> int:
             torch, ssd_ops, fa_ops, train)
     print(f"[d] total {time.perf_counter() - t_start:.1f}s")
     print(card_line())
-    print(json.dumps({"kernels": [row, zrow, wkv_row, ssd_row]}))
+    print(json.dumps({"kernels": [row, zrow, wkv_row, ssd_row, mm_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,7 +11,8 @@ Layers (module names mirror the JAX package):
   repro_torch.optim    — AdamW
   repro_torch.data     — synthetic corpus, packing, batches
   repro_torch.runtime  — prefill / decode / greedy generation; train step
-  repro_torch.launch   — serve and train entry points
+  repro_torch.core     — the paper's dwork scheduler and METG model
+  repro_torch.launch   — serve, train and METG entry points
   repro_torch.bridge   — numpy <-> torch param trees, for parity tests
 
 Entry points run on "cuda" unless the caller passes device="cpu".

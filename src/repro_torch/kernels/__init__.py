@@ -3,6 +3,7 @@
   flash_attention — causal/windowed/soft-capped attention (prefill)
   rwkv6_scan      — chunked RWKV6 WKV recurrence (rwkv6 time-mix)
   mamba2_ssd      — chunked Mamba2 SSD scan (zamba2's Mamba2 layers)
+  tiled_matmul    — C = A^T B, the paper's METG task (launch/metg.py)
 
 and in each:
 

@@ -34,7 +34,7 @@ def test_no_jax_or_repro_import(path):
 
 
 def test_entry_points_default_to_cuda():
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import metg, serve, train
     from repro_torch.models import mamba2, model, rwkv, transformer, zamba
     from repro_torch.runtime import serve_step, train_step  # noqa: F401
     assert serve.parse_args([]).device == "cuda"
@@ -42,6 +42,7 @@ def test_entry_points_default_to_cuda():
     assert serve.parse_args(["--no-reduced"]).reduced is False
     assert train.parse_args([]).device == "cuda"
     assert train.parse_args(["--no-reduced"]).reduced is False
+    assert metg.parse_args([]).device == "cuda"
     for fn in (model.Model.init, model.Model.init_cache, transformer.init_lm,
                transformer.init_cache, rwkv.init_lm, rwkv.init_state,
                zamba.init_lm, mamba2.init_mamba, train_step.init_train_state):
