@@ -6,14 +6,20 @@
 Phases; any failure exits non-zero:
   (a) card: name and power limit from nvidia-smi; build every kernel from
       src/repro_torch/csrc, one nvcc per source, all started together, with
-      each build's seconds and its register and spill lines;
+      each build's seconds, each kernel's registers and spills, and each
+      library's count of HGMMA (tensor-core) instructions in its SASS,
+      which must not be 0 for flash attention and A^T B;
   (b) each kernel against its plain PyTorch version on the card, at the main
       paths' shapes and small cases: flash attention in bf16 and fp32 (head
       dims 256, 80 and 32), the chunked WKV in fp32 (two decay regimes, an
       initial state), the chunked SSD in fp32 (the JAX sweep, slow and fast
       decay), A^T B in fp32 and bf16 (the JAX sweep, a ragged shape, the
       METG ladder); error against the stated tolerance, kernel / plain /
-      library ms and the bound; then the gradients through the flash and SSD
+      library ms and the bound, and the kernel and tiling each case took
+      (bf16 flash and A^T B: the tensor cores), held equal to what the
+      launchers' `route` / `plan` state; the gemma2 row's library call is
+      torch.compile(flex_attention) with its softcap and band, the zamba2
+      row's SDPA; then the gradients through the flash and SSD
       ops against autograd through their plain versions, and the backward's
       ms;
   (c) the main paths, each with the launch counts set to 0 just before and
@@ -42,6 +48,7 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -169,20 +176,69 @@ def attention_bound(b, s, hq, g, hd, window, itemsize, flops_peak):
                                        else "bytes"), flops
 
 
+def demangle(names):
+    """C++ names as c++filt gives them, where the machine has c++filt."""
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return list(names)
+    return subprocess.run([tool], input="\n".join(names), capture_output=True,
+                          text=True, check=True).stdout.splitlines()
+
+
+def cuobjdump():
+    """The toolkit's cuobjdump, or the copy Triton's package carries."""
+    found = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(found).exists():
+        return found
+    import triton
+    return str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin"
+               / "cuobjdump")
+
+
 def build_all(_build, names):
-    """One nvcc per source, all started together; each build's seconds and
-    its -Xptxas -v register and spill lines."""
+    """One nvcc per source, all started together; each build's seconds,
+    each kernel's registers and spills (-Xptxas -v) and each library's
+    count of HGMMA (wgmma) instructions in its SASS.  Returns {name: HGMMA
+    count}."""
     def one(name):
         t0 = time.perf_counter()
         return _build.build(name), time.perf_counter() - t0
 
     with ThreadPoolExecutor(len(names)) as pool:
         done = dict(zip(names, pool.map(one, names)))
+    tool = cuobjdump()
+    hgmma = {}
     for name, (log, secs) in done.items():
-        print(f"[a] {name} built in {secs:.1f}s")
+        entries, cur, spill = [], None, (0, 0)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "Compiling entry function" in line:
+                cur = line.split("'")[1]
+            elif "spill stores" in line:
+                nums = [int(w) for w in line.replace(",", " ").split()
+                        if w.isdigit()]
+                spill = (nums[1], nums[2])
+            elif "Used" in line and "registers" in line and cur:
+                regs = int(line.split("Used")[1].split()[0])
+                entries.append((cur, regs) + spill)
+                cur = None
+            elif "error" in line:
                 print(f"[a] {name}: {line.strip()}")
+        names_ = demangle([e[0] for e in entries])
+        entries = [(n,) + e[1:] for n, e in zip(names_, entries)]
+        sass = subprocess.run(
+            [tool, "-sass", str(_build._lib_path(_build.CSRC / f"{name}.cu"))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        hgmma[name] = sum("HGMMA" in line for line in sass.splitlines())
+        print(f"[a] {name} built in {secs:.1f}s; {hgmma[name]} HGMMA "
+              f"instructions in its SASS")
+        for kern, regs, st, ld in entries:
+            print(f"[a] {name}: {kern}: {regs} registers, {st} B spill "
+                  f"stores, {ld} B spill loads")
+    for name in ("flash_attention", "tiled_matmul"):
+        if hgmma.get(name) == 0:
+            raise SystemExit(f"{name}: no HGMMA in its SASS; the bf16 path "
+                             f"does not reach the tensor cores")
+    return hgmma
 
 
 def wkv_bound(b, s, h, hd, q, with_state):
@@ -364,14 +420,16 @@ def matmul_bound(k, m, n, itemsize, flops_peak):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def phase_matmul(torch, mm_ops, mm_ref, metg):
+def phase_matmul(torch, mm_ops, mm_ref, mm_kernel, metg):
     """A^T B kernel vs plain version in fp32 and bf16 at the JAX sweep, a
     ragged shape and the METG ladder; beside each, torch.matmul(a.t(), b)
     with TF32 off.  Each is timed as launch.metg times the kernel: launches
     queued behind a sleep, so that the events bracket the card's work and
     not the host's pace (a small product takes less time on the card than
-    its launch on the host).  Returns the row for the ladder's top in fp32,
-    with every case under "shapes"."""
+    its launch on the host).  Each case prints the kernel and tiling it
+    took, which must be the one `plan` states (bf16: the tensor cores).
+    Returns the row for the ladder's top in fp32, with every case under
+    "shapes"."""
     torch.backends.cuda.matmul.allow_tf32 = False
     print("[b] tiled_matmul kernel vs plain version; library call "
           "torch.matmul(a.t(), b) timed with "
@@ -387,6 +445,12 @@ def phase_matmul(torch, mm_ops, mm_ref, metg):
             for k, m, n in cases:
                 a = torch.randn((k, m), generator=gen, device="cuda").to(dtype)
                 b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+                pl = mm_kernel.plan(dtype, k, m, n, a.data_ptr(),
+                                    b.data_ptr())
+                if pl != mm_kernel.c_plan(a, b) or (pl.route == 1) != (
+                        dt == "bfloat16"):
+                    raise SystemExit(f"tiled_matmul plan: {pl} stated, "
+                                     f"{mm_kernel.c_plan(a, b)} taken")
                 out = mm_ops.tiled_matmul(a, b)
                 exact = mm_ref.tiled_matmul_ref(a.float(), b.float())
                 plain = mm_ref.tiled_matmul_ref(a, b)
@@ -422,14 +486,15 @@ def phase_matmul(torch, mm_ops, mm_ref, metg):
                       f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                       f"bound_ms={bound_ms:.4f} ({bound_by}; {flops:.3e} "
                       f"FLOP, {nbytes:.3e} B; {flops / ms / 1e9:.2f} TFLOP/s)"
-                      f" {'ok' if ok else 'FAIL'}")
+                      f" [{pl.describe()}] {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SystemExit(f"tiled_matmul disagrees with its plain "
                                      f"version: {dt} {(k, m, n)} {check}")
                 shapes.append({"dtype": dt, "kind": kind, "kmn": [k, m, n],
                                "max_abs_err": err, "ms": ms,
                                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                               "bound_by": bound_by, "library_ms": lib_ms})
+                               "bound_by": bound_by, "library_ms": lib_ms,
+                               "tiling": pl.describe()})
                 if (k, m, n) == MATMUL_LADDER[-1] and dt == "float32":
                     row = {"name": "tiled_matmul",
                            "path": f"dwork METG ladder, n = {n}, fp32",
@@ -439,7 +504,9 @@ def phase_matmul(torch, mm_ops, mm_ref, metg):
                                "src/repro/kernels/tiled_matmul/kernel.py:19",
                            "launches": None, "max_abs_err": err, "ms": ms,
                            "plain_ms": plain_ms, "bound_ms": bound_ms,
-                           "bound_by": bound_by, "library_ms": lib_ms}
+                           "bound_by": bound_by, "library_ms": lib_ms,
+                           "library": "torch.matmul(a.t(), b)",
+                           "tiling": pl.describe()}
                 del a, b, out, exact, plain
                 torch.cuda.empty_cache()
     row["shapes"] = shapes
@@ -536,10 +603,38 @@ def phase_grads(torch, fa_ops, fa_ref, ssd_ops, ssd_ref):
     return ssd_bwd, fa_bwd
 
 
-def phase_kernel(torch, fa_ops, fa_ref):
+def flex_yardstick(torch, q, k, v, window, cap, scale, compiled):
+    """The one PyTorch call that computes the gemma2 row's function:
+    flex_attention under torch.compile with the tanh softcap as score_mod,
+    the causal (+ window) band as block_mask and enable_gqa.  Returns its
+    output and its ms; the port never calls it."""
+    from torch.nn.attention.flex_attention import create_block_mask
+    s_len = q.shape[1]
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, qi, ki):
+        return (qi >= ki) & (qi - ki < window)
+
+    mask = create_block_mask(mask_mod, None, None, s_len, s_len,
+                             device="cuda")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    call = functools.partial(compiled, qt, kt, vt, score_mod=score_mod,
+                             block_mask=mask, scale=scale, enable_gqa=True)
+    out = call().transpose(1, 2)
+    return out, cuda_ms(call, 5)
+
+
+def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
     """Kernel vs plain version; returns the rows for the two main paths'
-    cases (gemma2-2b serving, zamba2-2.7b training)."""
+    cases (gemma2-2b serving, zamba2-2.7b training).  Each case prints the
+    kernel and tiling it took, which must be the one `route` states (bf16:
+    the tensor cores)."""
+    from torch.nn.attention.flex_attention import flex_attention
     print("[b] flash_attention kernel vs plain blockwise version")
+    flex = torch.compile(flex_attention)
+    flex_compile_s = None
     gen = torch.Generator(device="cuda").manual_seed(0)
     row = zrow = None
     cases = [(dt, B, S, HQ, G, HD, w, CAP) for dt in ("bfloat16", "float32")
@@ -550,6 +645,11 @@ def phase_kernel(torch, fa_ops, fa_ref):
               for hd in (32, 80, 256)]
     for dt, b, s, hq, g, hd, window, cap in cases:
         dtype = getattr(torch, dt)
+        rt = fa_kernel.route(dtype, hd)
+        if rt != fa_kernel.c_route(dtype, hd) or (rt.route == 1) != (
+                dt == "bfloat16"):
+            raise SystemExit(f"flash_attention route: {rt} stated, "
+                             f"{fa_kernel.c_route(dtype, hd)} taken")
         q = torch.randn((b, s, hq, hd), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, s, g, hd), generator=gen, device="cuda").to(dtype)
         v = torch.randn((b, s, g, hd), generator=gen, device="cuda").to(dtype)
@@ -582,10 +682,24 @@ def phase_kernel(torch, fa_ops, fa_ref):
               f" softcap={cap}: max_abs_err={err:.3e} {check}"
               f" kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}"
               f" bound_ms={bound_ms:.4f} ({bound_by}, {flops:.3e} FLOP)"
-              f" {'ok' if ok else 'FAIL'}")
+              f" [{rt.describe()}] {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"flash_attention disagrees with its plain "
                              f"version: {dt} window={window} {check}")
+        if main_shape and dt == "bfloat16":
+            if flex_compile_s is None:     # the first call compiles
+                t0 = time.perf_counter()
+                flex_yardstick(torch, q, k, v, window, cap, SCALE, flex)
+                flex_compile_s = time.perf_counter() - t0
+            flex_out, flex_ms = flex_yardstick(torch, q, k, v, window, cap,
+                                               SCALE, flex)
+            print(f"[b] library call torch.compile(flex_attention), softcap "
+                  f"score_mod, causal{'' if window > S else ' + window'} "
+                  f"block_mask, enable_gqa: flex_ms={flex_ms:.3f} "
+                  f"(compiled in {flex_compile_s:.1f}s) kernel_ms={ms:.3f} "
+                  f"max_abs_err vs plain fp32="
+                  f"{float((flex_out.float() - plain32).abs().max()):.3e}")
+            del flex_out
         if main_shape and dt == "bfloat16" and window == S + 1:
             row = {"name": "flash_attention", "path": "gemma2-2b serve",
                    "route": "cuda",
@@ -593,7 +707,9 @@ def phase_kernel(torch, fa_ops, fa_ref):
                    "replaces": "src/repro/kernels/flash_attention/kernel.py:24",
                    "launches": None, "max_abs_err": err, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": None}
+                   "bound_by": bound_by, "library_ms": flex_ms,
+                   "library": "torch.compile(flex_attention)",
+                   "tiling": rt.describe()}
             # SDPA computes plain causal attention (no softcap, no window):
             # a yardstick at the same shape, beside the kernel at that setting
             ms_causal = cuda_ms(lambda: fa_ops.flash_attention(
@@ -627,7 +743,9 @@ def phase_kernel(torch, fa_ops, fa_ref):
                     "replaces": "src/repro/kernels/flash_attention/kernel.py:24",
                     "launches": None, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": sdpa_ms}
+                    "bound_by": bound_by, "library_ms": sdpa_ms,
+                    "library": "scaled_dot_product_attention",
+                    "tiling": rt.describe()}
         del q, k, v, out, plain, plain32
         torch.cuda.empty_cache()
     return row, zrow
@@ -937,12 +1055,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
     from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
+    from repro_torch.kernels.tiled_matmul import kernel as mm_kernel
     from repro_torch.kernels.tiled_matmul import ops as mm_ops
     from repro_torch.kernels.tiled_matmul import ref as mm_ref
     from repro_torch.launch import metg, serve, train
@@ -954,16 +1074,19 @@ def main() -> int:
     card = card_line()
     print(f"[a] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; devices={torch.cuda.device_count()}")
-    build_all(_build, ("flash_attention", "wkv6", "mamba2_ssd",
-                       "tiled_matmul"))
+    builds = build_all(_build, ("flash_attention", "wkv6", "mamba2_ssd",
+                                "tiled_matmul"))
 
-    row, zrow = phase_kernel(torch, fa_ops, fa_ref)
+    row, zrow = phase_kernel(torch, fa_ops, fa_ref, fa_kernel)
     wkv_row = phase_wkv(torch, wkv_ops, wkv_ref)
     ssd_row = phase_ssd(torch, ssd_ops, ssd_ref)
     ssd_row["bwd_ms"], zrow["bwd_ms"] = phase_grads(torch, fa_ops, fa_ref,
                                                     ssd_ops, ssd_ref)
-    mm_row = phase_matmul(torch, mm_ops, mm_ref, metg)
+    mm_row = phase_matmul(torch, mm_ops, mm_ref, mm_kernel, metg)
     mm_row["launches"] = phase_metg(torch, mm_ops, metg)
+    for r, lib in ((row, "flash_attention"), (zrow, "flash_attention"),
+                   (mm_row, "tiled_matmul")):
+        r["sass_hgmma"] = builds[lib]
     # "launches": the count over the path's run (a serve: its prefill
     # batches; training: its steps); "launches_per_forward": per prefill
     # batch or training forward

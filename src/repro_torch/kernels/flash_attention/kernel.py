@@ -1,10 +1,14 @@
-"""Launcher for the CUDA flash-attention kernel (csrc/flash_attention.cu).
+"""Launcher for the CUDA flash-attention kernels (csrc/flash_attention.cu).
 
-Checks what the kernel takes, allocates the output and launches on PyTorch's
-current stream.  The library is built at the first launch."""
+Checks what the kernels take, allocates the output and launches on
+PyTorch's current stream.  The library is built at the first launch.
+`route` is the pure-Python statement of the kernel and tiling the C entry
+point takes for a type and head dim; `c_route` asks the built library, and
+the card run holds the two equal."""
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -12,6 +16,41 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128, 256)
+
+ROUTES = ("fp32 CUDA cores", "bf16 tensor cores (wgmma)")
+
+
+class Route(NamedTuple):
+    route: int          # index into ROUTES
+    q_rows: int         # query rows a block
+    k_rows: int         # keys a tile
+    kv_stages: int      # K/V tiles held in shared memory at once
+    threads: int
+    smem_bytes: int
+
+    def describe(self) -> str:
+        return (f"{ROUTES[self.route]}, {self.q_rows} queries x "
+                f"{self.k_rows} keys a tile, {self.kv_stages} K/V stage(s), "
+                f"{self.threads} threads, {self.smem_bytes} B shared")
+
+
+def route(dtype, hd: int) -> Route:
+    """bf16 takes the tensor-core kernel: 128 query rows (two warpgroups),
+    64-key tiles in a ring of 2 stages, bf16 in shared memory in 64-wide
+    panels (head dim rounded up to a multiple of 64) plus 1 KB of alignment
+    slack.  fp32 takes the CUDA-core kernel: 64 query rows, 32-key tiles,
+    fp32 Q, K (rows padded by 4) and V in shared memory."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        panels = -(-hd // 64)
+        return Route(1, 128, 64, 2, 256,
+                     panels * 128 * 128 + 2 * 2 * panels * 64 * 128 + 1024)
+    if dtype == torch.float32:
+        return Route(0, 64, 32, 1, 256, 4 * (64 * (hd + 4) + 32 * (hd + 4)
+                                             + 32 * hd))
+    raise TypeError(f"flash_attention: no kernel for {dtype}")
+
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I] + [_L] * 12 \
@@ -24,6 +63,17 @@ def _fn():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def c_route(dtype, hd: int) -> Route:
+    """The route the built library takes for this type and head dim."""
+    lib = _build.library("flash_attention")
+    fn = lib.flash_attention_route
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    _build.check(lib, fn(_DTYPES[dtype], hd, out), "flash_attention_route")
+    return Route(*out)
 
 
 def flash_attention_cuda(q, k, v, *, window=None, logit_softcap: float = 0.0,

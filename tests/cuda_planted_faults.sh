@@ -1,42 +1,68 @@
 #!/bin/bash
-# Planted faults in the CUDA A^T B kernel: each one is applied to a copy of
-# src/ and tests/ in a temporary directory, then the card tests
+# Planted faults in the CUDA A^T B and flash-attention kernels: each one is
+# applied to a copy of src/ and tests/ in a temporary directory, then the
+# card tests of that kernel run against the copy
 # (tests/test_torch_tiled_matmul_cuda.py, which include the METG ladder's
-# shapes) and a short METG ladder run against the copy.  Every fault must
-# fail the card tests; a fault on the METG path's fp32 product must also
-# stop the ladder with failed tasks.  Prints, per fault, the ids of the card
-# tests that failed, pytest's summary and the ladder's last line.  Needs the
-# card and nvcc.  Run from the repository root:
+# shapes, or tests/test_torch_flash_attention_cuda.py); for A^T B also a
+# short METG ladder run.  Every fault must fail the card tests; a fault on
+# the METG path's fp32 product must also stop the ladder with failed tasks.
+# Prints, per fault, the ids of the card tests that failed, pytest's summary
+# and the ladder's last line.  Exits 1 if a fault's pattern does not apply.
+# Needs the card and nvcc.  Run from the repository root:
 #
 #     bash tests/cuda_planted_faults.sh
 set -u
 cd "$(dirname "$0")/.."
-declare -A FAULTS=(
-  # the loop over k stops one slice early
-  [drop_last_k_slice]='s/for (int k0 = 0; k0 < K; k0 += BK)/for (int k0 = 0; k0 + BK < K; k0 += BK)/'
-  # bf16 output truncated instead of rounded to nearest
-  [bf16_truncation]='s/return __float2bfloat16(x);   \/\/ round to nearest even/return __float2bfloat16_rz(x);/'
-  # a drift of one part in 1e7 per k-slice (about one fp32 ulp)
-  [drift_per_slice]='s/acc\[i\]\[j\] += part\[i\]\[j\];/acc[i][j] = part[i][j] + acc[i][j] * 1.0000001f;/'
-  # inputs rounded to TF32 (10 mantissa bits) as they are staged
-  [tf32_inputs]='s/? to_f(X\[static_cast<size_t>(k) \* cols + c\])/? __uint_as_float((__float_as_uint(to_f(X[static_cast<size_t>(k) * cols + c])) + 0x1000u) \& 0xffffe000u)/'
-)
+MM=src/repro_torch/csrc/tiled_matmul.cu
+FA=src/repro_torch/csrc/flash_attention.cu
+declare -A FILES FAULTS
+# A^T B: the k loops stop one k-stage early (fp32 and bf16)
+FILES[drop_last_k_slice]=$MM
+FAULTS[drop_last_k_slice]='s/return (K + depth - 1) \/ depth;/return (K - 1) \/ depth;/'
+# A^T B: bf16 output truncated instead of rounded to nearest
+FILES[bf16_truncation]=$MM
+FAULTS[bf16_truncation]='s/return __float2bfloat16(x);   \/\/ round to nearest even/return __float2bfloat16_rz(x);/'
+# A^T B fp32: a drift of one part in 1e7 per k-stage (about one fp32 ulp)
+FILES[drift_per_slice]=$MM
+FAULTS[drift_per_slice]='s|    // end of the k-slice|    for (auto\& r : acc) for (float\& x : r) x *= 1.0000001f;|'
+# A^T B fp32: operands rounded to TF32 (10 mantissa bits) as they are read
+FILES[tf32_inputs]=$MM
+FAULTS[tf32_inputs]='s|return \*reinterpret_cast<const float4\*>(p);   // operands as stored|float4 v = *reinterpret_cast<const float4*>(p); float* f = \&v.x; for (int i = 0; i < 4; ++i) f[i] = __uint_as_float((__float_as_uint(f[i]) + 0x1000u) \& 0xffffe000u); return v;|'
+# flash bf16: P.V with P_hi only (the P_lo term dropped)
+FILES[drop_p_lo]=$FA
+FAULTS[drop_p_lo]='s|sm90::wgmma_rs<HD, 1>(o, plo\[kt\], dv, 1);   // P_lo . V||'
+# flash bf16: the softcap through tanh.approx.f32 (~2^-11 relative error)
+FILES[tanh_approx]=$FA
+FAULTS[tanh_approx]='s|x = cap \* tanhf(x \* inv_cap);|{ float th; asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(x * inv_cap)); x = cap * th; }|'
+# flash bf16: the last key tile of each block's band skipped
+FILES[skip_last_key_tile]=$FA
+FAULTS[skip_last_key_tile]='s/for (int it = 0; it < n_tiles; ++it) {/for (int it = 0; it < n_tiles - 1; ++it) {/'
+# flash bf16: output truncated instead of rounded to nearest
+FILES[bf16_out_truncation]=$FA
+FAULTS[bf16_out_truncation]='s/return __float2bfloat16(x);   \/\/ round to nearest even/return __float2bfloat16_rz(x);/'
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
-for fault in "${!FAULTS[@]}"; do
+for fault in $(printf '%s\n' "${!FAULTS[@]}" | sort); do
+  file=${FILES[$fault]}
   copy="$work/$fault"
   mkdir -p "$copy" && cp -r src tests pytest.ini "$copy/"
-  sed -i "${FAULTS[$fault]}" "$copy/src/repro_torch/csrc/tiled_matmul.cu"
-  if cmp -s src/repro_torch/csrc/tiled_matmul.cu \
-      "$copy/src/repro_torch/csrc/tiled_matmul.cu"; then
+  sed -i "${FAULTS[$fault]}" "$copy/$file"
+  if cmp -s "$file" "$copy/$file"; then
     echo "$fault: the fault did not apply"; exit 1
   fi
-  echo "== $fault"
+  if [ "$file" = "$MM" ]; then
+    tests=tests/test_torch_tiled_matmul_cuda.py
+  else
+    tests=tests/test_torch_flash_attention_cuda.py
+  fi
+  echo "== $fault ($(basename "$file"))"
   (cd "$copy" && PYTHONPATH=src python -m pytest -q -rf --noconftest -m cuda \
-    tests/test_torch_tiled_matmul_cuda.py 2>&1 \
-    | tee pytest.log | grep '^FAILED' | grep -oE '\[[^]]*\]' | tr '\n' ' ';
-    echo; tail -1 pytest.log)
-  (cd "$copy" && PYTHONPATH=src timeout 300 python -m repro_torch.launch.metg \
-    --sizes 256,4096 --seconds 0.02 --max-tasks 300 2>&1 | tail -1 \
-    | cut -c1-300)
+    "$tests" 2>&1 \
+    | tee pytest.log | grep '^FAILED' | sed -e 's/ - .*//' -e 's/.*:://' \
+    | tr '\n' ' '; echo; tail -1 pytest.log)
+  if [ "$file" = "$MM" ]; then
+    (cd "$copy" && PYTHONPATH=src timeout 300 python -m repro_torch.launch.metg \
+      --sizes 256,4096 --seconds 0.02 --max-tasks 300 2>&1 | tail -1 \
+      | cut -c1-300)
+  fi
 done

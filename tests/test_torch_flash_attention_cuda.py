@@ -102,3 +102,49 @@ def test_cuda_zamba2_shape_bf16():
         assert t.grad.dtype == torch.bfloat16
         assert bool(torch.isfinite(t.grad).all())
         assert float(t.grad.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [4096, None])
+def test_cuda_gemma2_shape_bf16(window):
+    """gemma2-2b's prefill attention at full size: q (4, 4200, 16, 256), k/v
+    (4, 4200, 4, 256) bf16, softcap 50, a local (window 4096) and a global
+    layer: every element within 1e-5 beyond one rounding of the plain
+    version's fp32 result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator("cuda").manual_seed(8)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+               for shape in ((4, 4200, 16, 256), (4, 4200, 4, 256),
+                             (4, 4200, 4, 256)))
+    kw = dict(window=window, logit_softcap=50.0, scale=256 ** -0.5)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    assert ops.flash_attention.launches == before + 1
+    plain = ref.flash_attention_blockwise(q.float(), k.float(), v.float(),
+                                          **kw)
+    assert bool(torch.isfinite(out).all())
+    assert _bf16_excess(out, plain) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [32, 80, 256])
+@pytest.mark.parametrize("window", [1, 16])
+def test_cuda_window_inside_one_key_tile(dtype, hd, window):
+    """A window narrower than a key tile (64 keys in the bf16 kernel, 32 in
+    the fp32 one), so every tile the band visits is cut by its edge; window
+    1 leaves each query its own key.  Tolerances as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to("cuda", dt)
+               for a in _qkv(2, 203, 8, 2, hd, seed=9))
+    kw = dict(window=window, logit_softcap=50.0, scale=hd ** -0.5)
+    out = ops.flash_attention(q, k, v, **kw)
+    plain = ref.flash_attention_blockwise(q.float(), k.float(), v.float(),
+                                          **kw)
+    if dt == torch.float32:
+        assert float((out - plain).abs().max()) < 1e-4
+    else:
+        assert _bf16_excess(out, plain) <= 1e-5
