@@ -19,9 +19,13 @@ Phases; any failure exits non-zero:
       (bf16 flash and A^T B: the tensor cores), held equal to what the
       launchers' `route` / `plan` state; the gemma2 row's library call is
       torch.compile(flex_attention) with its softcap and band, the zamba2
-      row's SDPA; then the gradients through the flash and SSD
-      ops against autograd through their plain versions, and the backward's
-      ms;
+      row's SDPA; then the SSD backward kernel against autograd through the
+      plain version and against the plain backward `ssd_chunked_bwd` (fp32
+      at the main shape in three decays and the JAX sweep, bf16 to one
+      rounding), its ms and bound beside the recompute's ms (autograd of
+      the plain version, the op's backward before the kernel); the
+      gradients through the flash op against autograd through its plain
+      version, and its backward's ms;
   (c) the main paths, each with the launch counts set to 0 just before and
       read just after: the paper's dwork scheduler running the METG ladder
       of A^T B tasks (launch.metg: n = 256 ... 4096, backlogs of up to
@@ -34,14 +38,19 @@ Phases; any failure exits non-zero:
       have launched once per layer and prefill batch, and the kernel path's
       prefill must agree with the plain path's.  Then zamba2-2.7b training:
       one fp32 train step at full width and one group of depth, kernel path
-      against plain path (loss, grad norm, every gradient); then the full
-      model (54 Mamba2 layers) trained 6 steps through launch.train at batch
-      2 x 1024, with 54 SSD and 9 flash launches per forward, a finite,
-      non-zero gradient on every leaf, and 4 more steps on one repeated
-      batch whose loss must fall;
+      against plain path (loss, grad norm, every gradient; 6 SSD forward and
+      6 backward launches); then the full model (54 Mamba2 layers) trained 6
+      steps through launch.train at batch 2 x 1024, with 54 SSD forward and
+      54 backward and 9 flash launches per step, a finite, non-zero
+      gradient on every leaf, and 4 more steps on one repeated batch whose
+      loss must fall;
   (d) last lines: the card, a JSON line of per-kernel results (flash
       attention once per path; A^T B at the ladder's top, with every shape
-      it was held at), and {"ok": true, "device": {...}}.
+      it was held at; the SSD row with its backward's bwd_* keys), and
+      {"ok": true, "device": {...}}.
+Every exit with a non-zero code prints its reason on stdout: no card, a
+failed import (as when the script stands alone, without src/), a failed
+check or any exception, with the phase it happened in.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
@@ -99,10 +109,13 @@ TRAIN_ARGV = ["--arch", "zamba2-2.7b", "--no-reduced", "--steps", "6",
               "--global-batch", "2", "--seq", "1024", "--device", "cuda"]
 # SSD kernel vs plain chunked version, fp32: summation order only, as WKV_TOL
 SSD_TOL = 1e-5
-# Gradients through a kernel op vs autograd through its plain version, fp32:
-# the backward IS the plain version's autograd, recomputed from the same
-# inputs, so only the cotangent path differs; max |diff| <= 1e-5 * max(1,
-# max |plain grad|).
+# Gradients vs autograd through the plain version (and, for the SSD, vs the
+# plain backward ssd_chunked_bwd), fp32: the SSD backward kernel computes
+# the same fp32 terms in other orders (each sum in a fixed order, the heads'
+# partials of dB and dC added in head order), and the flash op's backward
+# is the plain version's own autograd; so only summation order differs:
+# max |diff| <= 1e-5 * max(1, max |plain grad|).  bf16 SSD gradients: one
+# rounding of the fp32 result beyond that (bf16_excess).
 GRAD_TOL = 1e-5
 # One fp32 train step at full width and one group of depth, kernel path vs
 # plain path: the kernels' summation-order differences (~1e-6 relative) pass
@@ -409,6 +422,150 @@ def phase_ssd(torch, ssd_ops, ssd_ref):
     return row
 
 
+def ssd_bwd_bound(b, s, h, hd, n, q, itemsize=4):
+    """Least time for the chunked SSD's gradient, from counts of what the
+    function needs: C.B^T over j <= t once per (b, chunk) (shared by the
+    heads); per (b, h, chunk) the cumsum, the state entering the chunk (the
+    forward's state walk), the decay exps, dM = dY.x^T, M^T.dY, dG.B and
+    dG^T.C over j <= t, M, dG and dM o M there and the strict row and column
+    sums of dM o M, dS.B, dY.S_in, x.dS and the dS update at hd x N per
+    step, R, the inter-chunk term, <dS, S_in>, dcum and its reverse cumsum;
+    dB and dC summed over the heads.  fp32 FLOPs at the fp32 rate, exps at
+    the exp rate; x, dA, B, C and dY read once, dx, d(dA), dB and dC written
+    once.  Returns (ms, bound_by, exps, flops, bytes)."""
+    pairs, chunks = q * (q + 1) // 2, (s // q) * b
+    strict, nblk = q * (q - 1) // 2, chunks * h
+    exps = nblk * (pairs + 2 * q)
+    flops = chunks * pairs * n * 2 + 2 * b * s * n * (h - 1) + nblk * (
+        q + q * hd + q * hd * n * 2 + hd * n * 2       # cumsum, state walk
+        + pairs * hd * 2 + pairs * 3 + strict * 2       # dM; M, dG, P; sums
+        + pairs * hd * 2 + q * n * hd * 2 + q * hd * 2  # dx
+        + q * hd * 2 + q                                # R
+        + pairs * n * 2 + q * hd * n * 2 + q * n * 2    # dC
+        + q * n * 2 + q                                 # inter-chunk term
+        + pairs * n * 2 + q * hd * n * 2 + q * n * 2    # dB
+        + hd * n * 2                                    # <dS, S_in>
+        + q * hd + q * hd * n * 2 + hd * n * 2          # dS update
+        + q * 5)                                        # dcum, reverse cumsum
+    nbytes = itemsize * (3 * b * s * h * hd + 2 * b * s * h + 4 * b * s * n)
+    t_ops = max(exps / H100_EXP_S, flops / H100_FP32_FLOPS)
+    t_bytes = nbytes / H100_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", exps, flops,
+            nbytes)
+
+
+def phase_ssd_bwd(torch, ssd_ops, ssd_ref, ssd_kernel):
+    """The fp32 SSD backward kernel, through the op's autograd (one launch a
+    backward), at the main shape in three decays and the JAX sweep, held
+    within GRAD_TOL of: autograd through the plain version in fp64 on the
+    same values (the plain version's exact gradient); the plain backward
+    ssd_chunked_bwd in fp32; autograd through the plain version in fp32,
+    for each gradient whose fp32 autograd lies itself within GRAD_TOL of the
+    fp64 one.  Where it does not, the fp32 autograd cannot arbitrate
+    (at the main shape in fast decay its d(dA) sums terms of dM o M that
+    cancel on the diagonal, and lies ~1.3e-5 from its fp64 value), and the
+    line prints it.  Then bf16 at the main shape, within one rounding of
+    the fp32 plain backward on the same values.  At the main shape the
+    kernel's ms, its bound, the recompute's ms (autograd of the plain
+    version, the op's backward before the kernel) and the plain backward's
+    ms.  Returns the row's bwd_* keys for the main-path case."""
+    from repro_torch.kernels._recompute import recompute
+    print("[b] mamba2_ssd backward kernel vs autograd through the plain "
+          "version and vs the plain backward ssd_chunked_bwd")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    keys = None
+    cases = [("main", SSD_MAIN, "sweep"), ("main slow decay", SSD_MAIN, "slow"),
+             ("main fast decay", SSD_MAIN, "fast")]
+    cases += [("JAX sweep", (b, s, h, hd, n, q), "sweep")
+              for b, s, h, hd, n in [(2, 128, 8, 16, 16), (1, 64, 4, 32, 8)]
+              for q in (16, 32)]
+    names = ("dxdt", "ddA", "dB", "dC")
+    for name, (b, s, h, hd, n, q), decay in cases:
+        ins = ssd_inputs(torch, gen, b, s, h, hd, n, decay)
+        g = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+        a = [t.clone().requires_grad_() for t in ins]
+        before = ssd_ops.ssd.bwd_launches
+        kern = torch.autograd.grad(ssd_ops.ssd(*a, chunk=q), a, g)
+        launched = ssd_ops.ssd.bwd_launches - before
+        p = [t.clone().requires_grad_() for t in ins]
+        auto = torch.autograd.grad(ssd_ref.ssd_chunked(*p, chunk=q)[0], p, g)
+        p = [t.double().requires_grad_() for t in ins]
+        auto64 = torch.autograd.grad(ssd_ref.ssd_chunked(*p, chunk=q)[0], p,
+                                     g.double())
+        plain = ssd_ref.ssd_chunked_bwd(*ins, g, chunk=q)
+        torch.cuda.synchronize()
+
+        def rel(x, y):
+            return [float((u.double() - v.double()).abs().max())
+                    / max(1.0, float(v.abs().max())) for u, v in zip(x, y)]
+        e64, e_plain, e32 = (rel(kern, auto64), rel(kern, plain),
+                             rel(kern, auto))
+        own = rel(auto, auto64)      # the fp32 autograd's own distance
+        held32 = [e for e, o in zip(e32, own) if o <= GRAD_TOL]
+        ok = (max(e64 + e_plain + held32) <= GRAD_TOL and launched == 1
+              and all(bool(torch.isfinite(t).all()) for t in kern))
+        fmt = lambda e: " ".join(f"{k}={v:.2e}"  # noqa: E731
+                                 for k, v in zip(names, e))
+        print(f"[b] mamba2_ssd bwd {name}: (B,S,H,hd,N)={(b, s, h, hd, n)} "
+              f"Q={q}: max|diff|/max(1, max|ref|) vs autograd fp64 "
+              f"[{fmt(e64)}] vs ssd_chunked_bwd [{fmt(e_plain)}] vs autograd "
+              f"fp32 [{fmt(e32)}] (tol {GRAD_TOL:.0e}; fp32 autograd to fp64 "
+              f"[{fmt(own)}], held where within tol: {len(held32)} of 4); "
+              f"ssd_chunked_bwd to fp64 {max(rel(plain, auto64)):.2e}; bwd "
+              f"launches {launched} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"mamba2_ssd backward kernel disagrees with the "
+                             f"plain version: {name} {(b, s, h, hd, n, q)}")
+        if name == "main":
+            ms = cuda_ms(lambda: ssd_kernel.ssd_bwd_cuda(*ins, g, chunk=q), 10)
+            out = recompute(functools.partial(ssd_kernel.ssd_cuda, chunk=q),
+                            functools.partial(ssd_ops.ssd_plain, chunk=q), *a)
+            recompute_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, a, g, retain_graph=True), 3)
+            ref_ms = cuda_ms(lambda: ssd_ref.ssd_chunked_bwd(*ins, g, chunk=q),
+                             3)
+            bound_ms, bound_by, exps, flops, nbytes = ssd_bwd_bound(
+                b, s, h, hd, n, q)
+            print(f"[b] mamba2_ssd bwd main {SSD_MAIN[:5]} Q={q} fp32: "
+                  f"kernel_ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
+                  f"{exps:.3e} exp, {flops:.3e} FLOP, {nbytes:.3e} B) "
+                  f"recompute_ms={recompute_ms:.3f} (autograd of the plain "
+                  f"version) ssd_chunked_bwd_ms={ref_ms:.3f}")
+            keys = {"bwd_ms": ms, "bwd_bound_ms": bound_ms,
+                    "bwd_bound_by": bound_by, "bwd_plain_ms": recompute_ms,
+                    "bwd_ref_ms": ref_ms,
+                    "bwd_max_abs_err": max(e64 + e_plain + held32)}
+            del out
+        del ins, g, a, p, kern, auto, auto64, plain
+        torch.cuda.empty_cache()
+    # bf16 inputs and cotangent: fp32 arithmetic inside, gradients rounded
+    # once to bf16; held against the fp32 plain backward on the same values
+    b, s, h, hd, n, q = SSD_MAIN
+    ins = [t.bfloat16() for t in ssd_inputs(torch, gen, b, s, h, hd, n,
+                                            "sweep")]
+    g = torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16()
+    kern = ssd_kernel.ssd_bwd_cuda(*ins, g, chunk=q)
+    plain = ssd_ref.ssd_chunked_bwd(*(t.float() for t in ins), g.float(),
+                                    chunk=q)
+    excess = [bf16_excess(u, v) for u, v in zip(kern, plain)]
+    lims = [GRAD_TOL * max(1.0, float(v.abs().max())) for v in plain]
+    ok = all(e <= lim for e, lim in zip(excess, lims)) and all(
+        u.dtype == torch.bfloat16 and bool(torch.isfinite(u).all())
+        for u in kern)
+    print(f"[b] mamba2_ssd bwd bfloat16 main: beyond one bf16 rounding of the "
+          f"fp32 plain backward: " + " ".join(
+              f"{k}={e:.2e} (tol {lim:.2e})"
+              for k, e, lim in zip(names, excess, lims))
+          + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("mamba2_ssd backward kernel in bf16 is beyond one "
+                         "rounding of the plain backward")
+    del ins, g, kern, plain
+    torch.cuda.empty_cache()
+    return keys
+
+
 def matmul_bound(k, m, n, itemsize, flops_peak):
     """Least time for C = A^T B: 2 K M N FLOPs at the type's rate (fp32
     outside the tensor cores, bf16 on them), A and B read once and C
@@ -573,18 +730,11 @@ def grad_check(torch, name, kernel_fn, plain_fn, ins, g):
     return max(errs), ms
 
 
-def phase_grads(torch, fa_ops, fa_ref, ssd_ops, ssd_ref):
-    """Gradients through the flash and SSD ops at zamba2's training shapes,
-    fp32, against autograd through the plain versions; the backward ms per
-    layer in the types training runs (SSD fp32, attention bf16)."""
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    b, s, h, hd, n, q = SSD_MAIN
-    ins = ssd_inputs(torch, gen, b, s, h, hd, n, "sweep")
-    g = torch.randn((b, s, h, hd), generator=gen, device="cuda")
-    _, ssd_bwd = grad_check(
-        torch, f"mamba2_ssd fp32 {SSD_MAIN[:5]} Q={q}",
-        lambda *a: ssd_ops.ssd(*a, chunk=q),
-        lambda *a: ssd_ref.ssd_chunked(*a, chunk=q)[0], ins, g)
+def phase_grads(torch, fa_ops, fa_ref):
+    """Gradients through the flash op at zamba2's training shape, fp32,
+    against autograd through the plain version; the backward ms per layer
+    in the type training runs (bf16)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
     kw = dict(scale=ZHD ** -0.5, q_block=512, kv_block=512)
     qkv = [torch.randn((ZB, ZS, ZH, ZHD), generator=gen, device="cuda")
            for _ in range(3)]
@@ -598,9 +748,9 @@ def phase_grads(torch, fa_ops, fa_ref, ssd_ops, ssd_ref):
                                                  retain_graph=True), 3)
     print(f"[b] flash_attention bf16 {(ZB, ZS, ZH, ZHD)} backward_ms="
           f"{fa_bwd:.2f} (recompute of the blockwise version, q/kv blocks 512)")
-    del ins, qkv, out
+    del qkv, out
     torch.cuda.empty_cache()
-    return ssd_bwd, fa_bwd
+    return fa_bwd
 
 
 def flex_yardstick(torch, q, k, v, window, cap, scale, compiled):
@@ -940,14 +1090,17 @@ def phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention):
         logits = model.forward(p, b, dtype=torch.float32)
         return softmax_xent(logits, b["labels"], cfg.vocab_size), {}
 
-    ssd_ops.ssd.launches = fa_ops.flash_attention.launches = 0
+    ssd_ops.ssd.launches = ssd_ops.ssd.bwd_launches = 0
+    fa_ops.flash_attention.launches = 0
     (lk, _), gk = value_and_grad(loss_fn, params, batch)
-    launches = (ssd_ops.ssd.launches, fa_ops.flash_attention.launches)
+    launches = (ssd_ops.ssd.launches, ssd_ops.ssd.bwd_launches,
+                fa_ops.flash_attention.launches)
     with mock.patch.object(ssd_ops, "ssd", ssd_ops.ssd_plain), \
             mock.patch.object(attention, "flash_attention",
                               fa_ref.flash_attention_blockwise):
         (lp, _), gp = value_and_grad(loss_fn, params, batch)
-    if (ssd_ops.ssd.launches, fa_ops.flash_attention.launches) != launches:
+    if (ssd_ops.ssd.launches, ssd_ops.ssd.bwd_launches,
+            fa_ops.flash_attention.launches) != launches:
         raise SystemExit("the plain path launched a kernel")
     nk, np_ = float(global_norm(gk)), float(global_norm(gp))
     worst, bad = 0.0, []
@@ -959,14 +1112,16 @@ def phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention):
     loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
     norm_rel = abs(nk - np_) / np_
     print(f"[c] zamba2 one group (6 Mamba2 layers + shared block), fp32 "
-          f"train step, kernel vs plain path: launches (ssd, flash)="
+          f"train step, kernel vs plain path: launches (ssd, ssd bwd, "
+          f"flash)="
           f"{launches}; loss {float(lk):.6f} vs {float(lp):.6f} (rel "
           f"{loss_rel:.2e}, tol {STEP_LOSS_TOL:.0e}); grad norm {nk:.6f} vs "
           f"{np_:.6f} (rel {norm_rel:.2e}, tol {STEP_NORM_TOL:.0e}); worst "
           f"leaf max|diff|/max|plain| {worst:.2e} (tol {STEP_GRAD_TOL:.0e}) "
           f"over {len(list(leaf_items(gk)))} leaves")
-    if launches != (6, 1):
-        raise SystemExit(f"launches {launches}, want 6 SSD and 1 flash")
+    if launches != (6, 6, 1):
+        raise SystemExit(f"launches {launches}, want 6 SSD forward, 6 SSD "
+                         f"backward and 1 flash")
     if loss_rel > STEP_LOSS_TOL or norm_rel > STEP_NORM_TOL or bad:
         raise SystemExit(f"kernel-path train step disagrees: {bad}")
     del params, gk, gp
@@ -975,7 +1130,7 @@ def phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention):
 def phase_train(torch, ssd_ops, fa_ops, train):
     """Full-width zamba2-2.7b through `launch.train.main`, then gradient
     and repeated-batch checks.  Returns the launches of the run and per
-    forward: ((ssd, per forward), (flash, per forward))."""
+    forward: ((ssd, per forward), (flash, per forward), ssd backward)."""
     from repro_torch.data.pipeline import Pipeline
     from repro_torch.models.common import param_count, tree_leaves
     from repro_torch.runtime.train_step import (make_loss_fn, make_train_step,
@@ -984,9 +1139,11 @@ def phase_train(torch, ssd_ops, fa_ops, train):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ssd_ops.ssd.launches = fa_ops.flash_attention.launches = 0
+    ssd_ops.ssd.launches = ssd_ops.ssd.bwd_launches = 0
+    fa_ops.flash_attention.launches = 0
     res = train.main(TRAIN_ARGV)
     n_ssd, n_fa = ssd_ops.ssd.launches, fa_ops.flash_attention.launches
+    n_bwd = ssd_ops.ssd.bwd_launches
     model, params, opt_state = res["model"], res["params"], res["opt_state"]
     cfg, steps = model.cfg, len(res["losses"])
     n_params = param_count(params)
@@ -1001,13 +1158,14 @@ def phase_train(torch, ssd_ops, fa_ops, train):
               f"{r['fwd_ms']:.1f} bwd_ms={r['bwd_ms']:.1f} opt_ms="
               f"{r['opt_ms']:.1f} tokens_per_s={r['tokens_per_s']:.0f} "
               f"grad_norm={r['grad_norm']:.4f}")
-    print(f"[c] launches per forward: mamba2_ssd {n_ssd / steps:g}, "
-          f"flash_attention {n_fa / steps:g} (want 54 and 9; totals "
-          f"{n_ssd}, {n_fa})")
+    print(f"[c] launches per step: mamba2_ssd {n_ssd / steps:g} forward and "
+          f"{n_bwd / steps:g} backward, flash_attention {n_fa / steps:g} "
+          f"(want 54, 54 and 9; totals {n_ssd}, {n_bwd}, {n_fa})")
     if n_params != 2_501_316_000:
         raise SystemExit(f"param count {n_params}")
-    if (n_ssd, n_fa) != (54 * steps, 9 * steps):
-        raise SystemExit(f"launches {n_ssd}, {n_fa} over {steps} steps")
+    if (n_ssd, n_bwd, n_fa) != (54 * steps, 54 * steps, 9 * steps):
+        raise SystemExit(f"launches {n_ssd}, {n_bwd}, {n_fa} over {steps} "
+                         f"steps")
     if not np.isfinite(res["losses"]).all():
         raise SystemExit("non-finite training loss")
 
@@ -1045,14 +1203,17 @@ def phase_train(torch, ssd_ops, fa_ops, train):
           f"{[round(x, 4) for x in rep]}")
     if not (np.isfinite(rep).all() and rep[-1] < rep[0]):
         raise SystemExit("the repeated batch's loss did not fall")
-    return (n_ssd, n_ssd // steps), (n_fa, n_fa // steps)
+    return (n_ssd, n_ssd // steps), (n_fa, n_fa // steps), n_bwd
 
 
-def main() -> int:
+def run(where: dict) -> int:
+    """Every phase in order; where["phase"] names the one running, for the
+    failure line."""
     import torch
     if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on the card",
-              file=sys.stderr)
+        why = "chip_smoke: no CUDA device; this script runs only on the card"
+        print(why, file=sys.stderr)
+        print(why, flush=True)
         return 1
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -1060,6 +1221,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
     from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
+    from repro_torch.kernels.mamba2_ssd import kernel as ssd_kernel
     from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
     from repro_torch.kernels.mamba2_ssd import ref as ssd_ref
     from repro_torch.kernels.tiled_matmul import kernel as mm_kernel
@@ -1071,18 +1233,26 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    where["phase"] = "(a) card and builds"
     card = card_line()
     print(f"[a] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; devices={torch.cuda.device_count()}")
     builds = build_all(_build, ("flash_attention", "wkv6", "mamba2_ssd",
                                 "tiled_matmul"))
 
+    where["phase"] = "(b) flash_attention"
     row, zrow = phase_kernel(torch, fa_ops, fa_ref, fa_kernel)
+    where["phase"] = "(b) wkv6"
     wkv_row = phase_wkv(torch, wkv_ops, wkv_ref)
+    where["phase"] = "(b) mamba2_ssd"
     ssd_row = phase_ssd(torch, ssd_ops, ssd_ref)
-    ssd_row["bwd_ms"], zrow["bwd_ms"] = phase_grads(torch, fa_ops, fa_ref,
-                                                    ssd_ops, ssd_ref)
+    where["phase"] = "(b) mamba2_ssd backward"
+    ssd_row.update(phase_ssd_bwd(torch, ssd_ops, ssd_ref, ssd_kernel))
+    where["phase"] = "(b) flash_attention gradients"
+    zrow["bwd_ms"] = phase_grads(torch, fa_ops, fa_ref)
+    where["phase"] = "(b) tiled_matmul"
     mm_row = phase_matmul(torch, mm_ops, mm_ref, mm_kernel, metg)
+    where["phase"] = "(c) dwork METG ladder"
     mm_row["launches"] = phase_metg(torch, mm_ops, metg)
     for r, lib in ((row, "flash_attention"), (zrow, "flash_attention"),
                    (mm_row, "tiled_matmul")):
@@ -1090,14 +1260,19 @@ def main() -> int:
     # "launches": the count over the path's run (a serve: its prefill
     # batches; training: its steps); "launches_per_forward": per prefill
     # batch or training forward
+    where["phase"] = "(c) gemma2-2b serve"
     row["launches"], row["launches_per_forward"] = phase_serve(
         torch, fa_ops, attention, fa_ref, serve)
+    where["phase"] = "(c) rwkv6-1.6b serve"
     wkv_row["launches"], wkv_row["launches_per_forward"] = phase_serve_rwkv(
         torch, wkv_ops, rwkv, wkv_ref, serve)
+    where["phase"] = "(c) zamba2 one-group train step"
     phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention)
+    where["phase"] = "(c) zamba2-2.7b training"
     (ssd_row["launches"], ssd_row["launches_per_forward"]), \
-        (zrow["launches"], zrow["launches_per_forward"]) = phase_train(
-            torch, ssd_ops, fa_ops, train)
+        (zrow["launches"], zrow["launches_per_forward"]), \
+        ssd_row["bwd_launches"] = phase_train(torch, ssd_ops, fa_ops, train)
+    where["phase"] = "(d) results"
     print(f"[d] total {time.perf_counter() - t_start:.1f}s")
     print(card_line())
     print(json.dumps({"kernels": [row, zrow, wkv_row, ssd_row, mm_row]}))
@@ -1105,6 +1280,24 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def main() -> int:
+    """`run`, with every failure reported on stdout with its phase: a
+    failed check (SystemExit with its message) or any exception (its type
+    and message; the traceback goes to stderr)."""
+    where = {"phase": "imports"}
+    try:
+        return run(where)
+    except SystemExit as e:
+        if e.code in (None, 0):
+            raise
+        why = e.code
+    except Exception as e:   # noqa: BLE001 - reported, then exit 1
+        traceback.print_exc()
+        why = f"{type(e).__name__}: {e}"
+    print(f"chip_smoke: FAILED in phase {where['phase']}: {why}", flush=True)
+    return 1
 
 
 if __name__ == "__main__":

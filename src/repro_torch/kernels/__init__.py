@@ -9,7 +9,9 @@ and in each:
 
   kernel.py — launcher of the CUDA source in repro_torch/csrc/
   ops.py    — the kernel for CUDA tensors, the plain version for CPU tensors;
-              where training runs it, an autograd.Function whose backward
-              differentiates the plain version recomputed from the inputs
+              where training runs it, an autograd.Function: mamba2_ssd's
+              backward is a kernel of its own (its plain version on the CPU),
+              flash_attention's differentiates the plain version recomputed
+              from the inputs
   ref.py    — the plain PyTorch version
 """

@@ -1,7 +1,9 @@
-"""Launcher for the CUDA chunked Mamba2 SSD kernel (csrc/mamba2_ssd.cu).
+"""Launchers for the CUDA chunked Mamba2 SSD kernels (csrc/mamba2_ssd.cu):
+the forward and its backward.
 
-Checks what the kernel takes, allocates Y and launches on PyTorch's current
-stream.  The library is built at the first launch."""
+Each checks what the kernels take, allocates the outputs (and the
+backward's fp32 scratch) and launches on PyTorch's current stream.  The
+library is built at the first launch."""
 from __future__ import annotations
 
 import ctypes
@@ -18,20 +20,20 @@ SHAPES = ((64, 64), (16, 16), (32, 8))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
+_BWD_ARGTYPES = [_P] * 12 + [_I] * 7 + [_P]
 
 
-def _fn():
+def _fn(name, argtypes):
     lib = _build.library("mamba2_ssd")
-    fn = lib.mamba2_ssd_fwd
-    fn.argtypes = _ARGTYPES
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def ssd_cuda(xdt, dA, B_, C_, *, chunk: int):
-    """xdt (B,S,H,hd), dA (B,S,H), B_/C_ (B,S,1,N), all float32 or all
-    bfloat16, on one CUDA device.  Chunks of min(chunk, S) steps, which must
-    divide S.  Returns Y (B,S,H,hd) in xdt's dtype (zero initial state)."""
+def _check(xdt, dA, B_, C_, chunk, *more):
+    """Raise on what the kernels do not take; `more` are further tensors of
+    xdt's type and device.  Returns (B, S, H, hd, N, Q)."""
     if xdt.dim() != 4 or dA.dim() != 3 or B_.dim() != 4 \
             or C_.shape != B_.shape:
         raise ValueError(f"ssd: bad shapes xdt{tuple(xdt.shape)} "
@@ -53,19 +55,57 @@ def ssd_cuda(xdt, dA, B_, C_, *, chunk: int):
     if S % Q:
         raise ValueError(f"ssd: S={S} is not a multiple of the chunk {Q}; "
                          f"the caller pads")
-    ins = (xdt, dA, B_, C_)
+    ins = (xdt, dA, B_, C_, *more)
     if xdt.dtype not in _DTYPES or any(t.dtype != xdt.dtype for t in ins):
         raise TypeError(f"ssd: dtypes {[t.dtype for t in ins]}; the kernel "
                         f"takes all float32 or all bfloat16")
     if not (xdt.is_cuda and all(t.device == xdt.device for t in ins)):
         raise ValueError("ssd: every input must lie on one CUDA device")
+    return Bb, S, H, hd, N, Q
+
+
+def ssd_cuda(xdt, dA, B_, C_, *, chunk: int):
+    """xdt (B,S,H,hd), dA (B,S,H), B_/C_ (B,S,1,N), all float32 or all
+    bfloat16, on one CUDA device.  Chunks of min(chunk, S) steps, which must
+    divide S.  Returns Y (B,S,H,hd) in xdt's dtype (zero initial state)."""
+    Bb, S, H, hd, N, Q = _check(xdt, dA, B_, C_, chunk)
     xdt, dA = xdt.contiguous(), dA.contiguous()
     Bm, Cm = B_[:, :, 0].contiguous(), C_[:, :, 0].contiguous()
     y = torch.empty_like(xdt)
-    lib, fn = _fn()
+    lib, fn = _fn("mamba2_ssd_fwd", _ARGTYPES)
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
         err = fn(xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                  y.data_ptr(), _DTYPES[xdt.dtype], Bb, S, H, hd, N, Q, stream)
     _build.check(lib, err, "mamba2_ssd_fwd launch")
     return y
+
+
+def ssd_bwd_cuda(xdt, dA, B_, C_, dY, *, chunk: int):
+    """The gradient of `ssd_cuda`'s Y with cotangent dY (B,S,H,hd), which has
+    xdt's type and device; the inputs as `ssd_cuda` takes them.  Returns
+    (dxdt, ddA, dB, dC) in the inputs' shapes and type.  Allocates an fp32
+    scratch of the states entering each chunk (B,H,S/Q,hd,N) and per-head
+    partials of dB and dC (B,S,H,N), freed on return."""
+    Bb, S, H, hd, N, Q = _check(xdt, dA, B_, C_, chunk, dY)
+    if dY.shape != xdt.shape:
+        raise ValueError(f"ssd: dY{tuple(dY.shape)} does not match "
+                         f"xdt{tuple(xdt.shape)}")
+    xdt, dA, dY = xdt.contiguous(), dA.contiguous(), dY.contiguous()
+    Bm, Cm = B_[:, :, 0].contiguous(), C_[:, :, 0].contiguous()
+    f32 = dict(dtype=torch.float32, device=xdt.device)
+    states = torch.empty((Bb, H, S // Q, hd, N), **f32)
+    dBp, dCp = (torch.empty((Bb, S, H, N), **f32) for _ in range(2))
+    dx, ddA = torch.empty_like(xdt), torch.empty_like(dA)
+    dB, dC = (torch.empty((Bb, S, 1, N), dtype=xdt.dtype, device=xdt.device)
+              for _ in range(2))
+    lib, fn = _fn("mamba2_ssd_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(xdt.device):
+        stream = torch.cuda.current_stream(xdt.device).cuda_stream
+        err = fn(xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                 dY.data_ptr(), dx.data_ptr(), ddA.data_ptr(), dB.data_ptr(),
+                 dC.data_ptr(), states.data_ptr(), dBp.data_ptr(),
+                 dCp.data_ptr(), _DTYPES[xdt.dtype], Bb, S, H, hd, N, Q,
+                 stream)
+    _build.check(lib, err, "mamba2_ssd_bwd launch")
+    return dx, ddA, dB, dC

@@ -2,9 +2,11 @@
 
 `ssd_chunked` is the oracle `ssd_ref` (src/repro/kernels/mamba2_ssd/ref.py):
 like it, it delegates to the model's chunk step (`models.mamba2._ssd_chunk`)
-scanned over the chunks.  It is the path tensors on the CPU take, what the
-CUDA kernel is held against on the card, and the function whose autograd is
-the kernel's backward.  `ssd_sequential` is the step-by-step recurrence
+scanned over the chunks.  It is the path tensors on the CPU take and what
+the CUDA forward kernel is held against on the card.  `ssd_chunked_bwd` is
+its gradient written out chunk by chunk: the CPU path's backward, and what
+the CUDA backward kernel is held against beside autograd through
+`ssd_chunked`.  `ssd_sequential` is the step-by-step recurrence
 (`ssd_sequential_ref`), an independent formulation for cross-checks.
 
 The model module is imported as a module, not by name: models.mamba2
@@ -42,6 +44,88 @@ def ssd_chunked(xdt, dA, B_, C_, *, chunk: int, initial_state=None):
             H=H, G=G, N=N, hd=hd)
         ys.append(y)
     return torch.cat(ys, dim=1), state
+
+
+def ssd_chunked_bwd(xdt, dA, B_, C_, dY, *, chunk: int):
+    """The gradient of `ssd_chunked`'s Y (zero initial state) with cotangent
+    dY (B,S,H,hd).  Returns (dxdt, ddA, dB, dC) in the inputs' shapes and
+    dtypes, computed in fp32 (fp64 for fp64 inputs).
+
+    Per chunk, with cum the in-chunk cumsum of dA, E[t] = exp(cum[t]),
+    D[j] = exp(cum[Q-1] - cum[j]), L[t][j] = exp(cum[t] - cum[j]) for j <= t
+    (else 0), G = C.B^T, M = G o L, S_in the state entering the chunk, and
+    dS the cotangent of the state leaving it (0 after the last chunk):
+      dM  = dY.x^T on j <= t;  dG = dM o L
+      dx  = M^T.dY + D o (dS.B)            per row j: D[j] dS B[j]
+      dC  = dG.B + E o (dY.S_in)
+      dB  = dG^T.C + D o (x.dS)            summed over the group's heads
+      dcum = rowsum(dM o M) - colsum(dM o M) + E o (C . dY.S_in)
+             - R, R[j] = D[j] x[j].(dS B[j]); dcum[Q-1] += E[Q-1] <dS, S_in>
+             + sum_j R[j]  (the terms that cancel exactly are left out)
+      ddA = the reverse in-chunk cumsum of dcum
+      dS <- E[Q-1] dS + sum_t E[t] dY[t]^T C[t]   (for the chunk before)
+    The states S_in come from a forward walk over the chunks first."""
+    ct = torch.promote_types(xdt.dtype, torch.float32)
+    dtypes = [t.dtype for t in (xdt, dA, B_, C_)]
+    Bb, S, H, hd = xdt.shape
+    G, N = B_.shape[2], B_.shape[3]
+    Hg = H // G
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"ssd: S={S} is not a multiple of the chunk {Q}")
+    nC = S // Q
+    x = xdt.to(ct).reshape(Bb, nC, Q, G, Hg, hd)
+    dy = dY.to(ct).reshape(Bb, nC, Q, G, Hg, hd)
+    Bc = B_.to(ct).reshape(Bb, nC, Q, G, N)
+    Cc = C_.to(ct).reshape(Bb, nC, Q, G, N)
+    cum = torch.cumsum(dA.to(ct).reshape(Bb, nC, Q, G, Hg), dim=2)
+    E = torch.exp(cum)
+    D = torch.exp(cum[:, :, -1:] - cum)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    mask5 = mask[None, :, :, None, None]
+    strict = mask5 & ~torch.eye(Q, dtype=torch.bool, device=x.device)[
+        None, :, :, None, None]
+
+    states, s = [], torch.zeros((Bb, G, Hg, hd, N), dtype=ct, device=x.device)
+    for c in range(nC):
+        states.append(s)
+        s = s * E[:, c, -1][..., None, None] + torch.einsum(
+            "bjgh,bjghd,bjgn->bghdn", D[:, c], x[:, c], Bc[:, c])
+
+    dS = torch.zeros_like(s)
+    outs = []
+    for c in reversed(range(nC)):
+        xc, dyc, bc, cc, sin = x[:, c], dy[:, c], Bc[:, c], Cc[:, c], states[c]
+        ec, dc, cumc = E[:, c], D[:, c], cum[:, c]
+        L = torch.exp(torch.where(
+            mask5, cumc[:, :, None] - cumc[:, None], -1e9))    # (B,Q,Q,G,Hg)
+        M = L * torch.einsum("bign,bjgn->bijg", cc, bc)[..., None]
+        dM = torch.einsum("bighd,bjghd->bijgh", dyc, xc) * mask5
+        dG = dM * L
+        dSB = torch.einsum("bghdn,bjgn->bjghd", dS, bc)
+        dx = torch.einsum("bijgh,bighd->bjghd", M, dyc) + dc[..., None] * dSB
+        dyS = torch.einsum("bighd,bghdn->bighn", dyc, sin)
+        dC = torch.einsum("bijgh,bjgn->bign", dG, bc) + torch.einsum(
+            "bigh,bighn->bign", ec, dyS)
+        dB = torch.einsum("bijgh,bign->bjgn", dG, cc) + torch.einsum(
+            "bjgh,bjghd,bghdn->bjgn", dc, xc, dS)
+        # the diagonal of dM o M and R[Q-1] (D[Q-1] = 1) enter dcum once
+        # with each sign; they are left out, exactly, rather than summed and
+        # cancelled in rounding
+        P = dM * M * strict
+        R = dc[:, :-1] * (xc[:, :-1] * dSB[:, :-1]).sum(-1)
+        dcum = (P.sum(2) - P.sum(1)
+                + ec * torch.einsum("bign,bighn->bigh", cc, dyS))
+        dcum[:, :-1] -= R
+        dcum[:, -1] += ec[:, -1] * (dS * sin).sum((-2, -1)) + R.sum(1)
+        ddA = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        dS = dS * ec[:, -1][..., None, None] + torch.einsum(
+            "bigh,bighd,bign->bghdn", ec, dyc, cc)
+        outs.append((dx, ddA, dB, dC))
+    dx, ddA, dB, dC = (torch.cat(o[::-1], dim=1) for o in zip(*outs))
+    return (dx.reshape(Bb, S, H, hd).to(dtypes[0]),
+            ddA.reshape(Bb, S, H).to(dtypes[1]),
+            dB.to(dtypes[2]), dC.to(dtypes[3]))
 
 
 def ssd_sequential(xdt, dA, B_, C_):

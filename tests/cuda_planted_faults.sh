@@ -1,13 +1,16 @@
 #!/bin/bash
-# Planted faults in the CUDA A^T B and flash-attention kernels: each one is
-# applied to a copy of src/ and tests/ in a temporary directory, then the
-# card tests of that kernel run against the copy
-# (tests/test_torch_tiled_matmul_cuda.py, which include the METG ladder's
-# shapes, or tests/test_torch_flash_attention_cuda.py); for A^T B also a
-# short METG ladder run.  Every fault must fail the card tests; a fault on
-# the METG path's fp32 product must also stop the ladder with failed tasks.
-# Prints, per fault, the ids of the card tests that failed, pytest's summary
-# and the ladder's last line.  Exits 1 if a fault's pattern does not apply.
+# Planted faults in the CUDA A^T B, flash-attention and SSD backward
+# kernels: each one is applied to a copy of src/, tests/ and chip_smoke.py
+# in a temporary directory, then the card tests of that kernel run against
+# the copy (tests/test_torch_tiled_matmul_cuda.py, which include the METG
+# ladder's shapes, tests/test_torch_flash_attention_cuda.py or
+# tests/test_torch_ssd_cuda.py); for A^T B also a short METG ladder run, for
+# the SSD backward chip_smoke.py.  Every fault must fail the card tests; a
+# fault on the METG path's fp32 product must also stop the ladder with
+# failed tasks, and an SSD backward fault must fail chip_smoke.py.  Prints,
+# per fault, the ids of the card tests that failed, pytest's summary and
+# the ladder's or chip_smoke.py's last line.  Exits 1 if a fault's pattern
+# does not apply.
 # Needs the card and nvcc.  Run from the repository root:
 #
 #     bash tests/cuda_planted_faults.sh
@@ -15,6 +18,7 @@ set -u
 cd "$(dirname "$0")/.."
 MM=src/repro_torch/csrc/tiled_matmul.cu
 FA=src/repro_torch/csrc/flash_attention.cu
+SSD=src/repro_torch/csrc/mamba2_ssd.cu
 declare -A FILES FAULTS
 # A^T B: the k loops stop one k-stage early (fp32 and bf16)
 FILES[drop_last_k_slice]=$MM
@@ -40,21 +44,27 @@ FAULTS[skip_last_key_tile]='s/for (int it = 0; it < n_tiles; ++it) {/for (int it
 # flash bf16: output truncated instead of rounded to nearest
 FILES[bf16_out_truncation]=$FA
 FAULTS[bf16_out_truncation]='s/return __float2bfloat16(x);   \/\/ round to nearest even/return __float2bfloat16_rz(x);/'
+# SSD backward: dS not carried to the chunk before (it stays 0)
+FILES[drop_ds_carry]=$SSD
+FAULTS[drop_ds_carry]='s|sdS\[(r0 + i \* NST) \* NP + n\] = s\[i\];   // carried to the chunk before|(void)s[i];|'
+# SSD backward: d(dA) = dcum, the reverse in-chunk cumsum skipped
+FILES[skip_reverse_cumsum]=$SSD
+FAULTS[skip_reverse_cumsum]='s|acc += dcum;   // d(dA)\[t\]|acc = dcum;   // d(dA)[t]|'
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 for fault in $(printf '%s\n' "${!FAULTS[@]}" | sort); do
   file=${FILES[$fault]}
   copy="$work/$fault"
-  mkdir -p "$copy" && cp -r src tests pytest.ini "$copy/"
+  mkdir -p "$copy" && cp -r src tests pytest.ini chip_smoke.py "$copy/"
   sed -i "${FAULTS[$fault]}" "$copy/$file"
   if cmp -s "$file" "$copy/$file"; then
     echo "$fault: the fault did not apply"; exit 1
   fi
-  if [ "$file" = "$MM" ]; then
-    tests=tests/test_torch_tiled_matmul_cuda.py
-  else
-    tests=tests/test_torch_flash_attention_cuda.py
-  fi
+  case "$file" in
+    "$MM") tests=tests/test_torch_tiled_matmul_cuda.py ;;
+    "$FA") tests=tests/test_torch_flash_attention_cuda.py ;;
+    *) tests=tests/test_torch_ssd_cuda.py ;;
+  esac
   echo "== $fault ($(basename "$file"))"
   (cd "$copy" && PYTHONPATH=src python -m pytest -q -rf --noconftest -m cuda \
     "$tests" 2>&1 \
@@ -64,5 +74,9 @@ for fault in $(printf '%s\n' "${!FAULTS[@]}" | sort); do
     (cd "$copy" && PYTHONPATH=src timeout 300 python -m repro_torch.launch.metg \
       --sizes 256,4096 --seconds 0.02 --max-tasks 300 2>&1 | tail -1 \
       | cut -c1-300)
+  fi
+  if [ "$file" = "$SSD" ]; then
+    (cd "$copy" && timeout 900 python chip_smoke.py 2>/dev/null | tail -1 \
+      | cut -c1-400; echo "chip_smoke.py exit ${PIPESTATUS[0]}")
   fi
 done

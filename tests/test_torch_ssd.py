@@ -1,13 +1,14 @@
 """Port parity for the chunked Mamba2 SSD scan, fp32 (fp64 for gradcheck).
 
-The port's plain chunked version (the CPU path of the `ssd` op, and the
-function the kernel's backward differentiates) against the JAX oracle
-`ssd_ref` and the JAX Pallas kernel in interpret mode: max |diff| <= 1e-5 *
-max(1, max |JAX|), the same algorithm in fp32, so only summation order
-differs.  Against the step-by-step recurrence the tolerance is 1e-3, the
-JAX kernel sweep's chunk-vs-step bound (tests/test_kernels.py).  Gradients
-against `jax.grad` of `ssd_ref` within 1e-4 of the largest |grad|.  The
-CUDA kernel is held against the same plain version on the card
+The port's plain chunked version (the CPU path of the `ssd` op) against
+the JAX oracle `ssd_ref` and the JAX Pallas kernel in interpret mode: max
+|diff| <= 1e-5 * max(1, max |JAX|), the same algorithm in fp32, so only
+summation order differs.  Against the step-by-step recurrence the
+tolerance is 1e-3, the JAX kernel sweep's chunk-vs-step bound
+(tests/test_kernels.py).  The op's gradients (on the CPU the plain backward
+`ssd_chunked_bwd`, held on its own in tests/test_torch_ssd_bwd.py) against
+`jax.grad` of `ssd_ref` within 1e-4 of the largest |grad|.  The CUDA
+kernels are held against the same plain versions on the card
 (chip_smoke.py, tests/test_torch_ssd_cuda.py)."""
 import functools
 
@@ -135,9 +136,9 @@ def test_gradients_match_jax(chunk):
 
 
 def test_recompute_backward_gradcheck():
-    """The recompute op the card's `ssd` uses (forward: kernel; backward:
-    autograd of the recomputed chunked version), with the plain forward
-    standing in for the kernel, passes gradcheck in fp64."""
+    """The recompute op (the card's `flash_attention` backward: autograd of
+    the recomputed plain version), here with the plain SSD forward standing
+    in for both kernel and plain version, passes gradcheck in fp64."""
     plain = functools.partial(ops.ssd_plain, chunk=4)
     arrs = _inputs(1, 8, 2, 3, 4, seed=8)
     ins = [torch.from_numpy(a).double().requires_grad_() for a in arrs]
@@ -146,8 +147,9 @@ def test_recompute_backward_gradcheck():
 
 
 def test_function_grads_equal_plain_autograd():
-    """The recompute op's gradients are autograd's through the plain version,
-    in fp32 at a sweep shape, with one input not requiring grad."""
+    """The recompute op's gradients (with the plain SSD forward as kernel and
+    plain version) are autograd's through the plain version, in fp32 at a
+    sweep shape, with one input not requiring grad."""
     plain = functools.partial(ops.ssd_plain, chunk=16)
     arrs = _inputs(2, 64, 4, 16, 16, seed=9)
     g = torch.from_numpy(np.random.default_rng(10).standard_normal(

@@ -1,5 +1,6 @@
-"""The CUDA chunked Mamba2 SSD kernel against its plain version, on the card,
-forward and backward.
+"""The CUDA chunked Mamba2 SSD kernels against their plain versions, on the
+card: the forward against `ssd_chunked`, the backward kernel against
+autograd through it and against the plain backward `ssd_chunked_bwd`.
 
 Needs an NVIDIA Hopper card and nvcc: the kernel has no CPU mode, so these
 tests skip elsewhere.  Run on the card with
@@ -11,10 +12,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.mamba2_ssd import ops, ref  # noqa: E402
+from repro_torch.kernels.mamba2_ssd import kernel, ops, ref  # noqa: E402
 
 TOL = 1e-5        # relative to max(1, max |plain|): fp32, summation order
-GRAD_TOL = 1e-5   # the backward is the plain version's own autograd
+# the backward kernel computes the plain backward's fp32 terms, each sum in
+# a fixed order of its own: summation order only, as the forward
+GRAD_TOL = 1e-5
 BF16_TOL = 2 ** -8   # bf16 output: one rounding of the fp32 result
 
 
@@ -74,21 +77,115 @@ def test_cuda_kernel_bf16():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("decay", ["sweep", "fast", "slow"])
 @pytest.mark.parametrize("chunk", [16, 64])
-def test_cuda_backward_matches_plain_autograd(chunk):
-    """Gradients through the kernel op (backward: autograd of the recomputed
-    chunked version) against autograd through the plain version."""
+def test_cuda_backward_matches_plain_autograd(chunk, decay):
+    """Gradients through the op, whose backward is the CUDA backward kernel
+    (one launch), against autograd through the plain chunked version and
+    against the plain backward ssd_chunked_bwd."""
     _need_card()
-    ins = _inputs(2, 256, 4, 64, 64, seed=2)
+    ins = _inputs(2, 256, 4, 64, 64, seed=2, decay=decay)
     g = torch.randn((2, 256, 4, 64), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(3))
     a = [t.clone().requires_grad_() for t in ins]
     b = [t.clone().requires_grad_() for t in ins]
+    before = ops.ssd.bwd_launches
     (ops.ssd(*a, chunk=chunk) * g).sum().backward()
+    assert ops.ssd.bwd_launches == before + 1
     (ref.ssd_chunked(*b, chunk=chunk)[0] * g).sum().backward()
-    for x, y in zip(a, b):
+    plain = ref.ssd_chunked_bwd(*ins, g, chunk=chunk)
+    for x, y, p in zip(a, b, plain):
+        assert x.grad.shape == y.grad.shape
         ok, err = _close(x.grad, y.grad, GRAD_TOL)
         assert ok, err
+        ok, err = _close(x.grad, p, GRAD_TOL)
+        assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,N,chunk", [
+    (2, 128, 8, 16, 16, 16), (2, 128, 8, 16, 16, 32),
+    (1, 64, 4, 32, 8, 16), (1, 64, 4, 32, 8, 32), (1, 64, 4, 32, 8, 64),
+    (1, 192, 3, 64, 64, 32)])
+def test_cuda_backward_sweep(B, S, H, hd, N, chunk):
+    """The backward kernel at every (hd, N) it takes against the plain
+    backward, and the padded steps' zero cotangent (mamba_forward pads S to
+    the chunk and slices Y) giving exactly zero gradients there."""
+    _need_card()
+    ins = _inputs(B, S, H, hd, N, seed=chunk + hd)
+    g = torch.randn((B, S, H, hd), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(4))
+    g[:, S - 5:] = 0.0
+    grads = kernel.ssd_bwd_cuda(*ins, g, chunk=chunk)
+    plain = ref.ssd_chunked_bwd(*ins, g, chunk=chunk)
+    torch.cuda.synchronize()
+    for x, p in zip(grads, plain):
+        ok, err = _close(x, p, GRAD_TOL)
+        assert ok and bool(torch.isfinite(x).all()), err
+        assert bool((x[:, S - 5:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_backward_bf16():
+    """bf16 inputs and cotangent, fp32 arithmetic inside, gradients in bf16:
+    within one bf16 rounding (2^-8 relative) of the plain backward's fp32
+    result on the same values, plus its fp32 tolerance."""
+    _need_card()
+    ins = [t.bfloat16() for t in _inputs(2, 256, 4, 64, 64, seed=5)]
+    g = torch.randn((2, 256, 4, 64), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(6))
+    g = g.bfloat16()
+    grads = kernel.ssd_bwd_cuda(*ins, g, chunk=64)
+    plain = ref.ssd_chunked_bwd(*(t.float() for t in ins), g.float(),
+                                chunk=64)
+    for x, p in zip(grads, plain):
+        assert x.dtype == torch.bfloat16
+        err = (x.float() - p).abs() - BF16_TOL * p.abs()
+        assert float(err.max()) <= GRAD_TOL * max(1.0, float(p.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_backward_is_deterministic():
+    """No atomics: two runs give the same gradients bit for bit."""
+    _need_card()
+    ins = _inputs(2, 256, 8, 64, 64, seed=7)
+    g = torch.randn((2, 256, 8, 64), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(8))
+    first = kernel.ssd_bwd_cuda(*ins, g, chunk=64)
+    again = kernel.ssd_bwd_cuda(*ins, g, chunk=64)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,exc,match", [
+    ("ragged", ValueError, "multiple of the chunk"),
+    ("groups", ValueError, "n_groups"),
+    ("shape", ValueError, "head_dim, state_dim"),
+    ("chunk", ValueError, "chunk 8"),
+    ("dtype", TypeError, "all float32 or all bfloat16"),
+    ("dy shape", ValueError, "dY"),
+    ("device", ValueError, "CUDA device"),
+])
+def test_cuda_backward_refuses(case, exc, match):
+    """The backward launcher refuses what the kernel does not take, with
+    the forward's messages, before any launch."""
+    _need_card()
+    S = 40 if case == "ragged" else 64
+    hd, N = (16, 8) if case == "shape" else (64, 64)
+    xdt, dA, Bc, Cc = _inputs(1, S, 2, hd, N, seed=0)
+    dy = torch.randn_like(xdt)
+    if case == "groups":
+        Bc, Cc = torch.cat([Bc, Bc], 2), torch.cat([Cc, Cc], 2)
+    elif case == "dtype":
+        dy = dy.bfloat16()
+    elif case == "dy shape":
+        dy = dy[:, :, :1]
+    elif case == "device":
+        dy = dy.cpu()
+    with pytest.raises(exc, match=match):
+        kernel.ssd_bwd_cuda(xdt, dA, Bc, Cc, dy,
+                            chunk=8 if case == "chunk" else 16)
 
 
 @pytest.mark.cuda
