@@ -19,13 +19,17 @@ Phases; any failure exits non-zero:
       (bf16 flash and A^T B: the tensor cores), held equal to what the
       launchers' `route` / `plan` state; the gemma2 row's library call is
       torch.compile(flex_attention) with its softcap and band, the zamba2
-      row's SDPA; then the SSD backward kernel against autograd through the
-      plain version and against the plain backward `ssd_chunked_bwd` (fp32
-      at the main shape in three decays and the JAX sweep, bf16 to one
-      rounding), its ms and bound beside the recompute's ms (autograd of
-      the plain version, the op's backward before the kernel); the
-      gradients through the flash op against autograd through its plain
-      version, and its backward's ms;
+      row's SDPA; then the SSD backward kernels (three chunk-parallel
+      stages and the sum over head groups, the products in 3xTF32 on the
+      tensor cores) against autograd through the plain version and against
+      the plain backward `ssd_chunked_bwd` (fp32 at the main shape in three
+      decays and the JAX sweep, bf16 to one rounding), the states after
+      their scan over the chunks against the plain stages, two runs bit for
+      bit, its ms and each stage's, both bounds (fp32 rate; products at
+      the TF32 rate), each product's route, beside the recompute's ms
+      (autograd of the plain version, the op's backward before it had a
+      kernel); the gradients through the flash op against autograd through
+      its plain version, and its backward's ms;
   (c) the main paths, each with the launch counts set to 0 just before and
       read just after: the paper's dwork scheduler running the METG ladder
       of A^T B tasks (launch.metg: n = 256 ... 4096, backlogs of up to
@@ -46,7 +50,8 @@ Phases; any failure exits non-zero:
       loss must fall;
   (d) last lines: the card, a JSON line of per-kernel results (flash
       attention once per path; A^T B at the ladder's top, with every shape
-      it was held at; the SSD row with its backward's bwd_* keys), and
+      it was held at; the SSD row with its backward's bwd_* keys: ms, stage
+      ms, both bounds, routes, registers and spills), and
       {"ok": true, "device": {...}}.
 Every exit with a non-zero code prints its reason on stdout: no card, a
 failed import (as when the script stands alone, without src/), a failed
@@ -73,6 +78,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, same sheet
+H100_TF32_FLOPS = 495e12     # dense TF32 on the tensor cores, same sheet
 H100_BYTES_S = 3.35e12       # HBM3 rate, same sheet
 # exp issue rate: 16 results per clock per SM for the special-function unit's
 # base-2 exponential, which expf runs once (CUDA C++ Programming Guide,
@@ -211,8 +217,8 @@ def cuobjdump():
 def build_all(_build, names):
     """One nvcc per source, all started together; each build's seconds,
     each kernel's registers and spills (-Xptxas -v) and each library's
-    count of HGMMA (wgmma) instructions in its SASS.  Returns {name: HGMMA
-    count}."""
+    count of HGMMA (wgmma) instructions in its SASS.  Returns ({name: HGMMA
+    count}, {name: [(kernel, registers, spill store B, spill load B)]})."""
     def one(name):
         t0 = time.perf_counter()
         return _build.build(name), time.perf_counter() - t0
@@ -220,7 +226,7 @@ def build_all(_build, names):
     with ThreadPoolExecutor(len(names)) as pool:
         done = dict(zip(names, pool.map(one, names)))
     tool = cuobjdump()
-    hgmma = {}
+    hgmma, kernel_regs = {}, {}
     for name, (log, secs) in done.items():
         entries, cur, spill = [], None, (0, 0)
         for line in log.splitlines():
@@ -238,6 +244,7 @@ def build_all(_build, names):
                 print(f"[a] {name}: {line.strip()}")
         names_ = demangle([e[0] for e in entries])
         entries = [(n,) + e[1:] for n, e in zip(names_, entries)]
+        kernel_regs[name] = entries
         sass = subprocess.run(
             [tool, "-sass", str(_build._lib_path(_build.CSRC / f"{name}.cu"))],
             capture_output=True, text=True, check=True, timeout=300).stdout
@@ -251,7 +258,7 @@ def build_all(_build, names):
         if hgmma.get(name) == 0:
             raise SystemExit(f"{name}: no HGMMA in its SASS; the bf16 path "
                              f"does not reach the tensor cores")
-    return hgmma
+    return hgmma, kernel_regs
 
 
 def wkv_bound(b, s, h, hd, q, with_state):
@@ -430,49 +437,106 @@ def ssd_bwd_bound(b, s, h, hd, n, q, itemsize=4):
     dG^T.C over j <= t, M, dG and dM o M there and the strict row and column
     sums of dM o M, dS.B, dY.S_in, x.dS and the dS update at hd x N per
     step, R, the inter-chunk term, <dS, S_in>, dcum and its reverse cumsum;
-    dB and dC summed over the heads.  fp32 FLOPs at the fp32 rate, exps at
-    the exp rate; x, dA, B, C and dY read once, dx, d(dA), dB and dC written
-    once.  Returns (ms, bound_by, exps, flops, bytes)."""
+    dB and dC summed over the heads.  x, dA, B, C and dY read once, dx,
+    d(dA), dB and dC written once.  Two bounds: every FLOP at the fp32
+    rate; and the products (C.B^T, the state walk and dS update, dY.x^T,
+    M^T.dY, dS.B, dG.B, dY.S_in, dG^T.C, x.dS) as 3xTF32 on the tensor
+    cores, three TF32 products each at the TF32 rate, beside the rest at
+    the fp32 rate (the two units run at once, so the larger).  Exps at the
+    exp rate.  Returns (ms, bound_by, exps, flops, bytes, tc_ms)."""
     pairs, chunks = q * (q + 1) // 2, (s // q) * b
     strict, nblk = q * (q - 1) // 2, chunks * h
     exps = nblk * (pairs + 2 * q)
-    flops = chunks * pairs * n * 2 + 2 * b * s * n * (h - 1) + nblk * (
-        q + q * hd + q * hd * n * 2 + hd * n * 2       # cumsum, state walk
-        + pairs * hd * 2 + pairs * 3 + strict * 2       # dM; M, dG, P; sums
-        + pairs * hd * 2 + q * n * hd * 2 + q * hd * 2  # dx
+    prod = chunks * pairs * n * 2 + nblk * (
+        q * hd * n * 2 * 5 + pairs * hd * 2 * 2 + pairs * n * 2 * 2)
+    rest = 2 * b * s * n * (h - 1) + nblk * (
+        q + q * hd + hd * n * 2                         # cumsum, state walk
+        + pairs * 3 + strict * 2                        # M, dG, P; sums
+        + q * hd * 2                                    # dx
         + q * hd * 2 + q                                # R
-        + pairs * n * 2 + q * hd * n * 2 + q * n * 2    # dC
+        + q * n * 2                                     # dC
         + q * n * 2 + q                                 # inter-chunk term
-        + pairs * n * 2 + q * hd * n * 2 + q * n * 2    # dB
+        + q * n * 2                                     # dB
         + hd * n * 2                                    # <dS, S_in>
-        + q * hd + q * hd * n * 2 + hd * n * 2          # dS update
+        + q * hd + hd * n * 2                           # dS update
         + q * 5)                                        # dcum, reverse cumsum
+    flops = prod + rest
     nbytes = itemsize * (3 * b * s * h * hd + 2 * b * s * h + 4 * b * s * n)
-    t_ops = max(exps / H100_EXP_S, flops / H100_FP32_FLOPS)
+    t_exp = exps / H100_EXP_S
+    t_ops = max(t_exp, flops / H100_FP32_FLOPS)
     t_bytes = nbytes / H100_BYTES_S
+    t_tc = max(t_exp, 3 * prod / H100_TF32_FLOPS, rest / H100_FP32_FLOPS,
+               t_bytes)
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", exps, flops,
-            nbytes)
+            nbytes, t_tc * 1e3)
+
+
+def bwd_stage_ms(torch, ssd_kernel, ins, g, q, reps=10):
+    """Each of the backward's four kernels' ms at these inputs: the device
+    time by kernel name from torch.profiler's key_averages() over `reps`
+    backwards ("not measured" where the profiler shows none)."""
+    from torch.profiler import ProfilerActivity, profile
+    ssd_kernel.ssd_bwd_cuda(*ins, g, chunk=q)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ssd_kernel.ssd_bwd_cuda(*ins, g, chunk=q)
+        torch.cuda.synchronize()
+    times = dict.fromkeys(ssd_kernel.BWD_KERNELS, 0.0)
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        for name in times:
+            if name in ev.key:
+                times[name] += us / 1e3 / reps
+    return {k: v if v > 0 else "not measured" for k, v in times.items()}
+
+
+def bwd_registers(entries, ssd_kernel):
+    """Registers and spill bytes of the backward's kernels at the main
+    shape in fp32, from the build's -Xptxas -v lines (names demangled, or
+    mangled where the machine has no c++filt)."""
+    shape = {"ssd_bwd_chunk_state": ("<float, 64, 64, 64>",
+                                     "IfLi64ELi64ELi64E"),
+             "ssd_bwd_state_pass": ("",),
+             "ssd_bwd_chunk_grads": ("<float, 64, 64, 64>",
+                                     "IfLi64ELi64ELi64E"),
+             "ssd_head_sum": ("<float>", "IfE")}
+    out = {}
+    for kern, nreg, st, ld in entries:
+        for name in ssd_kernel.BWD_KERNELS:
+            if any(name + tail in kern for tail in shape[name]):
+                out[name] = {"registers": nreg, "spill_store_bytes": st,
+                             "spill_load_bytes": ld}
+    return out
 
 
 def phase_ssd_bwd(torch, ssd_ops, ssd_ref, ssd_kernel):
-    """The fp32 SSD backward kernel, through the op's autograd (one launch a
-    backward), at the main shape in three decays and the JAX sweep, held
-    within GRAD_TOL of: autograd through the plain version in fp64 on the
-    same values (the plain version's exact gradient); the plain backward
-    ssd_chunked_bwd in fp32; autograd through the plain version in fp32,
-    for each gradient whose fp32 autograd lies itself within GRAD_TOL of the
-    fp64 one.  Where it does not, the fp32 autograd cannot arbitrate
-    (at the main shape in fast decay its d(dA) sums terms of dM o M that
-    cancel on the diagonal, and lies ~1.3e-5 from its fp64 value), and the
-    line prints it.  Then bf16 at the main shape, within one rounding of
-    the fp32 plain backward on the same values.  At the main shape the
-    kernel's ms, its bound, the recompute's ms (autograd of the plain
-    version, the op's backward before the kernel) and the plain backward's
-    ms.  Returns the row's bwd_* keys for the main-path case."""
+    """The fp32 SSD backward kernels, through the op's autograd (one
+    backward, four launches), at the main shape in three decays and the
+    JAX sweep, held within GRAD_TOL of: autograd through the plain version
+    in fp64 on the same values (the plain version's exact gradient); the
+    plain backward ssd_chunked_bwd in fp32; autograd through the plain
+    version in fp32, for each gradient whose fp32 autograd lies itself
+    within GRAD_TOL of the fp64 one.  Where it does not, the fp32 autograd
+    cannot arbitrate (at the main shape in fast decay its d(dA) sums terms
+    of dM o M that cancel on the diagonal, and lies ~1.3e-5 from its fp64
+    value), and the line prints it.  At the main shape also the scratch
+    after the scan over the chunks (S_in and dS of every chunk) against
+    the plain stages 1 and 2, within GRAD_TOL.  Then bf16 at the main
+    shape, within one rounding of the fp32 plain backward on the same
+    values.  At the main shape the backward's ms and each launch's, both
+    bounds, the recompute's ms (autograd of the plain version, the op's
+    backward before it had a kernel) and the plain backward's ms, and each
+    product's route.  Returns the row's bwd_* keys for the main-path
+    case."""
     from repro_torch.kernels._recompute import recompute
-    print("[b] mamba2_ssd backward kernel vs autograd through the plain "
-          "version and vs the plain backward ssd_chunked_bwd")
+    print("[b] mamba2_ssd backward kernels vs autograd through the plain "
+          "version and vs the plain backward ssd_chunked_bwd; products: "
+          + ", ".join(f"{k} {v}" for k, v in ssd_kernel.BWD_ROUTES.items()))
     gen = torch.Generator(device="cuda").manual_seed(3)
     keys = None
     cases = [("main", SSD_MAIN, "sweep"), ("main slow decay", SSD_MAIN, "slow"),
@@ -518,24 +582,50 @@ def phase_ssd_bwd(torch, ssd_ops, ssd_ref, ssd_kernel):
             raise SystemExit(f"mamba2_ssd backward kernel disagrees with the "
                              f"plain version: {name} {(b, s, h, hd, n, q)}")
         if name == "main":
+            _, states = ssd_kernel.ssd_bwd_cuda(*ins, g, chunk=q,
+                                                return_states=True)
+            want = ssd_ref.ssd_bwd_state_pass(
+                *ssd_ref.ssd_bwd_chunk_state(*ins, g, chunk=q))
+            e_states = rel(states, want)
+            again = ssd_kernel.ssd_bwd_cuda(*ins, g, chunk=q)
+            same = all(torch.equal(u, v) for u, v in zip(kern, again))
+            ok = max(e_states) <= GRAD_TOL and same
+            print(f"[b] mamba2_ssd bwd main: scratch after the scan over the "
+                  f"chunks vs ssd_bwd_state_pass: S_in={e_states[0]:.2e} "
+                  f"dS={e_states[1]:.2e} (tol {GRAD_TOL:.0e}); a second run "
+                  f"the same bits: {same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("mamba2_ssd backward: the states after the "
+                                 "scan over the chunks disagree, or two runs "
+                                 "differ")
+            del again
+            del states, want
             ms = cuda_ms(lambda: ssd_kernel.ssd_bwd_cuda(*ins, g, chunk=q), 10)
+            stage_ms = bwd_stage_ms(torch, ssd_kernel, ins, g, q)
             out = recompute(functools.partial(ssd_kernel.ssd_cuda, chunk=q),
                             functools.partial(ssd_ops.ssd_plain, chunk=q), *a)
             recompute_ms = cuda_ms(lambda: torch.autograd.grad(
                 out, a, g, retain_graph=True), 3)
             ref_ms = cuda_ms(lambda: ssd_ref.ssd_chunked_bwd(*ins, g, chunk=q),
                              3)
-            bound_ms, bound_by, exps, flops, nbytes = ssd_bwd_bound(
+            bound_ms, bound_by, exps, flops, nbytes, tc_ms = ssd_bwd_bound(
                 b, s, h, hd, n, q)
             print(f"[b] mamba2_ssd bwd main {SSD_MAIN[:5]} Q={q} fp32: "
-                  f"kernel_ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}; "
-                  f"{exps:.3e} exp, {flops:.3e} FLOP, {nbytes:.3e} B) "
-                  f"recompute_ms={recompute_ms:.3f} (autograd of the plain "
-                  f"version) ssd_chunked_bwd_ms={ref_ms:.3f}")
-            keys = {"bwd_ms": ms, "bwd_bound_ms": bound_ms,
-                    "bwd_bound_by": bound_by, "bwd_plain_ms": recompute_ms,
-                    "bwd_ref_ms": ref_ms,
-                    "bwd_max_abs_err": max(e64 + e_plain + held32)}
+                  f"kernel_ms={ms:.4f} (kernels, torch.profiler: "
+                  + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                             else f"{k} {v}" for k, v in stage_ms.items())
+                  + f") bound_ms={bound_ms:.4f} ({bound_by}; "
+                  f"{exps:.3e} exp, {flops:.3e} FLOP, {nbytes:.3e} B; every "
+                  f"FLOP at the fp32 rate) bound_tc_ms={tc_ms:.4f} (the "
+                  f"products in 3xTF32 at the TF32 rate) recompute_ms="
+                  f"{recompute_ms:.3f} (autograd of the plain version) "
+                  f"ssd_chunked_bwd_ms={ref_ms:.3f}")
+            keys = {"bwd_ms": ms, "bwd_stage_ms": stage_ms,
+                    "bwd_bound_ms": bound_ms,
+                    "bwd_bound_by": bound_by, "bwd_bound_tc_ms": tc_ms,
+                    "bwd_plain_ms": recompute_ms, "bwd_ref_ms": ref_ms,
+                    "bwd_max_abs_err": max(e64 + e_plain + held32),
+                    "bwd_routes": ssd_kernel.BWD_ROUTES}
             del out
         del ins, g, a, p, kern, auto, auto64, plain
         torch.cuda.empty_cache()
@@ -1129,8 +1219,9 @@ def phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention):
 
 def phase_train(torch, ssd_ops, fa_ops, train):
     """Full-width zamba2-2.7b through `launch.train.main`, then gradient
-    and repeated-batch checks.  Returns the launches of the run and per
-    forward: ((ssd, per forward), (flash, per forward), ssd backward)."""
+    and repeated-batch checks, one of whose steps runs under the profiler.
+    Returns the launches of the run and per forward: ((ssd, per forward),
+    (flash, per forward), ssd backward, the profiled step's summary)."""
     from repro_torch.data.pipeline import Pipeline
     from repro_torch.models.common import param_count, tree_leaves
     from repro_torch.runtime.train_step import (make_loss_fn, make_train_step,
@@ -1194,16 +1285,71 @@ def phase_train(torch, ssd_ops, fa_ops, train):
     opt_state = opt_state._replace(count=torch.zeros_like(opt_state.count))
     step_fn = make_train_step(model, res["rc"].replace(
         lr=REPEAT_LR, warmup_steps=0, total_steps=1000))
-    rep = []
-    for _ in range(4):
-        params, opt_state, m = step_fn(params, opt_state, batch)
+    rep, profiled, step_ms = [], None, None
+    for i in range(4):
+        if i == 2:   # one step under the profiler: where the device time goes
+            params, opt_state, m, profiled = profiled_step(
+                torch, step_fn, params, opt_state, batch, step_ms)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
         rep.append(float(m["loss"]))
     print(f"[c] repeated batch, 4 steps at lr {REPEAT_LR:g}, warmup 0, "
           f"fresh moments: losses "
           f"{[round(x, 4) for x in rep]}")
     if not (np.isfinite(rep).all() and rep[-1] < rep[0]):
         raise SystemExit("the repeated batch's loss did not fall")
-    return (n_ssd, n_ssd // steps), (n_fa, n_fa // steps), n_bwd
+    return (n_ssd, n_ssd // steps), (n_fa, n_fa // steps), n_bwd, profiled
+
+
+def profiled_step(torch, step_fn, params, opt_state, batch, step_ms,
+                  top=10):
+    """One train step under torch.profiler: its wall ms (host clock, the
+    device synchronised, the profiler's own cost included), the device ms
+    summed over the kernels, memory copies and sets it ran (one stream, so
+    they do not overlap), the device's idle share of step_ms, the wall ms
+    of the same step without the profiler, and the kernels that took the
+    most device time with their launch counts.  Returns the step's outputs
+    and that summary (device ms "not measured" where the profiler shows no
+    device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        kernels.append((us / 1e3, ev.count, ev.key))
+    kernels.sort(reverse=True)
+    device_ms = sum(k[0] for k in kernels)
+    if device_ms <= 0:
+        print(f"[c] profiled train step: wall_ms={wall_ms:.1f}; device time "
+              f"not measured (the profiler shows none)")
+        return params, opt_state, m, {"wall_ms": wall_ms,
+                                      "device_ms": "not measured"}
+    summary = {"wall_ms": wall_ms, "step_ms": step_ms,
+               "device_ms": device_ms,
+               "idle_share": 1.0 - device_ms / step_ms,
+               "top": [{"kernel": k[:120], "ms": ms, "launches": n}
+                       for ms, n, k in kernels[:top]]}
+    print(f"[c] profiled train step: wall_ms={wall_ms:.1f} (profiler "
+          f"included) device_ms={device_ms:.1f}; the step before it without "
+          f"the profiler step_ms={step_ms:.1f}, idle_share="
+          f"{summary['idle_share']:.3f}; most device time: " + "; ".join(
+              f"{k[:70]} {ms:.1f} ms / {n}" for ms, n, k in kernels[:top]))
+    return params, opt_state, m, summary
 
 
 def run(where: dict) -> int:
@@ -1237,8 +1383,8 @@ def run(where: dict) -> int:
     card = card_line()
     print(f"[a] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; devices={torch.cuda.device_count()}")
-    builds = build_all(_build, ("flash_attention", "wkv6", "mamba2_ssd",
-                                "tiled_matmul"))
+    builds, regs = build_all(_build, ("flash_attention", "wkv6", "mamba2_ssd",
+                                      "tiled_matmul"))
 
     where["phase"] = "(b) flash_attention"
     row, zrow = phase_kernel(torch, fa_ops, fa_ref, fa_kernel)
@@ -1248,6 +1394,7 @@ def run(where: dict) -> int:
     ssd_row = phase_ssd(torch, ssd_ops, ssd_ref)
     where["phase"] = "(b) mamba2_ssd backward"
     ssd_row.update(phase_ssd_bwd(torch, ssd_ops, ssd_ref, ssd_kernel))
+    ssd_row["bwd_regs"] = bwd_registers(regs["mamba2_ssd"], ssd_kernel)
     where["phase"] = "(b) flash_attention gradients"
     zrow["bwd_ms"] = phase_grads(torch, fa_ops, fa_ref)
     where["phase"] = "(b) tiled_matmul"
@@ -1271,7 +1418,8 @@ def run(where: dict) -> int:
     where["phase"] = "(c) zamba2-2.7b training"
     (ssd_row["launches"], ssd_row["launches_per_forward"]), \
         (zrow["launches"], zrow["launches_per_forward"]), \
-        ssd_row["bwd_launches"] = phase_train(torch, ssd_ops, fa_ops, train)
+        ssd_row["bwd_launches"], ssd_row["train_step_profile"] = phase_train(
+            torch, ssd_ops, fa_ops, train)
     where["phase"] = "(d) results"
     print(f"[d] total {time.perf_counter() - t_start:.1f}s")
     print(card_line())

@@ -46,14 +46,15 @@
 // dY.  The JAX package has no backward kernel: its training differentiates
 // the scan of `_ssd_chunk`, and so the port's plain version,
 // `ssd_chunked_bwd` (kernels/mamba2_ssd/ref.py), writes that gradient out
-// chunk by chunk.  The kernel computes the same terms (see there and
-// `ssd_chunk_bwd`).
+// chunk by chunk.  The kernels compute the same terms in the stages of
+// `ssd_chunked_bwd_staged` (see there and below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -278,32 +279,55 @@ int launch_shape(const Args& a, int hd, int n, int q, cudaStream_t stream) {
 // summed and cancelled in rounding.
 //
 // What bounds it on an H100: at zamba2-2.7b's training shape the function
-// needs ~9.7e9 fp32 FLOPs (the forward's state walk, dY.x^T, M^T.dY,
-// dG.B, dG^T.C over the lower triangle; dS.B, dY.S_in, x.dS and the dS
-// update at hd x N x Q each) against ~0.13 GB of inputs and outputs:
-// 0.14 ms at 67 TFLOP/s against 0.04 ms at 3.35 TB/s, so operations.  This
-// first version follows the forward's design (CUDA-core FMAs from shared
-// memory, one block per (b, h)), and is as far from that bound: ~2.1 ms
-// on an H100 SXM at 700 W, 7 % of it.  The products suit tensor cores.
+// needs ~9.7e9 fp32 FLOPs (the products dY.x^T, M^T.dY, dG.B, dG^T.C over
+// the lower triangle, C.B^T once for all heads, dS.B, dY.S_in, x.dS and
+// the two state recurrences at hd x N x Q each, and little else) against
+// ~0.13 GB of inputs and outputs: 0.14 ms at 67 TFLOP/s against 0.04 ms at
+// 3.35 TB/s, so operations; with the products on the tensor cores in
+// 3xTF32 (three TF32 products each, at 495 TFLOP/s) ~0.06 ms.
+// Only the state entering a chunk and the cotangent leaving it depend on
+// the order of the chunks, and both are linear recurrences with one scalar
+// decay a_c = E[Q-1] per (chunk, head), so the backward runs in stages:
+//   1. ssd_bwd_chunk_state, one block per (b, chunk, head group): each
+//      chunk's own terms of the two recurrences, x^T.(D o B) and
+//      dY^T.(E o C) (hd x N, depth Q), and a_c, into fp32 scratch
+//      (B, H, chunks, hd, N) and (B, H, chunks);
+//   2. ssd_bwd_state_pass, one thread per (b, h, state element), walks the
+//      chunks forward, S_in[c+1] = a_c S_in[c] + x^T.(D o B), and back,
+//      dS[c-1] = a_c dS[c] + dY^T.(E o C), in place on stage 1's scratch;
+//   3. ssd_bwd_chunk_grads, one block per (b, chunk, head group): every
+//      term above for one chunk, given S_in and dS;
+//   4. ssd_head_sum adds the head groups' partials of dB and dC.
 // What the design does:
-//   * one 256-thread block per (b, h), two passes over its chunks: the
-//     first walks forward, as the forward kernel does, and writes the state
-//     entering each chunk to an fp32 scratch (B, H, chunks, hd, N); the
-//     second walks back with dS in shared memory;
-//   * dB and dC are shared by every head: each block writes its per-head
-//     fp32 partials (B, S, H, N), and `ssd_head_sum` adds them over the
-//     heads in head order, with no atomics, so a gradient is the same bit
-//     for bit from run to run;
-//   * every sum has a fixed order: the products are thread-per-column loops
-//     (as in the forward), the row and column sums of P, R and the
-//     inter-chunk term one thread per row in index order, <dS, S_in> and
-//     the cumsums one thread in index order;
+//   * a head group is 4, 2 or 1 heads (the largest that divides H, picked
+//     by the launcher): 640 blocks of stages 1 and 3 at the main shape,
+//     ~4.8 an SM, where one block per (b, h) would give 160; a block
+//     loads B and C once and forms C.B^T once for its heads (the Pallas
+//     kernel shares it over all heads), and adds its heads' dB and dC in
+//     registers in head order, so the partials are (B, S, H / group, N);
+//   * every product runs on the tensor cores through one warp-level
+//     helper, `warp_mma`: mma.sync m16n8k8 TF32 in 3xTF32 (each fp32
+//     operand split as hi = tf32(v), lo = v - hi; lo.hi + hi.lo, then
+//     hi.hi, into an fp32 sum), which keeps fp32 accuracy: what it drops is
+//     ~2^-21 of a term (`split_tf32`).  mma.sync and not wgmma, because fp32
+//     and TF32 wgmma read both operands K-major only, and the backward reads
+//     x, dY, B, C, M, dG and dS along both of their dimensions.  A warp
+//     computes a strip of 16 rows by up to 32 columns of an output;
+//   * one shared-memory layout (`Tile`) serves a tile read along its rows
+//     and along its columns without bank conflicts, so no tile is copied
+//     or transposed;
+//   * the scalar parts are warp scans and reductions with a fixed shuffle
+//     pattern, so every sum has one order and two runs give the same bits,
+//     with no atomics;
 //   * the mask comes before the exponent and expf, not __expf, as in the
-//     forward; all arithmetic is fp32 whatever T is;
-//   * every tile's rows are padded to an odd number of floats, so a warp
-//     reading a row or a column of any of them hits 32 banks.
-// At Q = hd = N = 64 the tiles take 152,832 bytes of shared memory; the
-// launch opts in.
+//     forward; all arithmetic is fp32 whatever T is (bf16 tiles are
+//     converted as they are staged in shared memory).
+// Stages 1 and 3 copy the next head's tiles with cp.async while this head
+// computes; stage 3's tiles take 216,096 bytes at the main shape of the
+// 227 KB a block may have, so one block of 8 warps an SM.
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NWARPS = NTHREADS / 32;
 
 struct BwdArgs {
   const void* x;    // xdt (B, S, H, HD)
@@ -313,389 +337,802 @@ struct BwdArgs {
   const void* dy;   // (B, S, H, HD)
   void* dx;         // (B, S, H, HD)
   void* ddA;        // (B, S, H)
-  float* states;    // (B, H, S / Q, HD, N) scratch: the state entering a chunk
-  float* dBp;       // (B, S, H, N) per-head partials of dB
-  float* dCp;       // (B, S, H, N) per-head partials of dC
-  int B, S, H;
+  float* states;    // (B, H, S / Q, HD, N): x^T.(D o B), then S_in
+  float* dstates;   // (B, H, S / Q, HD, N): dY^T.(E o C), then dS
+  float* decay;     // (B, H, S / Q): a_c = exp(cum[Q-1])
+  float* dBp;       // (B, S, H / hg, N): the head groups' partials of dB
+  float* dCp;       // (B, S, H / hg, N): of dC
+  int B, S, H, hg;  // hg heads a block, hg in {1, 2, 4} dividing H
 };
 
-__host__ __device__ constexpr int cmax(int a, int b) {
-  return a > b ? a : b;
+// The backward's shared-memory tiles: fp32, rows of W = max(COLS, 32)
+// floats, element (r, c) at r * W + (c ^ swz(r)).  mma.sync reads a tile
+// along a row (lane (g, t) at (r0 + g, c0 + t), r0 % 8 == 0, c0 % 4 == 0)
+// or along a column (lane at (r0 + t, c0 + g), r0 % 4 == 0, c0 % 8 == 0),
+// g = lane / 4, t = lane % 4.  The XOR moves bits 2-4 of the column by
+// (r & 4) | (r & 3) << 3: along a row the 8 values of g fall in 8 distinct
+// groups of 4 banks, along a column the 4 values of t in 4 distinct groups
+// of 8, so both reads hit 32 banks.  No padded stride does both: a stride
+// of 4 (mod 32) floats suits rows, 8 suits columns, and x, dY, B, C, dG and
+// dS are read both ways.  Aligned runs of 4 columns stay together, so a
+// row is staged with 16-byte stores.
+__device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
+
+template <int COLS>
+struct Tile {
+  static constexpr int W = COLS < 32 ? 32 : COLS;
+  float* p;
+  __device__ __forceinline__ float& operator()(int r, int c) const {
+    return p[r * W + (c ^ swz(r))];
+  }
+};
+
+// v = hi + lo: hi is v rounded to TF32 (10 mantissa bits), to nearest with
+// ties away from zero, as cvt.rna.tf32.f32 rounds a finite v but in two
+// integer operations where cvt takes four with its checks for Inf and NaN;
+// lo = v - hi is exact, and the tensor cores read its top 19 bits (the
+// low 13 of a TF32 operand are not read), so lo loses < 2^-21 |v|, the
+// order of the lo.lo product that 3xTF32 drops.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
-// row stride of the shared scratch tile W (P, then x o V, then C o U)
-template <int Q, int HD, int N>
-__host__ __device__ constexpr int bwd_wp() { return cmax(Q, cmax(HD, N)) + 1; }
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+}
+
+// Where a lane's fragment elements lie in a tile, less what the unrolled
+// k-loop adds as a constant, so that every load is a register plus an
+// immediate.  Along a row (lane (g, t) at (r0 + g, c0 + t), r0 % 8 == 0,
+// c0 % 4 == 0): swz(r0 + g) = swz(g), and c0 + t = c0 | t, so the element
+// is at r0 W + (c0 & ~31) + row_off[(c0 % 32) / 4] with the row base
+// rbase in the offsets.  Along a column (lane at (r0 + t, c0 + g), r0 % 4
+// == 0, c0 % 8 == 0): swz(r0 + t) = t << 3 | (r0 & 4), so the element is at
+// r0 W + col_off[(r0 / 4) % 2][j] for c0 = cbase + 8 j.
+template <int W>
+__device__ __forceinline__ void row_offsets(int (&off)[8], int rbase) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    off[u] = (rbase + g) * W + (((4 * u) ^ swz(g)) | t);
+}
+
+template <int W, int NJ>
+__device__ __forceinline__ void col_offsets(int (&off)[2][NJ], int cbase) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = cbase + 8 * j;
+      off[i][j] = t * W + (c & ~31) + (((c & 31) ^ (t << 3)) | (g ^ (4 * i)));
+    }
+}
+
+// One warp: acc[j] += A[m0 .. m0+16) x B[:, n0 + 8j .. n0 + 8j + 8) over
+// k < K, for j < NT, in 3xTF32.  A(i, k) is a(i, k), or a(k, i) when TA;
+// B(k, n) is b(k, n), or b(n, k) when TB.  The m16n8k8 fragments: A at
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B at (k = t, n = g),
+// (k = t + 4, n = g); acc at (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1).  The products of each block of 32 k are summed from 0
+// and then added to acc in fp32, rounded to nearest: the tensor cores
+// align and truncate the terms they add, and a long running sum inside
+// them would take that truncation at its own scale at every k-step.  Only
+// the blocks of 32 k that meet [k_lo, k_hi) are summed: the caller leaves
+// out blocks whose A or B part is 0.  With BS, B's row k is scaled by
+// bscale[k] as it is read.
+template <int NT, int K, bool TA, bool TB, bool BS = false, int CA, int CB>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], Tile<CA> a,
+                                         Tile<CB> b, int m0, int n0,
+                                         int k_lo = 0, int k_hi = K,
+                                         const float* bscale = nullptr) {
+  constexpr int WA = Tile<CA>::W, WB = Tile<CB>::W;
+  int arow[8], acol[2][2], brow[8], bcol[2][NT];
+  if constexpr (TA) col_offsets<WA>(acol, m0);
+  else row_offsets<WA>(arow, m0);
+  if constexpr (TB) row_offsets<WB>(brow, n0);
+  else col_offsets<WB>(bcol, n0);
+  // k in blocks of 32, the k-steps of a block unrolled
+#pragma unroll 1
+  for (int kb = k_lo & ~31; kb < k_hi; kb += 32) {
+    const float* ap = a.p + (TA ? kb * WA : kb);
+    const float* bp = b.p + (TB ? kb : kb * WB);
+    float s[NT][4];
+    zero(s);
+#pragma unroll
+    for (int ks = 0; ks < (K < 32 ? K : 32); ks += 8) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {   // m0 + g + 8 (i % 2), k + t + 4 (i / 2)
+        const int h = i & 1, q = i >> 1;
+        const float v = TA ? ap[(ks + 4 * q) * WA + acol[q][h]]
+                           : ap[h * 8 * WA + arow[(ks >> 2) + q]];
+        split_tf32(v, ah[i], al[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bh[2], bl[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {   // k + t + 4 i, column n0 + 8 j + g
+          float v = TB ? bp[j * 8 * WB + brow[(ks >> 2) + i]]
+                       : bp[(ks + 4 * i) * WB + bcol[i][j]];
+          if constexpr (BS) v *= bscale[kb + ks + 4 * i + (threadIdx.x & 3)];
+          split_tf32(v, bh[i], bl[i]);
+        }
+        mma_tf32(s[j], al, bh); mma_tf32(s[j], ah, bl);   // the lo terms
+        mma_tf32(s[j], ah, bh);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += s[j][i];
+  }
+}
+
+// How NW warps cut an R x C product: strips of 16 rows by 8 NT columns,
+// NT as large as leaves no warp idle, at most 4 and C / 8; warp w < COUNT
+// takes the strip at (m0(w), n0(w)).
+template <int R, int C, int NW>
+struct Strips {
+  static constexpr int FILL = R * C / (128 * NW);
+  static constexpr int CAP = C / 8 < 4 ? C / 8 : 4;
+  static constexpr int NT = FILL < 1 ? 1 : FILL > CAP ? CAP : FILL;
+  static constexpr int ACROSS = C / (8 * NT);
+  static constexpr int COUNT = (R / 16) * ACROSS;
+  static_assert(R % 16 == 0 && C % (8 * NT) == 0 && COUNT <= NW,
+                "strip shape");
+  __device__ static int m0(int w) { return (w / ACROSS) * 16; }
+  __device__ static int n0(int w) { return (w % ACROSS) * 8 * NT; }
+};
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// ROWS x COLS values of T (row r at src + r * stride; 16-byte aligned rows
+// of fp32, 8-byte of bf16) into a tile, as fp32: fp32 by cp.async, which
+// the caller waits for (cp_async_wait) before its barrier; bf16 by loads
+// into registers, all issued before the first store.
+template <int ROWS, int COLS, typename T>
+__device__ __forceinline__ void stage(Tile<COLS> dst, const T* src,
+                                      long long stride) {
+  constexpr int G4 = COLS / 4, PER = (ROWS * G4 + NTHREADS - 1) / NTHREADS;
+  if constexpr (sizeof(T) == sizeof(float)) {
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int i = threadIdx.x + p * NTHREADS;
+      if (i < ROWS * G4) {
+        const int r = i / G4, c = (i % G4) * 4;
+        sm90::cp_async16(&dst(r, c), src + r * stride + c, true);
+      }
+    }
+  } else {
+    float4 v[PER];
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int i = threadIdx.x + p * NTHREADS;
+      if (i < ROWS * G4) v[p] = load4(src + (i / G4) * stride + (i % G4) * 4);
+    }
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int i = threadIdx.x + p * NTHREADS;
+      if (i < ROWS * G4)
+        *reinterpret_cast<float4*>(&dst(i / G4, (i % G4) * 4)) = v[p];
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;   // the same bits in every lane
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+// a + b = s + e exactly (TwoSum)
+__device__ __forceinline__ void two_sum(float a, float b, float& s,
+                                        float& e) {
+  s = a + b;
+  const float bb = s - a;
+  e = (a - (s - bb)) + (b - bb);
+}
+
+// (ah + al) + (bh + bl) as h + l, |l| <= ulp(h) / 2: a sum in two floats
+__device__ __forceinline__ void df_add(float ah, float al, float bh, float bl,
+                                       float& h, float& l) {
+  float s, e;
+  two_sum(ah, bh, s, e);
+  e += al + bl;
+  h = s + e;
+  l = e - (h - s);
+}
+
+// One warp: the in-chunk cumsum of dA (step t at dA[t * step]) as two
+// floats, cum[t] = sCum[t] + sLo[t]; E[t] = exp(cum[t]) into sE and
+// D[t] = exp(cum[Q-1] - cum[t]) into sD.  Every decay inside the chunk is
+// exp(cum[t] - cum[j]), and in fast decay cum reaches hundreds while the
+// decays that are not 0 have t - j of a few steps: in one float the
+// difference would lose ~ulp(cum[t]) ~ 1e-5 to cancellation, which d(dA)'s
+// own cancelling sums carry to the gradient.  In two floats the
+// difference (sCum[t] - sCum[j]) + (sLo[t] - sLo[j]) is exact to ~ulp of
+// itself.  Lane l holds steps l * PER .. l * PER + PER - 1; the lanes'
+// sums are scanned Kogge-Stone, one fixed order, the same in stages 1 and
+// 3.
+template <int Q, typename T>
+__device__ __forceinline__ void chunk_decays(const T* dA, long long step,
+                                             float* sCum, float* sLo,
+                                             float* sE, float* sD) {
+  constexpr int PER = Q > 32 ? Q / 32 : 1;
+  const int lane = threadIdx.x & 31;
+  float rh[PER], rl[PER], ah = 0.f, al = 0.f;
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    const int t = lane * PER + e;
+    df_add(ah, al, t < Q ? to_f(dA[t * step]) : 0.f, 0.f, ah, al);
+    rh[e] = ah;
+    rl[e] = al;
+  }
+  float ih = ah, il = al;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float uh = __shfl_up_sync(FULL, ih, o);
+    const float ul = __shfl_up_sync(FULL, il, o);
+    if (lane >= o) df_add(ih, il, uh, ul, ih, il);
+  }
+  float eh = __shfl_up_sync(FULL, ih, 1), el = __shfl_up_sync(FULL, il, 1);
+  if (lane == 0) eh = el = 0.f;
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    const int t = lane * PER + e;
+    if (t < Q) df_add(eh, el, rh[e], rl[e], sCum[t], sLo[t]);
+  }
+  __syncwarp();
+  const float lh = sCum[Q - 1], ll = sLo[Q - 1];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    const int t = lane * PER + e;
+    if (t < Q) {
+      sE[t] = expf(sCum[t] + sLo[t]);
+      sD[t] = expf((lh - sCum[t]) + (ll - sLo[t]));
+    }
+  }
+}
+
+// Head h's x and dY rows of the chunk starting at row row0 = b S + c Q into
+// the tiles at xy (x, then dY), and its dA into dA_s: fp32 by cp.async
+// (dA by warp 0, each lane the steps chunk_decays has it read), bf16 by
+// loads; the caller commits.
+template <int Q, int HD, typename T>
+__device__ __forceinline__ void fetch_xy(float* xy, float* dA_s,
+                                         const BwdArgs& a, long long row0,
+                                         int h) {
+  constexpr int PER = Q > 32 ? Q / 32 : 1;
+  const long long xstride = (long long)a.H * HD;
+  stage<Q, HD>(Tile<HD>{xy},
+               static_cast<const T*>(a.x) + (row0 * a.H + h) * HD, xstride);
+  stage<Q, HD>(Tile<HD>{xy + Q * Tile<HD>::W},
+               static_cast<const T*>(a.dy) + (row0 * a.H + h) * HD, xstride);
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (threadIdx.x < 32)
+      for (int e = 0; e < PER; ++e) {
+        const int t = threadIdx.x * PER + e;
+        if (t < Q)
+          sm90::cp_async4(dA_s + t,
+                          static_cast<const T*>(a.dA) + (row0 + t) * a.H + h,
+                          true);
+      }
+  }
+}
+
+// Warp 0: cum, E and D of head h from its dA as fetch_xy left it: in dA_s
+// (fp32, once this lane's copies have landed) or in device memory (bf16).
+template <int Q, typename T>
+__device__ __forceinline__ void head_decays(const float* dA_s,
+                                            const BwdArgs& a, long long row0,
+                                            int h, float* sCum, float* sLo,
+                                            float* sE, float* sD) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    sm90::cp_async_wait<0>();
+    chunk_decays<Q>(dA_s, 1, sCum, sLo, sE, sD);
+  } else {
+    chunk_decays<Q>(static_cast<const T*>(a.dA) + row0 * a.H + h, a.H, sCum,
+                    sLo, sE, sD);
+  }
+}
 
 template <int Q, int HD, int N>
-constexpr size_t bwd_smem_bytes() {
-  // x, dY (rows of HD+1); B, C (N+1); M, dG (Q+1); W; S_in, dS (N+1); eight
-  // vectors of Q; one float a thread for <dS, S_in>
+constexpr size_t state_smem_bytes() {
+  // B, C (Q x N); two sets (this head's and the next's) of x, dY (Q x HD)
+  // and dA (Q); cum (two floats), E, D
   return sizeof(float) *
-         (size_t)(2 * Q * (HD + 1) + 2 * Q * (N + 1) + 2 * Q * (Q + 1) +
-                  Q * bwd_wp<Q, HD, N>() + 2 * HD * (N + 1) + 8 * Q +
-                  NTHREADS);
+         (size_t)(2 * Q * Tile<N>::W + 4 * Q * Tile<HD>::W + 6 * Q);
 }
 
+// Stage 1.  Block (b, c, group): for each head h of the group,
+// x^T.(D o B) and dY^T.(E o C) of chunk c into states / dstates[b, h, c],
+// and a_c into decay[b, h, c].  The next head's x, dY and (fp32) dA are
+// copied while this head computes; 99,840 bytes of tiles at the main
+// shape, two blocks an SM.
 template <typename T, int Q, int HD, int N>
-__global__ void __launch_bounds__(NTHREADS) ssd_chunk_bwd(const BwdArgs a) {
-  constexpr int HDP = HD + 1, NP = N + 1, QP = Q + 1;
-  constexpr int WP = bwd_wp<Q, HD, N>();
-  constexpr int AST = NTHREADS / Q;     // Q x Q: column j, rows every AST
-  constexpr int AR = Q / AST;
-  constexpr int XST = NTHREADS / HD;    // dx: column d, rows j every XST
-  constexpr int XR = Q / XST;
-  constexpr int NST = NTHREADS / N;     // column n, rows every NST
-  constexpr int NR = NST < Q ? Q / NST : 1;   // dB, dC: rows t or j < Q
-  constexpr int SR = HD / NST;                // states: rows d < HD
-  static_assert(NTHREADS % Q == 0 && Q % AST == 0 && NTHREADS % HD == 0 &&
-                    Q % XST == 0 && NTHREADS % N == 0 &&
-                    (NST >= Q || Q % NST == 0) && NST <= HD &&
-                    HD % NST == 0 && 2 * Q <= NTHREADS,
-                "tile shape");
-
+__global__ void __launch_bounds__(NTHREADS, 2) ssd_bwd_chunk_state(
+    const BwdArgs a) {
+  using SO = Strips<HD, N, NWARPS>;
+  constexpr int SET = 2 * Q * Tile<HD>::W + Q;   // x, dY, dA
   extern __shared__ float4 smem4[];
-  float* sX = reinterpret_cast<float*>(smem4);   // Q x HDP
-  float* sDY = sX + Q * HDP;                      // Q x HDP
-  float* sB = sDY + Q * HDP;                      // Q x NP
-  float* sC = sB + Q * NP;                        // Q x NP
-  float* sM = sC + Q * NP;                        // Q x QP
-  float* sdG = sM + Q * QP;                       // Q x QP
-  float* sW = sdG + Q * QP;                       // Q x WP
-  float* sS = sW + Q * WP;                        // HD x NP: S_in
-  float* sdS = sS + HD * NP;                      // HD x NP: dS
-  float* sCum = sdS + HD * NP;                    // Q: dA, then its cumsum
-  float* sE = sCum + Q;                           // Q: exp(cum)
-  float* sD = sE + Q;                             // Q: exp(cum[Q-1] - cum)
-  float* sRow = sD + Q;                           // Q: sum_{j<t} P[t][j]
-  float* sCol = sRow + Q;                         // Q: sum_{t>j} P[t][j]
-  float* sR = sCol + Q;                           // Q: R
-  float* sI = sR + Q;                             // Q: inter-chunk term
-  float* sRed = sCum + 8 * Q;                     // NTHREADS
+  const Tile<N> sB{reinterpret_cast<float*>(smem4)};
+  const Tile<N> sC{sB.p + Q * Tile<N>::W};
+  float* const sets = sC.p + Q * Tile<N>::W;
+  float* sCum = sets + 2 * SET;
+  float* sLo = sCum + Q;
+  float* sE = sLo + Q;
+  float* sD = sE + Q;
 
-  const T* X = static_cast<const T*>(a.x);
-  const T* DA = static_cast<const T*>(a.dA);
-  const T* Bg = static_cast<const T*>(a.Bm);
-  const T* Cg = static_cast<const T*>(a.Cm);
-  const T* DY = static_cast<const T*>(a.dy);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int groups = a.H / a.hg, nC = a.S / Q;
+  const int grp = blockIdx.x % groups;
+  const int c = (blockIdx.x / groups) % nC;
+  const int b = blockIdx.x / (groups * nC);
+  const long long row0 = (long long)b * a.S + (long long)c * Q;   // (b, cQ)
+
+  stage<Q, N>(sB, static_cast<const T*>(a.Bm) + row0 * N, N);
+  stage<Q, N>(sC, static_cast<const T*>(a.Cm) + row0 * N, N);
+  fetch_xy<Q, HD, T>(sets, sets + SET - Q, a, row0, grp * a.hg);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  if (warp == 0)
+    head_decays<Q, T>(sets + SET - Q, a, row0, grp * a.hg, sCum, sLo, sE, sD);
+  __syncthreads();
+  for (int hh = 0; hh < a.hg; ++hh) {
+    // head hh's x, dY, E and D are in place; the other set was last read
+    // by the previous head, before its first barrier
+    const int cur = hh & 1, h = grp * a.hg + hh;
+    const long long bhc = ((long long)b * a.H + h) * nC + c;
+    float* set = sets + cur * SET;
+    if (hh + 1 < a.hg) {
+      fetch_xy<Q, HD, T>(sets + (cur ^ 1) * SET,
+                         sets + (cur ^ 1) * SET + SET - Q, a, row0, h + 1);
+      sm90::cp_async_commit();
+    }
+    if (tid == 0) a.decay[bhc] = sE[Q - 1];
+    if (warp < SO::COUNT) {
+      const int m0 = SO::m0(warp), n0 = SO::n0(warp);
+      float ds[SO::NT][4], dds[SO::NT][4];
+      zero(ds);
+      zero(dds);
+      // x^T.(D o B) and dY^T.(E o C), B and C scaled as they are read
+      warp_mma<SO::NT, Q, true, false, true>(ds, Tile<HD>{set}, sB, m0, n0,
+                                             0, Q, sD);
+      warp_mma<SO::NT, Q, true, false, true>(
+          dds, Tile<HD>{set + Q * Tile<HD>::W}, sC, m0, n0, 0, Q, sE);
+      float* st = a.states + bhc * HD * N;
+      float* dst = a.dstates + bhc * HD * N;
+#pragma unroll
+      for (int j = 0; j < SO::NT; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int d = m0 + g + 8 * half, n = n0 + 8 * j + 2 * t4;
+          store2(st + d * N + n, ds[j][2 * half], ds[j][2 * half + 1]);
+          store2(dst + d * N + n, dds[j][2 * half], dds[j][2 * half + 1]);
+        }
+    }
+    __syncthreads();   // this head's tiles, E and D are read
+    if (warp == 0 && hh + 1 < a.hg)
+      head_decays<Q, T>(sets + (cur ^ 1) * SET + SET - Q, a, row0, h + 1,
+                        sCum, sLo, sE, sD);
+    sm90::cp_async_wait<0>();
+    __syncthreads();   // the next head's tiles, E and D are in place
+  }
+}
+
+__device__ __forceinline__ float4 fma4(float a, float4 x, float4 y) {
+  return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z),
+                     fmaf(a, x.w, y.w));
+}
+
+// Stage 2.  Thread (b, h, e) for each run of 4 of the hd x N state
+// elements (16-byte loads and stores): states[b, h, c] <- S_in[c] and
+// dstates[b, h, c] <- dS[c], in place, both walks at once, U chunks' loads
+// in flight before their stores.
+__global__ void __launch_bounds__(NTHREADS) ssd_bwd_state_pass(
+    float* __restrict__ states, float* __restrict__ dstates,
+    const float* __restrict__ decay, int nC, int hdn, long long total4) {
+  constexpr int U = 4;
+  const long long i = (long long)blockIdx.x * NTHREADS + threadIdx.x;
+  if (i >= total4) return;
+  const int hdn4 = hdn / 4;
+  const long long bh = i / hdn4;
+  float4* s = reinterpret_cast<float4*>(states + bh * nC * hdn) + i % hdn4;
+  float4* d = reinterpret_cast<float4*>(dstates + bh * nC * hdn) + i % hdn4;
+  const float* dec = decay + bh * nC;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f), dacc = acc;
+  for (int c0 = 0; c0 < nC; c0 += U) {
+    float4 v[U], w[U];
+    float av[U], aw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u, r = nC - 1 - c;
+      if (c < nC) {
+        v[u] = s[(long long)c * hdn4];
+        av[u] = dec[c];
+        w[u] = d[(long long)r * hdn4];
+        aw[u] = dec[r];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u, r = nC - 1 - c;
+      if (c < nC) {
+        // S_in[c+1] = a_c S_in[c] + x^T.(D o B) of chunk c
+        s[(long long)c * hdn4] = acc;
+        acc = fma4(av[u], acc, v[u]);
+        // dS[r-1] = a_r dS[r] + dY^T.(E o C) of chunk r
+        d[(long long)r * hdn4] = dacc;
+        dacc = fma4(aw[u], dacc, w[u]);   // dS carried to the chunk before
+      }
+    }
+  }
+}
+
+template <int Q, int HD, int N>
+constexpr size_t grads_smem_bytes() {
+  // C, B (Q x N); two sets (this head's and the next's) of x, dY (Q x HD),
+  // S_in, dS (HD x N) and dA (Q); M, dG, P (Q x Q); cum (two floats), E, D
+  // and P's row and column sums (Q each); the partial sums of R and of the
+  // inter-chunk term (Q per strip across); one float a warp
+  return sizeof(float) *
+         (size_t)(2 * Q * Tile<N>::W + 4 * Q * Tile<HD>::W +
+                  4 * HD * Tile<N>::W + 3 * Q * Tile<Q>::W + 8 * Q +
+                  Q * Strips<Q, HD, NWARPS>::ACROSS +
+                  Q * Strips<Q, N, NWARPS>::ACROSS + NWARPS);
+}
+
+// Stage 3.  Block (b, c, group): dx and d(dA) of chunk c for each head of
+// the group, and the group's partials of dB and dC.  The next head's x, dY,
+// S_in, dS and (fp32) dA are copied into a second set of tiles while this
+// head computes: cp.async for fp32; bf16 is loaded and converted at once.
+template <typename T, int Q, int HD, int N>
+__global__ void __launch_bounds__(NTHREADS, 1) ssd_bwd_chunk_grads(
+    const BwdArgs a) {
+  using SQ = Strips<Q, Q, NWARPS>;    // C.B^T and dY.x^T
+  using SX = Strips<Q, HD, NWARPS>;   // dx
+  using SN = Strips<Q, N, NWARPS>;    // dB and dC
+  constexpr int PER = Q > 32 ? Q / 32 : 1;
+  extern __shared__ float4 smem4[];
+  const Tile<N> sC{reinterpret_cast<float*>(smem4)};
+  const Tile<N> sB{sC.p + Q * Tile<N>::W};
+  // per head, two sets: x, dY (Q x HD), S_in, dS (HD x N), dA (Q)
+  constexpr int SET = 2 * Q * Tile<HD>::W + 2 * HD * Tile<N>::W + Q;
+  float* const sets = sB.p + Q * Tile<N>::W;
+  const Tile<Q> sM{sets + 2 * SET};
+  const Tile<Q> sdG{sM.p + Q * Tile<Q>::W};
+  const Tile<Q> sP{sdG.p + Q * Tile<Q>::W};        // dM o M, strictly below
+  float* sCum = sP.p + Q * Tile<Q>::W;
+  float* sLo = sCum + Q;
+  float* sE = sLo + Q;
+  float* sD = sE + Q;
+  float* sRow = sD + Q;                             // sum_{j<t} P[t][j]
+  float* sCol = sRow + Q;                           // sum_{t>j} P[t][j]
+  float* sRp = sCol + Q;         // R's partial sums, Q per dx strip across
+  float* sIp = sRp + Q * SX::ACROSS;   // the inter-chunk term's, per dC strip
+  float* sRed = sIp + Q * SN::ACROSS;  // <dS, S_in>, one partial a warp
+
   T* DX = static_cast<T*>(a.dx);
   T* DDA = static_cast<T*>(a.ddA);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int groups = a.H / a.hg, nC = a.S / Q;
+  const int grp = blockIdx.x % groups;
+  const int c = (blockIdx.x / groups) % nC;
+  const int b = blockIdx.x / (groups * nC);
+  const long long row0 = (long long)b * a.S + (long long)c * Q;   // (b, cQ)
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x % a.H;
-  const int nC = a.S / Q;
-  const long long xstep = (long long)a.H * HD;
-  const long long xbase = ((long long)b * a.S * a.H + h) * HD;
-  const long long dbase = (long long)b * a.S * a.H + h;
-  const long long nbase = (long long)b * a.S * N;
-  // partials: (b, t, h, n) at pbase + t * H * N + n
-  const long long pbase = ((long long)b * a.S * a.H + h) * N;
-  const long long pstep = (long long)a.H * N;
-  float* St = a.states + (long long)blockIdx.x * nC * HD * N;
+  // head hh's x, dY, dA (fetch_xy), S_in and dS into set `which`
+  auto fetch = [&](int hh, int which) {
+    const int h = grp * a.hg + hh;
+    const long long bhc = ((long long)b * a.H + h) * nC + c;
+    float* set = sets + which * SET;
+    fetch_xy<Q, HD, T>(set, set + SET - Q, a, row0, h);
+    stage<HD, N>(Tile<N>{set + 2 * Q * Tile<HD>::W},
+                          a.states + bhc * HD * N, N);
+    stage<HD, N>(
+        Tile<N>{set + 2 * Q * Tile<HD>::W + HD * Tile<N>::W},
+        a.dstates + bhc * HD * N, N);
+    sm90::cp_async_commit();
+  };
+  auto decays = [&](int hh, int which) {
+    head_decays<Q, T>(sets + which * SET + SET - Q, a, row0,
+                      grp * a.hg + hh, sCum, sLo, sE, sD);
+  };
 
-  // ---- pass 1: the forward's state walk; St[c] = the state entering c
-  for (int i = tid; i < HD * NP; i += NTHREADS) sS[i] = 0.f;
-  for (int c = 0; c < nC; ++c) {
-    const int c0 = c * Q;
-    __syncthreads();
-    for (int i = tid; i < Q * HD; i += NTHREADS) {
-      const int t = i / HD, d = i % HD;
-      sX[t * HDP + d] = to_f(X[xbase + (long long)(c0 + t) * xstep + d]);
-    }
-    for (int i = tid; i < Q * N; i += NTHREADS) {
-      const int t = i / N, n = i % N;
-      sB[t * NP + n] = to_f(Bg[nbase + (long long)(c0 + t) * N + n]);
-    }
-    if (tid < Q) sCum[tid] = to_f(DA[dbase + (long long)(c0 + tid) * a.H]);
-    __syncthreads();
-    if (tid == 0) {
-      float acc = 0.f;
-      for (int t = 0; t < Q; ++t) {
-        acc += sCum[t];
-        sCum[t] = acc;
-      }
-    }
-    __syncthreads();
-    if (tid < Q) sD[tid] = expf(sCum[Q - 1] - sCum[tid]);
-    __syncthreads();
-    {
-      const int n = tid % N, r0 = tid / N;
-      float* dst = St + (long long)c * HD * N;
-      float s[SR];
+  stage<Q, N>(sC, static_cast<const T*>(a.Cm) + row0 * N, N);
+  stage<Q, N>(sB, static_cast<const T*>(a.Bm) + row0 * N, N);
+  fetch(0, 0);
+  sm90::cp_async_wait<0>();
+  if (warp == 0) decays(0, 0);
+  __syncthreads();
+  float gq[SQ::NT][4];   // this warp's strip of C.B^T, for every head
+  zero(gq);
+  // a strip wholly above the diagonal (j > t) is masked to 0: left out
+  const bool above = SQ::n0(warp) >= SQ::m0(warp) + 16;
+  if (warp < SQ::COUNT && !above)
+    warp_mma<SQ::NT, N, false, true>(gq, sC, sB, SQ::m0(warp), SQ::n0(warp));
+  float dBacc[SN::NT][4], dCacc[SN::NT][4];   // summed over the heads
+  zero(dBacc);
+  zero(dCacc);
+
+  for (int hh = 0; hh < a.hg; ++hh) {
+    // head hh's tiles, cum, E and D are in place (the barrier at the end of
+    // the previous head's loop, or before it); set cur ^ 1 was last read by
+    // the previous head's products, before its barrier ahead of d(dA)
+    const int cur = hh & 1;
+    const int h = grp * a.hg + hh;
+    if (hh + 1 < a.hg) fetch(hh + 1, cur ^ 1);
+    float* set = sets + cur * SET;
+    const Tile<HD> sX{set};
+    const Tile<HD> sDY{set + Q * Tile<HD>::W};
+    const Tile<N> sS{set + 2 * Q * Tile<HD>::W};                  // S_in
+    const Tile<N> sdS{set + 2 * Q * Tile<HD>::W + HD * Tile<N>::W};   // dS
+
+    if (warp < SQ::COUNT) {   // M = G o L, dG = dM o L, P = dM o M (j < t)
+      const int m0 = SQ::m0(warp), n0 = SQ::n0(warp);
+      float dm[SQ::NT][4];
+      zero(dm);
+      if (!above) warp_mma<SQ::NT, HD, false, true>(dm, sDY, sX, m0, n0);
 #pragma unroll
-      for (int i = 0; i < SR; ++i) {
-        s[i] = sS[(r0 + i * NST) * NP + n];
-        dst[(r0 + i * NST) * N + n] = s[i];
-      }
-      if (c + 1 < nC) {   // the last chunk's outgoing state is not needed
-        const float decay = expf(sCum[Q - 1]);
+      for (int j = 0; j < SQ::NT; ++j)
 #pragma unroll
-        for (int i = 0; i < SR; ++i) s[i] *= decay;
-#pragma unroll 8
-        for (int j = 0; j < Q; ++j) {
-          const float bj = sB[j * NP + n], dj = sD[j];
-#pragma unroll
-          for (int i = 0; i < SR; ++i)
-            s[i] = fmaf(sX[j * HDP + r0 + i * NST] * dj, bj, s[i]);
+        for (int i = 0; i < 4; ++i) {
+          const int r = m0 + g + (i >> 1) * 8;
+          const int col = n0 + 8 * j + 2 * t4 + (i & 1);
+          float m = 0.f, dg = 0.f, p = 0.f;
+          if (col <= r) {
+            const float l =
+                expf((sCum[r] - sCum[col]) + (sLo[r] - sLo[col]));
+            m = gq[j][i] * l;
+            dg = dm[j][i] * l;
+            if (col < r) p = dm[j][i] * m;
+          }
+          sM(r, col) = m;
+          sdG(r, col) = dg;
+          sP(r, col) = p;
         }
+    }
+    __syncthreads();
+
+    if (warp < SX::COUNT) {   // dx = M^T.dY + D o (B.dS^T); R's partials
+      const int m0 = SX::m0(warp), n0 = SX::n0(warp);
+      float acc[SX::NT][4], v[SX::NT][4];
+      zero(acc);
+      zero(v);
+      warp_mma<SX::NT, Q, true, false>(acc, sM, sDY, m0, n0, m0);
+      warp_mma<SX::NT, N, false, true>(v, sB, sdS, m0, n0);
 #pragma unroll
-        for (int i = 0; i < SR; ++i) sS[(r0 + i * NST) * NP + n] = s[i];
+      for (int half = 0; half < 2; ++half) {
+        const int j = m0 + g + 8 * half;
+        const float dj = sD[j];
+        T* dst = DX + ((row0 + j) * a.H + h) * HD;
+        float rp = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < SX::NT; ++jj) {
+          const int d = n0 + 8 * jj + 2 * t4;
+          const float v0 = v[jj][2 * half], v1 = v[jj][2 * half + 1];
+          store2(dst + d, acc[jj][2 * half] + dj * v0,
+                 acc[jj][2 * half + 1] + dj * v1);
+          rp += sX(j, d) * v0 + sX(j, d + 1) * v1;
+        }
+        rp = quad_sum(rp);
+        if (t4 == 0) sRp[(warp % SX::ACROSS) * Q + j] = rp;
       }
     }
+    if (warp < SN::COUNT) {
+      const int m0 = SN::m0(warp), n0 = SN::n0(warp);
+      // dC += dG.B + E o (dY.S_in); the inter-chunk term's partials
+      float u[SN::NT][4];
+      zero(u);
+      warp_mma<SN::NT, Q, false, false>(dCacc, sdG, sB, m0, n0, 0, m0 + 16);
+      warp_mma<SN::NT, HD, false, false>(u, sDY, sS, m0, n0);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + g + 8 * half;
+        const float er = sE[r];
+        float ip = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < SN::NT; ++jj) {
+          const int n = n0 + 8 * jj + 2 * t4;
+          const float u0 = u[jj][2 * half], u1 = u[jj][2 * half + 1];
+          dCacc[jj][2 * half] += er * u0;
+          dCacc[jj][2 * half + 1] += er * u1;
+          ip += sC(r, n) * u0 + sC(r, n + 1) * u1;
+        }
+        ip = quad_sum(ip);
+        if (t4 == 0) sIp[(warp % SN::ACROSS) * Q + r] = ip;
+      }
+      // dB += dG^T.C + D o (x.dS)
+      float w[SN::NT][4];
+      zero(w);
+      warp_mma<SN::NT, Q, true, false>(dBacc, sdG, sC, m0, n0, m0);
+      warp_mma<SN::NT, HD, false, false>(w, sX, sdS, m0, n0);
+#pragma unroll
+      for (int jj = 0; jj < SN::NT; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dBacc[jj][i] += sD[m0 + g + (i >> 1) * 8] * w[jj][i];
+    }
+    for (int r = warp; r < Q; r += NWARPS) {   // P's row and column sums
+      float rs = 0.f, cs = 0.f;
+      for (int k = lane; k < Q; k += 32) {
+        rs += sP(r, k);
+        cs += sP(k, r);
+      }
+      rs = warp_sum(rs);
+      cs = warp_sum(cs);
+      if (lane == 0) {
+        sRow[r] = rs;
+        sCol[r] = cs;
+      }
+    }
+    {   // <dS, S_in>
+      float dot = 0.f;
+      for (int i = tid; i < HD * N; i += NTHREADS)
+        dot += sdS(i / N, i % N) * sS(i / N, i % N);
+      dot = warp_sum(dot);
+      if (lane == 0) sRed[warp] = dot;
+    }
+    __syncthreads();
+
+    if (warp == 0) {   // dcum and its reverse cumsum, d(dA)
+      float dot = 0.f;
+      for (int w = 0; w < NWARPS; ++w) dot += sRed[w];
+      float rv[PER], rpart = 0.f;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const int t = lane * PER + e;
+        float r = 0.f;
+        if (t < Q - 1) {   // R[Q-1] is left out
+          float s = 0.f;
+          for (int k = 0; k < SX::ACROSS; ++k) s += sRp[k * Q + t];
+          r = sD[t] * s;
+        }
+        rv[e] = r;
+        rpart += r;
+      }
+      const float rsum = warp_sum(rpart);
+      float dc[PER];
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const int t = lane * PER + e;
+        dc[e] = 0.f;
+        if (t < Q) {
+          float ip = 0.f;
+          for (int k = 0; k < SN::ACROSS; ++k) ip += sIp[k * Q + t];
+          float v = sRow[t] - sCol[t] + sE[t] * ip - rv[e];
+          if (t == Q - 1) v += sE[Q - 1] * dot + rsum;
+          dc[e] = v;
+        }
+      }
+      float run[PER], acc = 0.f;
+#pragma unroll
+      for (int e = PER - 1; e >= 0; --e) {
+        acc += dc[e];
+        run[e] = acc;
+      }
+      float incl = acc;   // suffix scan of the lanes' sums
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_down_sync(FULL, incl, o);
+        if (lane + o < 32) incl += u;
+      }
+      float excl = __shfl_down_sync(FULL, incl, 1);
+      if (lane == 31) excl = 0.f;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const int t = lane * PER + e;
+        if (t < Q)
+          DDA[(row0 + t) * a.H + h] =
+              from_f<T>(excl + run[e]);   // d(dA)[t]: the reverse cumsum
+      }
+      if (hh + 1 < a.hg) decays(hh + 1, cur ^ 1);
+    }
+    sm90::cp_async_wait<0>();
+    __syncthreads();   // the next head's tiles, cum, E and D are in place
   }
 
-  // ---- pass 2: the chunks in reverse, dS carried in shared memory
-  for (int i = tid; i < HD * NP; i += NTHREADS) sdS[i] = 0.f;
-  for (int c = nC - 1; c >= 0; --c) {
-    const int c0 = c * Q;
-    __syncthreads();   // the previous chunk no longer reads the tiles
-    for (int i = tid; i < Q * HD; i += NTHREADS) {
-      const int t = i / HD, d = i % HD;
-      const long long off = xbase + (long long)(c0 + t) * xstep + d;
-      sX[t * HDP + d] = to_f(X[off]);
-      sDY[t * HDP + d] = to_f(DY[off]);
-    }
-    for (int i = tid; i < Q * N; i += NTHREADS) {
-      const int t = i / N, n = i % N;
-      const long long off = nbase + (long long)(c0 + t) * N + n;
-      sB[t * NP + n] = to_f(Bg[off]);
-      sC[t * NP + n] = to_f(Cg[off]);
-    }
-    {
-      const float* src = St + (long long)c * HD * N;
-      for (int i = tid; i < HD * N; i += NTHREADS)
-        sS[(i / N) * NP + i % N] = src[i];
-    }
-    if (tid < Q) sCum[tid] = to_f(DA[dbase + (long long)(c0 + tid) * a.H]);
-    __syncthreads();
-    if (tid == 0) {   // in order, as the plain version's cumsum
-      float acc = 0.f;
-      for (int t = 0; t < Q; ++t) {
-        acc += sCum[t];
-        sCum[t] = acc;
+  if (warp < SN::COUNT) {   // the group's partials of dB and dC
+    const int m0 = SN::m0(warp), n0 = SN::n0(warp);
+#pragma unroll
+    for (int jj = 0; jj < SN::NT; ++jj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + g + 8 * half, n = n0 + 8 * jj + 2 * t4;
+        const long long off = ((row0 + r) * groups + grp) * N + n;
+        store2(a.dBp + off, dBacc[jj][2 * half], dBacc[jj][2 * half + 1]);
+        store2(a.dCp + off, dCacc[jj][2 * half], dCacc[jj][2 * half + 1]);
       }
-    }
-    __syncthreads();
-    if (tid < Q) {
-      sE[tid] = expf(sCum[tid]);
-      sD[tid] = expf(sCum[Q - 1] - sCum[tid]);
-    }
-    {   // M, dG and P for this thread's column j and rows t
-      const int j = tid % Q, r0 = tid / Q;
-      float g[AR], dm[AR];
-#pragma unroll
-      for (int i = 0; i < AR; ++i) g[i] = dm[i] = 0.f;
-#pragma unroll 8
-      for (int n = 0; n < N; ++n) {
-        const float bj = sB[j * NP + n];
-#pragma unroll
-        for (int i = 0; i < AR; ++i)
-          g[i] = fmaf(sC[(r0 + i * AST) * NP + n], bj, g[i]);
-      }
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        const float xj = sX[j * HDP + d];
-#pragma unroll
-        for (int i = 0; i < AR; ++i)
-          dm[i] = fmaf(sDY[(r0 + i * AST) * HDP + d], xj, dm[i]);
-      }
-      const float cj = sCum[j];
-#pragma unroll
-      for (int i = 0; i < AR; ++i) {
-        const int t = r0 + i * AST;
-        float m = 0.f, dg = 0.f, p = 0.f;
-        if (j <= t) {
-          const float l = expf(sCum[t] - cj);
-          m = g[i] * l;
-          dg = dm[i] * l;
-          if (j < t) p = dm[i] * m;
-        }
-        sM[t * QP + j] = m;
-        sdG[t * QP + j] = dg;
-        sW[t * WP + j] = p;
-      }
-    }
-    __syncthreads();
-    if (tid < Q) {   // row sums of P, strictly below the diagonal
-      float acc = 0.f;
-      for (int j = 0; j < tid; ++j) acc += sW[tid * WP + j];
-      sRow[tid] = acc;
-    } else if (tid < 2 * Q) {   // column sums
-      const int j = tid - Q;
-      float acc = 0.f;
-      for (int t = j + 1; t < Q; ++t) acc += sW[t * WP + j];
-      sCol[j] = acc;
-    }
-    __syncthreads();
-    {   // dx[j][d] = sum_t M[t][j] dY[t][d] + D[j] dS[d] . B[j]
-      const int d = tid % HD, r0 = tid / HD;
-      float acc[XR], v[XR];
-#pragma unroll
-      for (int i = 0; i < XR; ++i) acc[i] = v[i] = 0.f;
-#pragma unroll 8
-      for (int t = 0; t < Q; ++t) {
-        const float dy = sDY[t * HDP + d];
-#pragma unroll
-        for (int i = 0; i < XR; ++i)
-          acc[i] = fmaf(sM[t * QP + r0 + i * XST], dy, acc[i]);
-      }
-#pragma unroll 8
-      for (int n = 0; n < N; ++n) {
-        const float ds = sdS[d * NP + n];
-#pragma unroll
-        for (int i = 0; i < XR; ++i)
-          v[i] = fmaf(sB[(r0 + i * XST) * NP + n], ds, v[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < XR; ++i) {
-        const int j = r0 + i * XST;
-        DX[xbase + (long long)(c0 + j) * xstep + d] =
-            from_f<T>(acc[i] + sD[j] * v[i]);
-        sW[j * WP + d] = sX[j * HDP + d] * v[i];
-      }
-    }
-    __syncthreads();
-    if (tid < Q - 1) {   // R[j] = D[j] x[j] . (dS B[j])
-      float acc = 0.f;
-      for (int d = 0; d < HD; ++d) acc += sW[tid * WP + d];
-      sR[tid] = sD[tid] * acc;
-    } else if (tid == Q - 1) {
-      sR[tid] = 0.f;
-    }
-    __syncthreads();
-    {   // dC[t][n] = sum_j dG[t][j] B[j][n] + E[t] dY[t] . S_in[:, n]
-      const int n = tid % N, r0 = tid / N;
-      if (r0 < Q) {
-        float acc[NR], u[NR];
-#pragma unroll
-        for (int i = 0; i < NR; ++i) acc[i] = u[i] = 0.f;
-#pragma unroll 8
-        for (int j = 0; j < Q; ++j) {
-          const float bj = sB[j * NP + n];
-#pragma unroll
-          for (int i = 0; i < NR; ++i)
-            acc[i] = fmaf(sdG[(r0 + i * NST) * QP + j], bj, acc[i]);
-        }
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) {
-          const float sd = sS[d * NP + n];
-#pragma unroll
-          for (int i = 0; i < NR; ++i)
-            u[i] = fmaf(sDY[(r0 + i * NST) * HDP + d], sd, u[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          const int t = r0 + i * NST;
-          a.dCp[pbase + (long long)(c0 + t) * pstep + n] =
-              acc[i] + sE[t] * u[i];
-          sW[t * WP + n] = sC[t * NP + n] * u[i];
-        }
-      }
-    }
-    __syncthreads();
-    if (tid < Q) {   // the inter-chunk term E[t] C[t] . (dY[t] . S_in)
-      float acc = 0.f;
-      for (int n = 0; n < N; ++n) acc += sW[tid * WP + n];
-      sI[tid] = sE[tid] * acc;
-    }
-    {   // dB[j][n] = sum_t dG[t][j] C[t][n] + D[j] x[j] . dS[:, n]
-      const int n = tid % N, r0 = tid / N;
-      if (r0 < Q) {
-        float acc[NR], w[NR];
-#pragma unroll
-        for (int i = 0; i < NR; ++i) acc[i] = w[i] = 0.f;
-#pragma unroll 8
-        for (int t = 0; t < Q; ++t) {
-          const float ct = sC[t * NP + n];
-#pragma unroll
-          for (int i = 0; i < NR; ++i)
-            acc[i] = fmaf(sdG[t * QP + r0 + i * NST], ct, acc[i]);
-        }
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) {
-          const float ds = sdS[d * NP + n];
-#pragma unroll
-          for (int i = 0; i < NR; ++i)
-            w[i] = fmaf(sX[(r0 + i * NST) * HDP + d], ds, w[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          const int j = r0 + i * NST;
-          a.dBp[pbase + (long long)(c0 + j) * pstep + n] =
-              acc[i] + sD[j] * w[i];
-        }
-      }
-    }
-    __syncthreads();   // every read of the old dS is done
-    {   // <dS, S_in>, then dS <- E[Q-1] dS + sum_t E[t] dY[t]^T C[t]
-      const int n = tid % N, r0 = tid / N;
-      const float decay = sE[Q - 1];
-      float s[SR], dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < SR; ++i) {
-        const float ds = sdS[(r0 + i * NST) * NP + n];
-        dot = fmaf(ds, sS[(r0 + i * NST) * NP + n], dot);
-        s[i] = ds * decay;
-      }
-      sRed[tid] = dot;
-#pragma unroll 8
-      for (int t = 0; t < Q; ++t) {
-        const float ct = sC[t * NP + n], et = sE[t];
-#pragma unroll
-        for (int i = 0; i < SR; ++i)
-          s[i] = fmaf(et * sDY[t * HDP + r0 + i * NST], ct, s[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < SR; ++i)
-        sdS[(r0 + i * NST) * NP + n] = s[i];   // carried to the chunk before
-    }
-    __syncthreads();
-    if (tid == 0) {   // dcum and its reverse cumsum, in index order
-      float dot = 0.f, rsum = 0.f;
-      for (int i = 0; i < NTHREADS; ++i) dot += sRed[i];
-      for (int j = 0; j < Q - 1; ++j) rsum += sR[j];
-      float acc = 0.f;
-      for (int t = Q - 1; t >= 0; --t) {
-        float dcum = sRow[t] - sCol[t] + sI[t] - sR[t];
-        if (t == Q - 1) dcum += sE[Q - 1] * dot + rsum;
-        acc += dcum;   // d(dA)[t] = sum_{t' >= t} dcum[t']
-        DDA[dbase + (long long)(c0 + t) * a.H] = from_f<T>(acc);
-      }
-    }
   }
 }
 
-// dB and dC: the per-head partials summed over the heads in head order.
+// dB and dC: the head groups' partials summed in group order.
 template <typename T>
-__global__ void ssd_head_sum(const float* dBp, const float* dCp, T* dB, T* dC,
-                             long long rows, int H, int N) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(NTHREADS) ssd_head_sum(
+    const float* dBp, const float* dCp, T* dB, T* dC, long long rows,
+    int groups, int N) {
+  const long long i = (long long)blockIdx.x * NTHREADS + threadIdx.x;
   if (i >= rows * N) return;
-  const long long src = (i / N) * H * N + i % N;
+  const long long src = (i / N) * groups * N + i % N;
   float sb = 0.f, sc = 0.f;
-  for (int h = 0; h < H; ++h) {
-    sb += dBp[src + (long long)h * N];
-    sc += dCp[src + (long long)h * N];
+  for (int k = 0; k < groups; ++k) {
+    sb += dBp[src + (long long)k * N];
+    sc += dCp[src + (long long)k * N];
   }
   dB[i] = from_f<T>(sb);
   dC[i] = from_f<T>(sc);
 }
 
+template <typename K>
+cudaError_t opt_in(K* kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <typename T, int Q, int HD, int N>
 int launch_bwd(const BwdArgs& a, void* dB, void* dC, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes<Q, HD, N>();
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_bwd<T, Q, HD, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_bwd<T, Q, HD, N><<<a.B * a.H, NTHREADS, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nC = a.S / Q;
+  const unsigned blocks = static_cast<unsigned>(a.B * nC * (a.H / a.hg));
+  const long long total4 = (long long)a.B * a.H * HD * N / 4;
   const long long rows = (long long)a.B * a.S;
-  const long long blocks = (rows * N + NTHREADS - 1) / NTHREADS;
-  ssd_head_sum<T><<<static_cast<unsigned>(blocks), NTHREADS, 0, stream>>>(
-      a.dBp, a.dCp, static_cast<T*>(dB), static_cast<T*>(dC), rows, a.H, N);
+  const size_t smem1 = state_smem_bytes<Q, HD, N>();
+  const size_t smem3 = grads_smem_bytes<Q, HD, N>();
+  cudaError_t err = opt_in(ssd_bwd_chunk_state<T, Q, HD, N>, smem1);
+  if (err == cudaSuccess)
+    err = opt_in(ssd_bwd_chunk_grads<T, Q, HD, N>, smem3);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_chunk_state<T, Q, HD, N><<<blocks, NTHREADS, smem1, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_state_pass<<<static_cast<unsigned>((total4 + NTHREADS - 1) /
+                                             NTHREADS),
+                       NTHREADS, 0, stream>>>(a.states, a.dstates, a.decay, nC,
+                                              HD * N, total4);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_chunk_grads<T, Q, HD, N><<<blocks, NTHREADS, smem3, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_head_sum<T><<<static_cast<unsigned>((rows * N + NTHREADS - 1) /
+                                          NTHREADS),
+                    NTHREADS, 0, stream>>>(a.dBp, a.dCp, static_cast<T*>(dB),
+                                           static_cast<T*>(dC), rows,
+                                           a.H / a.hg, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -738,18 +1175,25 @@ extern "C" int mamba2_ssd_fwd(const void* x, const void* dA, const void* Bm,
 
 // The gradient of mamba2_ssd_fwd's Y with cotangent dy: dx, ddA in the
 // inputs' shapes, dB, dC as (B, S, N), all in the inputs' type (dtype as
-// above).  states (B, H, S / q, hd, n), dBp and dCp (B, S, H, n) are fp32
-// scratch of the caller's.  Two launches on the stream: the per-(b, h)
-// backward, then the sum over heads.  Returns cudaGetLastError() (0 on
+// above), every row 16-byte aligned.  states and dstates (B, H, S / q, hd,
+// n), decay (B, H, S / q), dBp and dCp (B, S, H / hg, n) are fp32 scratch
+// of the caller's; after the call states holds the state entering each
+// chunk and dstates the cotangent of the state leaving it.  hg heads a
+// block (1, 2 or 4, dividing H).  Four launches on the stream: the
+// per-chunk state terms, the scan over the chunks, the per-chunk
+// gradients, the sum over head groups.  Returns cudaGetLastError() (0 on
 // success).
 extern "C" int mamba2_ssd_bwd(const void* x, const void* dA, const void* Bm,
                               const void* Cm, const void* dy, void* dx,
                               void* ddA, void* dB, void* dC, float* states,
-                              float* dBp, float* dCp, int dtype, int B, int S,
-                              int H, int hd, int n, int q, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || q <= 0 || S % q != 0)
+                              float* dstates, float* decay, float* dBp,
+                              float* dCp, int dtype, int B, int S, int H,
+                              int hd, int n, int q, int hg, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || q <= 0 || S % q != 0 ||
+      (hg != 1 && hg != 2 && hg != 4) || H % hg != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs a{x, dA, Bm, Cm, dy, dx, ddA, states, dBp, dCp, B, S, H};
+  const BwdArgs a{x,      dA,    Bm,  Cm,  dy, dx, ddA, states, dstates,
+                  decay,  dBp,   dCp, B,   S,  H,  hg};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_bwd_shape<float>(a, dB, dC, hd, n, q, st);
   if (dtype == 1)

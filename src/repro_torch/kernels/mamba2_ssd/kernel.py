@@ -18,9 +18,20 @@ CHUNKS = (16, 32, 64)
 # (tests/test_kernels.py)
 SHAPES = ((64, 64), (16, 16), (32, 8))
 
+# The backward's products and the route each takes in csrc/mamba2_ssd.cu:
+# all through its warp-level mma.sync helper in 3xTF32 (names as the staged
+# plain version `ref.ssd_chunked_bwd_staged` gives them)
+BWD_ROUTES = {name: "3xTF32" for name in (
+    "x^T.(D o B)", "dY^T.(E o C)",                          # stage 1
+    "C.B^T", "dY.x^T", "M^T.dY", "B.dS^T", "dG.B", "dY.S_in", "dG^T.C",
+    "x.dS")}                                                # stage 3
+# The backward's kernels, in launch order
+BWD_KERNELS = ("ssd_bwd_chunk_state", "ssd_bwd_state_pass",
+               "ssd_bwd_chunk_grads", "ssd_head_sum")
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
-_BWD_ARGTYPES = [_P] * 12 + [_I] * 7 + [_P]
+_BWD_ARGTYPES = [_P] * 14 + [_I] * 8 + [_P]
 
 
 def _fn(name, argtypes):
@@ -81,21 +92,39 @@ def ssd_cuda(xdt, dA, B_, C_, *, chunk: int):
     return y
 
 
-def ssd_bwd_cuda(xdt, dA, B_, C_, dY, *, chunk: int):
+def head_group(H: int) -> int:
+    """Heads one block of the backward takes: the largest of 4, 2 and 1
+    that divides H."""
+    return next(g for g in (4, 2, 1) if H % g == 0)
+
+
+def _aligned(t):
+    """t, or a copy of it if its data does not start on 16 bytes (the
+    backward stages rows with 16-byte loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def ssd_bwd_cuda(xdt, dA, B_, C_, dY, *, chunk: int, return_states=False):
     """The gradient of `ssd_cuda`'s Y with cotangent dY (B,S,H,hd), which has
     xdt's type and device; the inputs as `ssd_cuda` takes them.  Returns
-    (dxdt, ddA, dB, dC) in the inputs' shapes and type.  Allocates an fp32
-    scratch of the states entering each chunk (B,H,S/Q,hd,N) and per-head
-    partials of dB and dC (B,S,H,N), freed on return."""
+    (dxdt, ddA, dB, dC) in the inputs' shapes and type; with
+    `return_states`, also (S_in, dS), the fp32 scratch (B,H,S/Q,hd,N) that
+    holds, after the scan over the chunks, the state entering each chunk
+    and the cotangent of the state leaving it.  Allocates that scratch, the
+    chunks' decays (B,H,S/Q) and the head groups' partials of dB and dC
+    (B,S,H/group,N), freed on return."""
     Bb, S, H, hd, N, Q = _check(xdt, dA, B_, C_, chunk, dY)
     if dY.shape != xdt.shape:
         raise ValueError(f"ssd: dY{tuple(dY.shape)} does not match "
                          f"xdt{tuple(xdt.shape)}")
-    xdt, dA, dY = xdt.contiguous(), dA.contiguous(), dY.contiguous()
-    Bm, Cm = B_[:, :, 0].contiguous(), C_[:, :, 0].contiguous()
+    xdt, dA, dY = (_aligned(t.contiguous()) for t in (xdt, dA, dY))
+    Bm, Cm = (_aligned(t[:, :, 0].contiguous()) for t in (B_, C_))
+    hg = head_group(H)
     f32 = dict(dtype=torch.float32, device=xdt.device)
-    states = torch.empty((Bb, H, S // Q, hd, N), **f32)
-    dBp, dCp = (torch.empty((Bb, S, H, N), **f32) for _ in range(2))
+    states, dstates = (torch.empty((Bb, H, S // Q, hd, N), **f32)
+                       for _ in range(2))
+    decay = torch.empty((Bb, H, S // Q), **f32)
+    dBp, dCp = (torch.empty((Bb, S, H // hg, N), **f32) for _ in range(2))
     dx, ddA = torch.empty_like(xdt), torch.empty_like(dA)
     dB, dC = (torch.empty((Bb, S, 1, N), dtype=xdt.dtype, device=xdt.device)
               for _ in range(2))
@@ -104,8 +133,9 @@ def ssd_bwd_cuda(xdt, dA, B_, C_, dY, *, chunk: int):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
         err = fn(xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                  dY.data_ptr(), dx.data_ptr(), ddA.data_ptr(), dB.data_ptr(),
-                 dC.data_ptr(), states.data_ptr(), dBp.data_ptr(),
-                 dCp.data_ptr(), _DTYPES[xdt.dtype], Bb, S, H, hd, N, Q,
-                 stream)
+                 dC.data_ptr(), states.data_ptr(), dstates.data_ptr(),
+                 decay.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
+                 _DTYPES[xdt.dtype], Bb, S, H, hd, N, Q, hg, stream)
     _build.check(lib, err, "mamba2_ssd_bwd launch")
-    return dx, ddA, dB, dC
+    grads = (dx, ddA, dB, dC)
+    return (grads, (states, dstates)) if return_states else grads

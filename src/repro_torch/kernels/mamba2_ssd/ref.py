@@ -6,7 +6,10 @@ scanned over the chunks.  It is the path tensors on the CPU take and what
 the CUDA forward kernel is held against on the card.  `ssd_chunked_bwd` is
 its gradient written out chunk by chunk: the CPU path's backward, and what
 the CUDA backward kernel is held against beside autograd through
-`ssd_chunked`.  `ssd_sequential` is the step-by-step recurrence
+`ssd_chunked`.  `ssd_chunked_bwd_staged` computes the same gradient in the
+three stages the CUDA backward runs (`ssd_bwd_chunk_state`,
+`ssd_bwd_state_pass`, `ssd_bwd_chunk_grads`): the plain version of each
+stage.  `ssd_sequential` is the step-by-step recurrence
 (`ssd_sequential_ref`), an independent formulation for cross-checks.
 
 The model module is imported as a module, not by name: models.mamba2
@@ -126,6 +129,124 @@ def ssd_chunked_bwd(xdt, dA, B_, C_, dY, *, chunk: int):
     return (dx.reshape(Bb, S, H, hd).to(dtypes[0]),
             ddA.reshape(Bb, S, H).to(dtypes[1]),
             dB.to(dtypes[2]), dC.to(dtypes[3]))
+
+
+def _matmul(a, b, name):
+    return torch.matmul(a, b)
+
+
+def _chunked(xdt, dA, B_, C_, dY, chunk):
+    """The inputs cut into chunks, in fp32 (fp64 for fp64 inputs), laid out
+    (B, G, Hg, nC, Q, .) so that a chunk's products are batched matmuls:
+    x, dy (B,G,Hg,nC,Q,hd); Bc, Cc (B,G,1,nC,Q,N); cum, E = exp(cum) and
+    D = exp(cum[Q-1] - cum) (B,G,Hg,nC,Q)."""
+    ct = torch.promote_types(xdt.dtype, torch.float32)
+    Bb, S, H, hd = xdt.shape
+    G, N = B_.shape[2], B_.shape[3]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"ssd: S={S} is not a multiple of the chunk {Q}")
+    nC = S // Q
+
+    def heads(t, w):   # (B, S, H, w) -> (B, G, Hg, nC, Q, w)
+        return t.to(ct).reshape(Bb, nC, Q, G, H // G, w).permute(
+            0, 3, 4, 1, 2, 5)
+
+    x, dy = heads(xdt, hd), heads(dY, hd)
+    Bc, Cc = (t.to(ct).reshape(Bb, nC, Q, G, 1, N).permute(0, 3, 4, 1, 2, 5)
+              for t in (B_, C_))
+    cum = torch.cumsum(heads(dA[..., None], 1)[..., 0], dim=-1)
+    E = torch.exp(cum)
+    D = torch.exp(cum[..., -1:] - cum)
+    return x, dy, Bc, Cc, cum, E, D
+
+
+def ssd_bwd_chunk_state(xdt, dA, B_, C_, dY, *, chunk: int, mm=None):
+    """Stage 1 of the staged backward, every chunk at once: chunk c's own
+    term of the state leaving it, x^T.(D o B), and of the cotangent of the
+    state entering it, dY^T.(E o C) (hd x N each, depth Q), and its decay
+    a_c = E[Q-1] = exp(cum[Q-1]).  Returns the two terms as (B,H,nC,hd,N)
+    and a (B,H,nC).  `mm(a, b, name)` computes each product (default
+    torch.matmul; the name says which)."""
+    mm = mm or _matmul
+    x, dy, Bc, Cc, _, E, D = _chunked(xdt, dA, B_, C_, dY, chunk)
+    Bb, G, Hg, nC, Q, hd = x.shape
+    N = Bc.shape[-1]
+    ds = mm(x.mT, D[..., None] * Bc, "x^T.(D o B)")
+    dds = mm(dy.mT, E[..., None] * Cc, "dY^T.(E o C)")
+    return (ds.reshape(Bb, G * Hg, nC, hd, N),
+            dds.reshape(Bb, G * Hg, nC, hd, N),
+            E[..., -1].reshape(Bb, G * Hg, nC))
+
+
+def ssd_bwd_state_pass(ds, dds, a):
+    """Stage 2, the one scan over the chunks, elementwise over (hd, N):
+    S_in[0] = 0, S_in[c+1] = a_c S_in[c] + ds[c] (the state entering c),
+    and dS[nC-1] = 0, dS[c-1] = a_c dS[c] + dds[c] (the cotangent of the
+    state leaving c).  ds, dds (B,H,nC,hd,N) and a (B,H,nC) from stage 1.
+    Returns (S_in, dS), each (B,H,nC,hd,N)."""
+    nC = a.shape[-1]
+    s_in, d_s = torch.empty_like(ds), torch.empty_like(dds)
+    s, d = torch.zeros_like(ds[:, :, 0]), torch.zeros_like(dds[:, :, 0])
+    for c in range(nC):
+        s_in[:, :, c] = s
+        s = a[:, :, c, None, None] * s + ds[:, :, c]
+    for c in reversed(range(nC)):
+        d_s[:, :, c] = d
+        d = a[:, :, c, None, None] * d + dds[:, :, c]
+    return s_in, d_s
+
+
+def ssd_bwd_chunk_grads(xdt, dA, B_, C_, dY, s_in, d_s, *, chunk: int,
+                        mm=None):
+    """Stage 3, every chunk at once given the state S_in entering it and the
+    cotangent dS of the state leaving it ((B,H,nC,hd,N) each, from stage 2):
+    the terms of `ssd_chunked_bwd`.  Returns (dxdt, ddA, dB, dC) as that
+    does; `mm` as in `ssd_bwd_chunk_state`."""
+    mm = mm or _matmul
+    dtypes = [t.dtype for t in (xdt, dA, B_, C_)]
+    x, dy, Bc, Cc, cum, E, D = _chunked(xdt, dA, B_, C_, dY, chunk)
+    Bb, G, Hg, nC, Q, hd = x.shape
+    N = Bc.shape[-1]
+    s_in, d_s = (t.to(x.dtype).reshape(Bb, G, Hg, nC, hd, N)
+                 for t in (s_in, d_s))
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    strict = mask & ~torch.eye(Q, dtype=torch.bool, device=x.device)
+    L = torch.exp(torch.where(mask, cum[..., :, None] - cum[..., None, :],
+                              -1e9))
+    M = mm(Cc, Bc.mT, "C.B^T") * L
+    dM = mm(dy, x.mT, "dY.x^T") * mask
+    dG = dM * L
+    dSB = mm(Bc, d_s.mT, "B.dS^T")
+    dx = mm(M.mT, dy, "M^T.dY") + D[..., None] * dSB
+    dyS = mm(dy, s_in, "dY.S_in")
+    dC = mm(dG, Bc, "dG.B") + E[..., None] * dyS
+    dB = mm(dG.mT, Cc, "dG^T.C") + D[..., None] * mm(x, d_s, "x.dS")
+    # the diagonal of dM o M and R[Q-1] (D[Q-1] = 1) are left out exactly,
+    # as in ssd_chunked_bwd
+    P = dM * M * strict
+    R = D[..., :-1] * (x[..., :-1, :] * dSB[..., :-1, :]).sum(-1)
+    dcum = P.sum(-1) - P.sum(-2) + E * (Cc * dyS).sum(-1)
+    dcum[..., :-1] -= R
+    dcum[..., -1] += E[..., -1] * (d_s * s_in).sum((-2, -1)) + R.sum(-1)
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+
+    def back(t):   # (B, G, h, nC, Q, w) -> (B, S, G * h, w)
+        return t.permute(0, 3, 4, 1, 2, 5).reshape(Bb, nC * Q, -1, t.shape[-1])
+
+    return (back(dx).to(dtypes[0]), back(ddA[..., None])[..., 0].to(dtypes[1]),
+            back(dB.sum(2, keepdim=True)).to(dtypes[2]),
+            back(dC.sum(2, keepdim=True)).to(dtypes[3]))
+
+
+def ssd_chunked_bwd_staged(xdt, dA, B_, C_, dY, *, chunk: int, mm=None):
+    """`ssd_chunked_bwd`'s gradient through the three stages of the CUDA
+    backward: stage 1 (chunk-parallel), stage 2 (the scan over the chunks),
+    stage 3 (chunk-parallel).  `mm` as in `ssd_bwd_chunk_state`."""
+    ds, dds, a = ssd_bwd_chunk_state(xdt, dA, B_, C_, dY, chunk=chunk, mm=mm)
+    s_in, d_s = ssd_bwd_state_pass(ds, dds, a)
+    return ssd_bwd_chunk_grads(xdt, dA, B_, C_, dY, s_in, d_s, chunk=chunk,
+                               mm=mm)
 
 
 def ssd_sequential(xdt, dA, B_, C_):

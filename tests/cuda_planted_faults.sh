@@ -1,19 +1,19 @@
 #!/bin/bash
 # Planted faults in the CUDA A^T B, flash-attention and SSD backward
-# kernels: each one is applied to a copy of src/, tests/ and chip_smoke.py
-# in a temporary directory, then the card tests of that kernel run against
-# the copy (tests/test_torch_tiled_matmul_cuda.py, which include the METG
-# ladder's shapes, tests/test_torch_flash_attention_cuda.py or
+# kernels (four, four and three): each one is applied to a copy of src/,
+# tests/ and chip_smoke.py in a temporary directory, then the card tests of
+# that kernel run against the copy (tests/test_torch_tiled_matmul_cuda.py,
+# which include the METG ladder's shapes, tests/test_torch_flash_attention_cuda.py or
 # tests/test_torch_ssd_cuda.py); for A^T B also a short METG ladder run, for
 # the SSD backward chip_smoke.py.  Every fault must fail the card tests; a
 # fault on the METG path's fp32 product must also stop the ladder with
 # failed tasks, and an SSD backward fault must fail chip_smoke.py.  Prints,
 # per fault, the ids of the card tests that failed, pytest's summary and
 # the ladder's or chip_smoke.py's last line.  Exits 1 if a fault's pattern
-# does not apply.
+# does not apply.  Names given as arguments run only those faults.
 # Needs the card and nvcc.  Run from the repository root:
 #
-#     bash tests/cuda_planted_faults.sh
+#     bash tests/cuda_planted_faults.sh [fault ...]
 set -u
 cd "$(dirname "$0")/.."
 MM=src/repro_torch/csrc/tiled_matmul.cu
@@ -44,15 +44,19 @@ FAULTS[skip_last_key_tile]='s/for (int it = 0; it < n_tiles; ++it) {/for (int it
 # flash bf16: output truncated instead of rounded to nearest
 FILES[bf16_out_truncation]=$FA
 FAULTS[bf16_out_truncation]='s/return __float2bfloat16(x);   \/\/ round to nearest even/return __float2bfloat16_rz(x);/'
-# SSD backward: dS not carried to the chunk before (it stays 0)
+# SSD backward, stage 2: dS not carried to the chunk before (it stays 0)
 FILES[drop_ds_carry]=$SSD
-FAULTS[drop_ds_carry]='s|sdS\[(r0 + i \* NST) \* NP + n\] = s\[i\];   // carried to the chunk before|(void)s[i];|'
-# SSD backward: d(dA) = dcum, the reverse in-chunk cumsum skipped
+FAULTS[drop_ds_carry]='s|dacc = fma4(aw\[u\], dacc, w\[u\]);   // dS carried to the chunk before|(void)w[u];|'
+# SSD backward, stage 3: d(dA) = dcum, the reverse in-chunk cumsum skipped
 FILES[skip_reverse_cumsum]=$SSD
-FAULTS[skip_reverse_cumsum]='s|acc += dcum;   // d(dA)\[t\]|acc = dcum;   // d(dA)[t]|'
+FAULTS[skip_reverse_cumsum]='s|from_f<T>(excl + run\[e\]);   // d(dA)\[t\]: the reverse cumsum|from_f<T>(dc[e]);|'
+# SSD backward, every product: plain TF32, the lo terms of 3xTF32 dropped
+FILES[tf32_only]=$SSD
+FAULTS[tf32_only]='s|mma_tf32(s\[j\], al, bh); mma_tf32(s\[j\], ah, bl);   // the lo terms||'
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
-for fault in $(printf '%s\n' "${!FAULTS[@]}" | sort); do
+for fault in $(if [ $# -gt 0 ]; then printf '%s\n' "$@"; else
+                 printf '%s\n' "${!FAULTS[@]}" | sort; fi); do
   file=${FILES[$fault]}
   copy="$work/$fault"
   mkdir -p "$copy" && cp -r src tests pytest.ini chip_smoke.py "$copy/"

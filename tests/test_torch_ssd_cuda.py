@@ -106,11 +106,13 @@ def test_cuda_backward_matches_plain_autograd(chunk, decay):
 @pytest.mark.parametrize("B,S,H,hd,N,chunk", [
     (2, 128, 8, 16, 16, 16), (2, 128, 8, 16, 16, 32),
     (1, 64, 4, 32, 8, 16), (1, 64, 4, 32, 8, 32), (1, 64, 4, 32, 8, 64),
-    (1, 192, 3, 64, 64, 32)])
+    (1, 192, 3, 64, 64, 32), (1, 64, 3, 64, 64, 64), (2, 128, 5, 16, 16, 32),
+    (1, 32, 5, 32, 8, 32), (2, 96, 6, 16, 16, 16)])
 def test_cuda_backward_sweep(B, S, H, hd, N, chunk):
-    """The backward kernel at every (hd, N) it takes against the plain
-    backward, and the padded steps' zero cotangent (mamba_forward pads S to
-    the chunk and slices Y) giving exactly zero gradients there."""
+    """The backward kernels at every (hd, N) they take against the plain
+    backward, at one chunk (S = chunk) and at head groups of 4, 2 and 1
+    (H = 3 and 5), and the padded steps' zero cotangent (mamba_forward pads
+    S to the chunk and slices Y) giving exactly zero gradients there."""
     _need_card()
     ins = _inputs(B, S, H, hd, N, seed=chunk + hd)
     g = torch.randn((B, S, H, hd), device="cuda",
@@ -123,6 +125,28 @@ def test_cuda_backward_sweep(B, S, H, hd, N, chunk):
         ok, err = _close(x, p, GRAD_TOL)
         assert ok and bool(torch.isfinite(x).all()), err
         assert bool((x[:, S - 5:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,N,chunk", [
+    (2, 256, 4, 64, 64, 64), (1, 64, 3, 32, 8, 16), (2, 128, 5, 16, 16, 32)])
+def test_cuda_backward_states_match_state_pass(B, S, H, hd, N, chunk):
+    """The backward's scratch after its scan over the chunks, the state
+    entering each chunk and the cotangent of the state leaving it, against
+    the plain stages 1 and 2 (`ssd_bwd_chunk_state`, `ssd_bwd_state_pass`)
+    on the same card tensors."""
+    _need_card()
+    ins = _inputs(B, S, H, hd, N, seed=9 + H)
+    g = torch.randn((B, S, H, hd), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(10))
+    _, states = kernel.ssd_bwd_cuda(*ins, g, chunk=chunk, return_states=True)
+    plain = ref.ssd_bwd_state_pass(
+        *ref.ssd_bwd_chunk_state(*ins, g, chunk=chunk))
+    torch.cuda.synchronize()
+    for x, p in zip(states, plain):
+        assert x.shape == p.shape == (B, H, S // chunk, hd, N)
+        ok, err = _close(x, p, GRAD_TOL)
+        assert ok, err
 
 
 @pytest.mark.cuda
