@@ -12,7 +12,10 @@ Phases; any failure exits non-zero:
   (b) each kernel against its plain PyTorch version on the card, at the main
       paths' shapes and small cases: flash attention in bf16 and fp32 (head
       dims 256, 80 and 32), the chunked WKV in fp32 (two decay regimes, an
-      initial state), the chunked SSD in fp32 (the JAX sweep, slow and fast
+      initial state; at the main shape its three stages' scratch after the
+      scan over the chunks against the plain stages, two runs bit for bit,
+      each stage's ms, the scratch bytes, registers and spills), the chunked
+      SSD in fp32 (the JAX sweep, slow and fast
       decay), A^T B in fp32 and bf16 (the JAX sweep, a ragged shape, the
       METG ladder); error against the stated tolerance, kernel / plain /
       library ms and the bound, and the kernel and tiling each case took
@@ -50,8 +53,9 @@ Phases; any failure exits non-zero:
       loss must fall;
   (d) last lines: the card, a JSON line of per-kernel results (flash
       attention once per path; A^T B at the ladder's top, with every shape
-      it was held at; the SSD row with its backward's bwd_* keys: ms, stage
-      ms, both bounds, routes, registers and spills), and
+      it was held at; the WKV row with its stages' ms, scratch bytes,
+      registers and spills; the SSD row with its backward's bwd_* keys:
+      ms, stage ms, both bounds, routes, registers and spills), and
       {"ok": true, "device": {...}}.
 Every exit with a non-zero code prints its reason on stdout: no card, a
 failed import (as when the script stands alone, without src/), a failed
@@ -94,6 +98,7 @@ BF16_ATOL = 1e-5      # bf16 output: one rounding of the fp32 result, see below
 LOGIT_TOL = 0.15               # prefill logits, kernel path vs plain path
 # rwkv6-1.6b prefill WKV: 4200 tokens padded to 66 chunks of 64
 WB, WS, WH, WHD, WQ = 4, 4224, 32, 64, 64
+PREFILL_REPS = 3      # timed kernel-path prefills after the served one
 # The kernel and the plain chunked version compute the same fp32 sums in
 # other orders, so they differ by a few ulps of the largest terms: max |diff|
 # <= 1e-5 * max(1, max |plain|), for y and for the final state alike.
@@ -282,10 +287,15 @@ def wkv_bound(b, s, h, hd, q, with_state):
             nbytes)
 
 
-def phase_wkv(torch, wkv_ops, wkv_ref):
-    """Chunked-WKV kernel vs plain version in fp32; returns the row for the
-    main-path case (rwkv6-1.6b prefill, test-sweep inputs)."""
-    print("[b] wkv6 kernel vs plain chunked version")
+def phase_wkv(torch, wkv_ops, wkv_ref, wkv_kernel, regs):
+    """Chunked-WKV kernels vs plain version in fp32, y and the final state
+    within WKV_TOL.  At the main shape also the scratch after stage 2 (the
+    state entering each chunk) against the plain stages 1 and 2 within
+    WKV_TOL, a second run the same bits, each stage's ms (torch.profiler),
+    the scratch bytes and each stage's registers and spills (`regs`: the
+    build's entries for wkv6).  Returns the row for the main-path case
+    (rwkv6-1.6b prefill, test-sweep inputs)."""
+    print("[b] wkv6 kernels vs plain chunked version")
     gen = torch.Generator(device="cuda").manual_seed(1)
     row = None
     main = (WB, WS, WH, WHD, WQ)
@@ -343,9 +353,49 @@ def phase_wkv(torch, wkv_ops, wkv_ref):
                    "bound_by": bound_by,
                    # no single PyTorch call computes the chunked WKV
                    "library_ms": None}
+            row.update(wkv_stages(torch, wkv_ops, wkv_ref, wkv_kernel, regs,
+                                  args, q, s0, y, st))
         del args, r, k, v, logw, y, st, py, ps
         torch.cuda.empty_cache()
     return row
+
+
+def wkv_stages(torch, wkv_ops, wkv_ref, wkv_kernel, regs, args, q, s0, y,
+               st):
+    """The main case's stage checks (see phase_wkv), given the first run's
+    y and final state.  Returns the row's keys for them."""
+    _, _, states = wkv_kernel.wkv6_cuda(*args, chunk=q, initial_state=s0,
+                                        return_states=True)
+    want, _ = wkv_ref.wkv6_state_pass(
+        *wkv_ref.wkv6_chunk_state(*args[1:4], chunk=q), s0)
+    err = float((states - want).abs().max())
+    lim = WKV_TOL * max(1.0, float(want.abs().max()))
+    y2, st2 = wkv_ops.wkv6(*args, chunk=q, initial_state=s0)
+    same = torch.equal(y, y2) and torch.equal(st, st2)
+    ok = err <= lim and same and bool(torch.isfinite(states).all())
+    print(f"[b] wkv6 main: states after the scan over the chunks vs "
+          f"wkv6_state_pass: max_abs_err={err:.3e} (tol {lim:.3e}); a second "
+          f"run the same bits: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("wkv6: the states after the scan over the chunks "
+                         "disagree with the plain stages, or two runs differ")
+    b, _, h, hd = args[0].shape
+    scratch = 4 * (states.numel() + b * h * states.shape[2] * hd)
+    del states, want, y2, st2
+    stages = stage_ms(torch, wkv_kernel.KERNELS,
+                      lambda: wkv_kernel.wkv6_cuda(*args, chunk=q,
+                                                   initial_state=s0), reps=5)
+    stage_regs = kernel_registers(regs, WKV_INSTANCES)
+    print("[b] wkv6 main: kernels (torch.profiler) " + " ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in stages.items())
+        + f" ms; scratch_bytes={scratch} (dS, then S_in, and the decays); "
+        + " ".join(f"{k}: {v['registers']} registers, "
+                   f"{v['spill_store_bytes']} B spill stores, "
+                   f"{v['spill_load_bytes']} B spill loads;"
+                   for k, v in stage_regs.items()))
+    return {"stages_ms": stages, "states_max_abs_err": err,
+            "scratch_bytes": scratch, "regs": stage_regs}
 
 
 def ssd_bound(b, s, h, hd, n, q, itemsize=4):
@@ -472,19 +522,19 @@ def ssd_bwd_bound(b, s, h, hd, n, q, itemsize=4):
             nbytes, t_tc * 1e3)
 
 
-def bwd_stage_ms(torch, ssd_kernel, ins, g, q, reps=10):
-    """Each of the backward's four kernels' ms at these inputs: the device
-    time by kernel name from torch.profiler's key_averages() over `reps`
-    backwards ("not measured" where the profiler shows none)."""
+def stage_ms(torch, names, fn, reps=10):
+    """The ms of each kernel in `names` that fn() launches: the device time
+    by kernel name from torch.profiler's key_averages() over `reps` calls
+    ("not measured" where the profiler shows none)."""
     from torch.profiler import ProfilerActivity, profile
-    ssd_kernel.ssd_bwd_cuda(*ins, g, chunk=q)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            ssd_kernel.ssd_bwd_cuda(*ins, g, chunk=q)
+            fn()
         torch.cuda.synchronize()
-    times = dict.fromkeys(ssd_kernel.BWD_KERNELS, 0.0)
+    times = dict.fromkeys(names, 0.0)
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
@@ -495,20 +545,28 @@ def bwd_stage_ms(torch, ssd_kernel, ins, g, q, reps=10):
     return {k: v if v > 0 else "not measured" for k, v in times.items()}
 
 
-def bwd_registers(entries, ssd_kernel):
-    """Registers and spill bytes of the backward's kernels at the main
-    shape in fp32, from the build's -Xptxas -v lines (names demangled, or
+# The instance of each kernel whose registers and spills are reported: its
+# template arguments at the main shape, demangled and mangled ("" for a
+# kernel that is no template)
+SSD_BWD_INSTANCES = {"ssd_bwd_chunk_state": ("<float, 64, 64, 64>",
+                                             "IfLi64ELi64ELi64E"),
+                     "ssd_bwd_state_pass": ("",),
+                     "ssd_bwd_chunk_grads": ("<float, 64, 64, 64>",
+                                             "IfLi64ELi64ELi64E"),
+                     "ssd_head_sum": ("<float>", "IfE")}
+WKV_INSTANCES = {"wkv6_chunk_state": ("<64, 64>", "ILi64ELi64E"),
+                 "wkv6_state_pass": ("",),
+                 "wkv6_chunk_out": ("<64, 64>", "ILi64ELi64E")}
+
+
+def kernel_registers(entries, instances):
+    """Registers and spill bytes of the kernel instances named in
+    `instances`, from the build's -Xptxas -v lines (names demangled, or
     mangled where the machine has no c++filt)."""
-    shape = {"ssd_bwd_chunk_state": ("<float, 64, 64, 64>",
-                                     "IfLi64ELi64ELi64E"),
-             "ssd_bwd_state_pass": ("",),
-             "ssd_bwd_chunk_grads": ("<float, 64, 64, 64>",
-                                     "IfLi64ELi64ELi64E"),
-             "ssd_head_sum": ("<float>", "IfE")}
     out = {}
     for kern, nreg, st, ld in entries:
-        for name in ssd_kernel.BWD_KERNELS:
-            if any(name + tail in kern for tail in shape[name]):
+        for name, tails in instances.items():
+            if any(name + tail in kern for tail in tails):
                 out[name] = {"registers": nreg, "spill_store_bytes": st,
                              "spill_load_bytes": ld}
     return out
@@ -601,7 +659,9 @@ def phase_ssd_bwd(torch, ssd_ops, ssd_ref, ssd_kernel):
             del again
             del states, want
             ms = cuda_ms(lambda: ssd_kernel.ssd_bwd_cuda(*ins, g, chunk=q), 10)
-            stage_ms = bwd_stage_ms(torch, ssd_kernel, ins, g, q)
+            stages = stage_ms(torch, ssd_kernel.BWD_KERNELS,
+                              lambda: ssd_kernel.ssd_bwd_cuda(*ins, g,
+                                                              chunk=q))
             out = recompute(functools.partial(ssd_kernel.ssd_cuda, chunk=q),
                             functools.partial(ssd_ops.ssd_plain, chunk=q), *a)
             recompute_ms = cuda_ms(lambda: torch.autograd.grad(
@@ -613,14 +673,14 @@ def phase_ssd_bwd(torch, ssd_ops, ssd_ref, ssd_kernel):
             print(f"[b] mamba2_ssd bwd main {SSD_MAIN[:5]} Q={q} fp32: "
                   f"kernel_ms={ms:.4f} (kernels, torch.profiler: "
                   + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
-                             else f"{k} {v}" for k, v in stage_ms.items())
+                             else f"{k} {v}" for k, v in stages.items())
                   + f") bound_ms={bound_ms:.4f} ({bound_by}; "
                   f"{exps:.3e} exp, {flops:.3e} FLOP, {nbytes:.3e} B; every "
                   f"FLOP at the fp32 rate) bound_tc_ms={tc_ms:.4f} (the "
                   f"products in 3xTF32 at the TF32 rate) recompute_ms="
                   f"{recompute_ms:.3f} (autograd of the plain version) "
                   f"ssd_chunked_bwd_ms={ref_ms:.3f}")
-            keys = {"bwd_ms": ms, "bwd_stage_ms": stage_ms,
+            keys = {"bwd_ms": ms, "bwd_stage_ms": stages,
                     "bwd_bound_ms": bound_ms,
                     "bwd_bound_by": bound_by, "bwd_bound_tc_ms": tc_ms,
                     "bwd_plain_ms": recompute_ms, "bwd_ref_ms": ref_ms,
@@ -1062,7 +1122,7 @@ def top2_margin(logits):
 
 def phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref, serve):
     """The rwkv6 path at full width, then kernel-path vs plain-path prefill
-    logits and states."""
+    logits and states, with the kernel path's prefills timed."""
     torch.cuda.reset_peak_memory_stats()
     wkv_ops.wkv6.launches = 0
     t0 = time.perf_counter()
@@ -1081,8 +1141,10 @@ def phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref, serve):
           f"max_memory_allocated_GB="
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     want = cfg.n_layers * len(res["batches"])
-    print(f"[c] wkv6 launches={launches} "
-          f"(want {cfg.n_layers} layers x {len(res['batches'])} batches)")
+    print(f"[c] wkv6 launches={launches} op calls, "
+          f"{launches * len(WKV_INSTANCES)} kernel launches "
+          f"({len(WKV_INSTANCES)} stages a call) (want {cfg.n_layers} layers "
+          f"x {len(res['batches'])} batches)")
     if launches != want:
         raise SystemExit(f"wkv6 kernel launched {launches} times, want {want}")
     if len(res["replies"]) != 4:
@@ -1093,11 +1155,20 @@ def phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref, serve):
 
     toks = torch.as_tensor(np.stack(res["prompts"]), device="cuda").long()
     V = cfg.vocab_size
-    results = {}
+    results, prefill_ms = {}, {}
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
-            lg_kernel, st_kernel = model.forward(
-                params, {"tokens": toks}, mode="prefill", dtype=dtype)
+            # the kernel path's prefill after the served one, timed on the
+            # host clock around a synchronised forward
+            prefill_ms[dtype] = []
+            for _ in range(PREFILL_REPS):
+                lg_kernel = st_kernel = None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg_kernel, st_kernel = model.forward(
+                    params, {"tokens": toks}, mode="prefill", dtype=dtype)
+                torch.cuda.synchronize()
+                prefill_ms[dtype].append((time.perf_counter() - t0) * 1e3)
             n = wkv_ops.wkv6.launches
             with mock.patch.object(rwkv, "wkv6", wkv_ref.wkv6_chunked):
                 lg_plain, st_plain = model.forward(
@@ -1122,6 +1193,9 @@ def phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref, serve):
         print(f"[c] rwkv6 prefill in bfloat16, plain path at chunk 32 vs "
               f"{cfg.rwkv.chunk}: last-position logits max_abs_err="
               f"{err32:.4f}")
+    print("[c] rwkv6 prefill forwards after the served one, kernel path, "
+          "ms: " + "; ".join(f"{str(dtype)[6:]} {[round(t, 1) for t in ts]}"
+                             for dtype, ts in prefill_ms.items()))
     for dtype, (a, b, rel) in results.items():
         print(f"[c] rwkv6 prefill in {str(dtype)[6:]}, kernel vs plain path: "
               f"last-position logits max_abs_err="
@@ -1365,6 +1439,7 @@ def run(where: dict) -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rwkv6_scan import kernel as wkv_kernel
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
     from repro_torch.kernels.rwkv6_scan import ref as wkv_ref
     from repro_torch.kernels.mamba2_ssd import kernel as ssd_kernel
@@ -1389,12 +1464,13 @@ def run(where: dict) -> int:
     where["phase"] = "(b) flash_attention"
     row, zrow = phase_kernel(torch, fa_ops, fa_ref, fa_kernel)
     where["phase"] = "(b) wkv6"
-    wkv_row = phase_wkv(torch, wkv_ops, wkv_ref)
+    wkv_row = phase_wkv(torch, wkv_ops, wkv_ref, wkv_kernel, regs["wkv6"])
     where["phase"] = "(b) mamba2_ssd"
     ssd_row = phase_ssd(torch, ssd_ops, ssd_ref)
     where["phase"] = "(b) mamba2_ssd backward"
     ssd_row.update(phase_ssd_bwd(torch, ssd_ops, ssd_ref, ssd_kernel))
-    ssd_row["bwd_regs"] = bwd_registers(regs["mamba2_ssd"], ssd_kernel)
+    ssd_row["bwd_regs"] = kernel_registers(regs["mamba2_ssd"],
+                                           SSD_BWD_INSTANCES)
     where["phase"] = "(b) flash_attention gradients"
     zrow["bwd_ms"] = phase_grads(torch, fa_ops, fa_ref)
     where["phase"] = "(b) tiled_matmul"

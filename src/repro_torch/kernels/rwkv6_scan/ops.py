@@ -12,8 +12,9 @@ from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked, wkv6_sequential
 def wkv6(r, k, v, logw, u, *, chunk: int, initial_state=None):
     """r/k/v/logw (B,S,H,hd) fp32; u (H,hd); initial_state (B,H,hd,hd) or
     None.  Returns (y (B,S,H,hd), final_state (B,H,hd,hd)); chunks of
-    min(chunk, S) steps must divide S.  `wkv6.launches` counts kernel
-    launches.  On the card it raises while autograd records a graph through
+    min(chunk, S) steps must divide S.  `wkv6.launches` counts the calls
+    that launched the kernels (three launches each, csrc/wkv6.cu's
+    stages).  On the card it raises while autograd records a graph through
     an input: the kernel has no backward yet."""
     if r.device.type == "cpu":
         return wkv6_chunked(r, k, v, logw, u, chunk=chunk,

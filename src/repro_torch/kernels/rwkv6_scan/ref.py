@@ -3,9 +3,13 @@
 `wkv6_chunked` ports the JAX model's chunk step (src/repro/models/rwkv.py
 `_wkv_chunk`, scanned by `time_mix`) and the JAX oracle `wkv6_ref`
 (src/repro/kernels/rwkv6_scan/ref.py): the path tensors on the CPU take,
-and what the CUDA kernel is held against on the card.  `wkv6_sequential`
-is the step-by-step recurrence (`wkv6_sequential_ref`), an independent
-formulation for cross-checks.
+and what the CUDA kernels are held against on the card.
+`wkv6_chunked_staged` computes the same function as the card does, in three
+stages (`wkv6_chunk_state`, `wkv6_state_pass`, `wkv6_chunk_out`, one
+function per CUDA kernel of csrc/wkv6.cu), so that each stage's result can
+be held against the kernel's.  `wkv6_sequential` is the step-by-step
+recurrence (`wkv6_sequential_ref`), an independent formulation for
+cross-checks.
 
 In JAX the oracle imports the model's chunk function.  Here the chunk math
 lives in this module and models/rwkv.py reaches it through the op; the
@@ -21,6 +25,22 @@ def wkv_chunk(S0, cumw, r, k, v, u):
     """One chunk.  S0 (B,H,hd,hd) fp32 (k-dim x v-dim); cumw (B,Q,H,hd) the
     inclusive cumsum of log-decay over the chunk; r, k, v (B,Q,H,hd);
     u (H,hd).  Returns (S1, y (B,Q,H,hd))."""
+    decay, dS = chunk_state_term(cumw, k, v)
+    return S0 * decay[..., None] + dS, chunk_y(S0, cumw, r, k, v, u)
+
+
+def chunk_state_term(cumw, k, v):
+    """The chunk's decay exp(cumw[Q-1]) (B,H,hd) and its own term of the
+    state leaving it, sum_j (k[j] exp(cumw[Q-1] - cumw[j]))^T v[j]
+    (B,H,hd,hd); arguments as `wkv_chunk` takes them."""
+    dec_end = torch.exp(cumw[:, -1:] - cumw)                   # (B,Q,H,hd)
+    return (torch.exp(cumw[:, -1]),
+            torch.einsum("bjhk,bjhv->bhkv", k * dec_end, v))
+
+
+def chunk_y(S0, cumw, r, k, v, u):
+    """The chunk's y (B,Q,H,hd) given the state S0 entering it; arguments as
+    `wkv_chunk` takes them."""
     Q = r.shape[1]
     # cum_excl[t] = cumw[t-1] (the previous step's cumw; 0 at t=0)
     cum_excl = F.pad(cumw[:, :-1], (0, 0, 0, 0, 1, 0))
@@ -36,12 +56,7 @@ def wkv_chunk(S0, cumw, r, k, v, u):
     y = y + torch.einsum("bthd,bthd->bth", r, u[None, None] * k)[..., None] * v
     # inter-chunk from the carried state
     rd = r * torch.exp(cum_excl)
-    y = y + torch.einsum("bthk,bhkv->bthv", rd, S0)
-    # state update
-    dec_end = torch.exp(cumw[:, -1:] - cumw)                   # (B,Q,H,hd)
-    S1 = (S0 * torch.exp(cumw[:, -1])[..., None]
-          + torch.einsum("bjhk,bjhv->bhkv", k * dec_end, v))
-    return S1, y
+    return y + torch.einsum("bthk,bhkv->bthv", rd, S0)
 
 
 def wkv6_chunked(r, k, v, logw, u, *, chunk: int, initial_state=None):
@@ -49,9 +64,7 @@ def wkv6_chunked(r, k, v, logw, u, *, chunk: int, initial_state=None):
     (B, H, hd, hd) or None (zeros).  Chunks of min(chunk, S) steps, which
     must divide S.  Returns (y (B,S,H,hd), final_state (B,H,hd,hd))."""
     B, S, H, hd = r.shape
-    Q = min(chunk, S)
-    if S % Q:
-        raise ValueError(f"wkv6: S={S} is not a multiple of the chunk {Q}")
+    Q = _chunk_of(S, chunk)
     cumw = torch.cumsum(logw.reshape(B, S // Q, Q, H, hd), dim=2)
     state = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
              if initial_state is None else initial_state)
@@ -61,6 +74,65 @@ def wkv6_chunked(r, k, v, logw, u, *, chunk: int, initial_state=None):
         state, y = wkv_chunk(state, cumw[:, c], r[:, t], k[:, t], v[:, t], u)
         ys.append(y)
     return torch.cat(ys, dim=1), state
+
+
+def _folded(x, Q):
+    """(B, S, H, hd) -> (B * S/Q, Q, H, hd): one row per (b, chunk)."""
+    B, S, H, hd = x.shape
+    return x.reshape(B * (S // Q), Q, H, hd)
+
+
+def _chunk_of(S, chunk):
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"wkv6: S={S} is not a multiple of the chunk {Q}")
+    return Q
+
+
+def wkv6_chunk_state(k, v, logw, *, chunk: int):
+    """Stage 1 of the staged version, every chunk at once: chunk c's own
+    term of the state leaving it, dS_c (B,H,nC,hd,hd), and its decay
+    a_c = exp(cumw[Q-1]) (B,H,nC,hd).  k, v, logw (B,S,H,hd)."""
+    B, S, H, hd = k.shape
+    Q = _chunk_of(S, chunk)
+    cumw = torch.cumsum(_folded(logw, Q), dim=1)
+    decay, dS = chunk_state_term(cumw, _folded(k, Q), _folded(v, Q))
+    nC = S // Q
+    return (dS.reshape(B, nC, H, hd, hd).transpose(1, 2).contiguous(),
+            decay.reshape(B, nC, H, hd).transpose(1, 2).contiguous())
+
+
+def wkv6_state_pass(dS, decay, initial_state=None):
+    """Stage 2, the one scan over the chunks, elementwise over (hd, hd):
+    S_in[0] = initial_state (or 0), S_in[c+1] = diag(a_c) S_in[c] + dS_c.
+    dS (B,H,nC,hd,hd) and decay (B,H,nC,hd) from stage 1.  Returns (S_in
+    (B,H,nC,hd,hd), the state entering each chunk; the final state)."""
+    s = (torch.zeros_like(dS[:, :, 0]) if initial_state is None
+         else initial_state)
+    s_in = torch.empty_like(dS)
+    for c in range(dS.shape[2]):
+        s_in[:, :, c] = s
+        s = s * decay[:, :, c, :, None] + dS[:, :, c]
+    return s_in, s
+
+
+def wkv6_chunk_out(r, k, v, logw, u, s_in, *, chunk: int):
+    """Stage 3, every chunk at once given the state S_in entering it
+    ((B,H,nC,hd,hd), from stage 2): y (B,S,H,hd)."""
+    B, S, H, hd = r.shape
+    Q = _chunk_of(S, chunk)
+    cumw = torch.cumsum(_folded(logw, Q), dim=1)
+    s0 = s_in.transpose(1, 2).reshape(B * (S // Q), H, hd, hd)
+    y = chunk_y(s0, cumw, *(_folded(x, Q) for x in (r, k, v)), u)
+    return y.reshape(B, S, H, hd)
+
+
+def wkv6_chunked_staged(r, k, v, logw, u, *, chunk: int, initial_state=None):
+    """`wkv6_chunked` in the card's three stages; the same arguments and
+    results."""
+    dS, decay = wkv6_chunk_state(k, v, logw, chunk=chunk)
+    s_in, final = wkv6_state_pass(dS, decay, initial_state)
+    return wkv6_chunk_out(r, k, v, logw, u, s_in, chunk=chunk), final
 
 
 def wkv6_sequential(r, k, v, logw, u):

@@ -1,13 +1,15 @@
 #!/bin/bash
-# Planted faults in the CUDA A^T B, flash-attention and SSD backward
-# kernels (four, four and three): each one is applied to a copy of src/,
-# tests/ and chip_smoke.py in a temporary directory, then the card tests of
-# that kernel run against the copy (tests/test_torch_tiled_matmul_cuda.py,
-# which include the METG ladder's shapes, tests/test_torch_flash_attention_cuda.py or
-# tests/test_torch_ssd_cuda.py); for A^T B also a short METG ladder run, for
-# the SSD backward chip_smoke.py.  Every fault must fail the card tests; a
-# fault on the METG path's fp32 product must also stop the ladder with
-# failed tasks, and an SSD backward fault must fail chip_smoke.py.  Prints,
+# Planted faults in the CUDA A^T B, flash-attention, SSD backward and WKV
+# kernels (four, four, three and three): each one is applied to a copy of
+# src/, tests/ and chip_smoke.py in a temporary directory, then the card
+# tests of that kernel run against the copy
+# (tests/test_torch_tiled_matmul_cuda.py, which include the METG ladder's
+# shapes, tests/test_torch_flash_attention_cuda.py,
+# tests/test_torch_ssd_cuda.py or tests/test_torch_wkv6_cuda.py); for A^T B
+# also a short METG ladder run, for the SSD backward and WKV chip_smoke.py.
+# Every fault must fail the card tests; a fault on the METG path's fp32
+# product must also stop the ladder with failed tasks, and an SSD backward
+# or WKV fault must fail chip_smoke.py.  Prints,
 # per fault, the ids of the card tests that failed, pytest's summary and
 # the ladder's or chip_smoke.py's last line.  Exits 1 if a fault's pattern
 # does not apply.  Names given as arguments run only those faults.
@@ -19,6 +21,7 @@ cd "$(dirname "$0")/.."
 MM=src/repro_torch/csrc/tiled_matmul.cu
 FA=src/repro_torch/csrc/flash_attention.cu
 SSD=src/repro_torch/csrc/mamba2_ssd.cu
+WKV=src/repro_torch/csrc/wkv6.cu
 declare -A FILES FAULTS
 # A^T B: the k loops stop one k-stage early (fp32 and bf16)
 FILES[drop_last_k_slice]=$MM
@@ -53,6 +56,16 @@ FAULTS[skip_reverse_cumsum]='s|from_f<T>(excl + run\[e\]);   // d(dA)\[t\]: the 
 # SSD backward, every product: plain TF32, the lo terms of 3xTF32 dropped
 FILES[tf32_only]=$SSD
 FAULTS[tf32_only]='s|mma_tf32(s\[j\], al, bh); mma_tf32(s\[j\], ah, bl);   // the lo terms||'
+# WKV, stage 2: the state stored after the chunk's update, not before (each
+# chunk sees the state leaving it; the final state stays right)
+FILES[state_after_update]=$WKV
+FAULTS[state_after_update]='s|s\[(long long)c \* hdd4\] = acc;   // S_in\[c\], the state entering c||; s|acc = fma4(av\[u\], acc, v\[u\]);   // S_in\[c+1\] = a_c S_in\[c\] + dS_c|acc = fma4(av[u], acc, v[u]); s[(long long)c * hdd4] = acc;|'
+# WKV, stage 3: the bonus term beta[t] v[t] dropped from y
+FILES[drop_bonus]=$WKV
+FAULTS[drop_bonus]='s|const float bt = sBeta\[tr + i\];|const float bt = 0.f;|'
+# WKV, stage 1: k scaled by exp(cumw[Q-1]) without subtracting cumw[j]
+FILES[k_decay_from_chunk_start]=$WKV
+FAULTS[k_decay_from_chunk_start]='s|sK\[i\] \*= expf(wlast\[i % HD\] - sW\[i\]);|sK[i] *= expf(wlast[i % HD]);|'
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 for fault in $(if [ $# -gt 0 ]; then printf '%s\n' "$@"; else
@@ -67,6 +80,7 @@ for fault in $(if [ $# -gt 0 ]; then printf '%s\n' "$@"; else
   case "$file" in
     "$MM") tests=tests/test_torch_tiled_matmul_cuda.py ;;
     "$FA") tests=tests/test_torch_flash_attention_cuda.py ;;
+    "$WKV") tests=tests/test_torch_wkv6_cuda.py ;;
     *) tests=tests/test_torch_ssd_cuda.py ;;
   esac
   echo "== $fault ($(basename "$file"))"
@@ -79,7 +93,7 @@ for fault in $(if [ $# -gt 0 ]; then printf '%s\n' "$@"; else
       --sizes 256,4096 --seconds 0.02 --max-tasks 300 2>&1 | tail -1 \
       | cut -c1-300)
   fi
-  if [ "$file" = "$SSD" ]; then
+  if [ "$file" = "$SSD" ] || [ "$file" = "$WKV" ]; then
     (cd "$copy" && timeout 900 python chip_smoke.py 2>/dev/null | tail -1 \
       | cut -c1-400; echo "chip_smoke.py exit ${PIPESTATUS[0]}")
   fi

@@ -1,4 +1,7 @@
-"""The CUDA chunked-WKV kernel against its plain version, on the card.
+"""The CUDA chunked-WKV kernels against their plain versions, on the card:
+y and the final state against `wkv6_chunked`, the states after the scan
+over the chunks (stage 2) against the staged plain version's, and two runs
+the same bits.
 
 Needs an NVIDIA Hopper card and nvcc: the kernel has no CPU mode, so these
 tests skip elsewhere.  Run on the card with
@@ -10,7 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.rwkv6_scan import ops, ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import kernel, ops, ref  # noqa: E402
 
 TOL = 1e-5   # relative to max(1, max |plain|): fp32, summation order only
 
@@ -25,6 +28,15 @@ def _inputs(B, S, H, hd, seed):
 def _close(out, plain):
     return float((out - plain).abs().max()) <= TOL * max(
         1.0, float(plain.abs().max()))
+
+
+def _card_inputs(B, S, H, hd, chunk, with_state):
+    r, k, v, logw, u = (torch.from_numpy(a).cuda()
+                        for a in _inputs(B, S, H, hd, seed=chunk))
+    s0 = (torch.randn((B, H, hd, hd), device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(1))
+          if with_state else None)
+    return (r, k, v, logw, u), s0
 
 
 @pytest.mark.cuda
@@ -50,6 +62,40 @@ def test_cuda_kernel_matches_plain(B, S, H, hd, chunk, with_state):
                               initial_state=s0)
     torch.cuda.synchronize()
     assert _close(y, py) and _close(state, ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,chunk", [(2, 96, 4, 32, 16),
+                                            (1, 128, 2, 64, 64),
+                                            (2, 256, 2, 64, 32)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_cuda_states_match_the_plain_stages(B, S, H, hd, chunk, with_state):
+    """The scratch after stage 2, the state entering each chunk, against
+    the plain stages 1 and 2 on the same card tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    (r, k, v, logw, u), s0 = _card_inputs(B, S, H, hd, chunk, with_state)
+    _, state, states = kernel.wkv6_cuda(r, k, v, logw, u, chunk=chunk,
+                                        initial_state=s0, return_states=True)
+    want, final = ref.wkv6_state_pass(
+        *ref.wkv6_chunk_state(k, v, logw, chunk=chunk), s0)
+    torch.cuda.synchronize()
+    assert states.shape == (B, H, S // chunk, hd, hd)
+    assert _close(states, want) and _close(state, final)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+def test_cuda_two_runs_give_the_same_bits(with_state):
+    """Every sum runs in a fixed order: y and the state repeat bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    args, s0 = _card_inputs(2, 256, 4, 64, 64, with_state)
+    y1, s1 = ops.wkv6(*args, chunk=64, initial_state=s0)
+    y2, s2 = ops.wkv6(*args, chunk=64, initial_state=s0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 @pytest.mark.cuda
