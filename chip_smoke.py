@@ -15,8 +15,14 @@ Phases; any failure exits non-zero:
       initial state; at the main shape its three stages' scratch after the
       scan over the chunks against the plain stages, two runs bit for bit,
       each stage's ms, the scratch bytes, registers and spills), the chunked
-      SSD in fp32 (the JAX sweep, slow and fast
-      decay), A^T B in fp32 and bf16 (the JAX sweep, a ragged shape, the
+      SSD forward in fp32 (three chunk-parallel stages and a scan over the
+      chunks, the products in 3xTF32 on the tensor cores; Y and the final
+      state against the plain version in fp32 and fp64, in three decays,
+      the JAX sweep and from initial states; at the main shape its stage-2
+      states against the plain stages and bit for bit against the
+      backward's, two runs bit for bit, each stage's ms, registers and
+      spills, both bounds and the design's bytes), A^T B in fp32 and bf16
+      (the JAX sweep, a ragged shape, the
       METG ladder); error against the stated tolerance, kernel / plain /
       library ms and the bound, and the kernel and tiling each case took
       (bf16 flash and A^T B: the tensor cores), held equal to what the
@@ -46,16 +52,19 @@ Phases; any failure exits non-zero:
       prefill must agree with the plain path's.  Then zamba2-2.7b training:
       one fp32 train step at full width and one group of depth, kernel path
       against plain path (loss, grad norm, every gradient; 6 SSD forward and
-      6 backward launches); then the full model (54 Mamba2 layers) trained 6
-      steps through launch.train at batch 2 x 1024, with 54 SSD forward and
-      54 backward and 9 flash launches per step, a finite, non-zero
+      6 backward op calls); then the full model (54 Mamba2 layers) trained 6
+      steps through launch.train at batch 2 x 1024, with 54 SSD forward
+      (3 kernels each) and 54 backward (4 kernels each) op calls and 9 flash
+      launches per step, a finite, non-zero
       gradient on every leaf, and 4 more steps on one repeated batch whose
       loss must fall;
   (d) last lines: the card, a JSON line of per-kernel results (flash
       attention once per path; A^T B at the ladder's top, with every shape
       it was held at; the WKV row with its stages' ms, scratch bytes,
-      registers and spills; the SSD row with its backward's bwd_* keys:
-      ms, stage ms, both bounds, routes, registers and spills), and
+      registers and spills; the SSD row with its forward's fwd_* keys,
+      stage ms, TF32-rate bound, design bytes, registers and spills, and
+      its backward's bwd_* keys: ms, stage ms, both bounds, routes,
+      registers and spills), and
       {"ok": true, "device": {...}}.
 Every exit with a non-zero code prints its reason on stdout: no card, a
 failed import (as when the script stands alone, without src/), a failed
@@ -398,27 +407,50 @@ def wkv_stages(torch, wkv_ops, wkv_ref, wkv_kernel, regs, args, q, s0, y,
             "scratch_bytes": scratch, "regs": stage_regs}
 
 
-def ssd_bound(b, s, h, hd, n, q, itemsize=4):
+def ssd_bound(b, s, h, hd, n, q, itemsize=4, with_state=False):
     """Least time for the chunked SSD, from counts of what the function
     needs: C.B^T over the lower triangle j <= t once per (b, chunk), since
     with one group B and C are shared by every head (the Pallas kernel
     computes it once for all heads); per (b, h, chunk) the cumsum, the
     decay exps and M over j <= t, M.x, C.S and its scaling, the state
-    update.  fp32 FLOPs at the fp32 rate, exps at the exp rate; x, dA, B
-    and C read once, Y written once.  Returns (ms, bound_by, exps, flops,
-    bytes)."""
+    update.  x, dA, B and C (and the initial state) read once, Y (and the
+    final state) written once.  Two bounds: every FLOP at the fp32 rate;
+    and the products (C.B^T, M.x, C.S, the state update) as 3xTF32 on the
+    tensor cores, three TF32 products each at the TF32 rate, beside the
+    rest at the fp32 rate (the two units run at once, so the larger).  Exps
+    at the exp rate.  Returns (ms, bound_by, exps, flops, bytes, tc_ms)."""
     pairs, chunks = q * (q + 1) // 2, (s // q) * b
     nblk = chunks * h
     exps = nblk * (pairs + 2 * q)
-    flops = chunks * pairs * n * 2 + nblk * (
-        q + pairs * 2 + pairs * hd * 2 + q * n * hd * 2 + q * hd * 2
-        + q * hd + q * hd * n * 2 + hd * n * 2)
-    nbytes = itemsize * (2 * b * s * h * hd + b * s * h + 2 * b * s * n)
-    t_ops = max(exps / H100_EXP_S, flops / H100_FP32_FLOPS)
+    prod = chunks * pairs * n * 2 + nblk * (
+        pairs * hd * 2 + q * n * hd * 2 + q * hd * n * 2)
+    rest = nblk * (q + pairs * 2 + q * hd * 2 + q * hd + hd * n * 2)
+    flops = prod + rest
+    nbytes = (itemsize * (2 * b * s * h * hd + b * s * h + 2 * b * s * n)
+              + (8 if with_state else 0) * b * h * hd * n)
+    t_exp = exps / H100_EXP_S
+    t_ops = max(t_exp, flops / H100_FP32_FLOPS)
     t_bytes = nbytes / H100_BYTES_S
+    t_tc = max(t_exp, 3 * prod / H100_TF32_FLOPS, rest / H100_FP32_FLOPS,
+               t_bytes)
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", exps, flops,
-            nbytes)
+            nbytes, t_tc * 1e3)
+
+
+def ssd_design_bytes(b, s, h, hd, n, q, itemsize=4):
+    """The bytes the forward's three kernels move at least, scratch
+    included: stage 1 reads x, dA and B and writes the chunks' terms and
+    decays (fp32); stage 2 reads and writes the terms and writes the final
+    state; stage 3 reads x, dA, B, C and the states entering the chunks and
+    writes Y."""
+    states = 4 * b * h * (s // q) * hd * n
+    decay = 4 * b * h * (s // q)
+    x, da, bc = (itemsize * b * s * h * hd, itemsize * b * s * h,
+                 itemsize * b * s * n)
+    return ((x + da + bc + states + decay)
+            + (2 * states + decay + 4 * b * h * hd * n)
+            + (2 * x + da + 2 * bc + states))
 
 
 def ssd_inputs(torch, gen, b, s, h, hd, n, decay):
@@ -433,50 +465,134 @@ def ssd_inputs(torch, gen, b, s, h, hd, n, decay):
             nrm(b, s, 1, n) * 0.5]
 
 
-def phase_ssd(torch, ssd_ops, ssd_ref):
-    """Chunked-SSD kernel vs plain version in fp32; returns the row for the
-    main-path case (zamba2-2.7b training, test-sweep inputs)."""
-    print("[b] mamba2_ssd kernel vs plain chunked version")
+def phase_ssd(torch, ssd_ops, ssd_ref, ssd_kernel, regs):
+    """Chunked-SSD forward kernels (three launches a call) vs plain version
+    in fp32: Y and the final state within SSD_TOL of the fp64 plain version
+    on the same values, and of the fp32 plain version wherever that lies
+    itself within SSD_TOL of fp64 (the kernel's two-float cumsum follows
+    neither's order; the line prints the fp32 plain version's distance).
+    The main shape in three decays, the JAX sweep, and initial states.  At
+    the main shape also the scratch after the scan over the chunks against
+    the plain stages 1 and 2 and bit for bit against the backward's S_in,
+    two runs the same bits, each stage's ms (torch.profiler), registers and
+    spills (`regs`: the build's entries for mamba2_ssd), both bounds and the
+    design's bytes.  Returns the row for the main-path case (zamba2-2.7b
+    training, test-sweep inputs)."""
+    print("[b] mamba2_ssd forward kernels vs plain chunked version; products: "
+          + ", ".join(f"{k} {v}" for k, v in ssd_kernel.FWD_ROUTES.items()))
     gen = torch.Generator(device="cuda").manual_seed(2)
     row = None
-    cases = [("main", SSD_MAIN, "sweep"), ("main slow decay", SSD_MAIN, "slow"),
-             ("main fast decay", SSD_MAIN, "fast")]
-    cases += [("JAX sweep", (b, s, h, hd, n, q), "sweep")
+    # (name, (B, S, H, hd, N, Q), decay, initial state)
+    cases = [("main", SSD_MAIN, "sweep", False),
+             ("main slow decay", SSD_MAIN, "slow", False),
+             ("main fast decay", SSD_MAIN, "fast", False)]
+    cases += [("JAX sweep", (b, s, h, hd, n, q), "sweep", False)
               for b, s, h, hd, n in [(2, 128, 8, 16, 16), (1, 64, 4, 32, 8)]
               for q in (16, 32)]
-    for name, (b, s, h, hd, n, q), decay in cases:
+    cases += [("initial state", SSD_MAIN, "sweep", True),
+              ("initial state", (2, 128, 5, 16, 16, 32), "fast", True),
+              ("initial state", (1, 64, 3, 32, 8, 64), "sweep", True)]
+    for name, (b, s, h, hd, n, q), decay, with_state in cases:
         args = ssd_inputs(torch, gen, b, s, h, hd, n, decay)
-        y = ssd_ops.ssd(*args, chunk=q)
-        plain, _ = ssd_ref.ssd_chunked(*args, chunk=q)
+        s0 = (torch.randn((b, h, hd, n), generator=gen, device="cuda")
+              if with_state else None)
+        with torch.no_grad():
+            y, st = ssd_ops.ssd(*args, chunk=q, initial_state=s0,
+                                return_state=True)
+        plain = ssd_ref.ssd_chunked(*args, chunk=q, initial_state=s0)
+        exact = ssd_ref.ssd_chunked(
+            *(t.double() for t in args), chunk=q,
+            initial_state=None if s0 is None else s0.double())
         torch.cuda.synchronize()
-        err = float((y - plain).abs().max())
-        lim = SSD_TOL * max(1.0, float(plain.abs().max()))
-        ok = err <= lim and bool(torch.isfinite(y).all())
+
+        def rel(out, ref):
+            return (float((out.double() - ref.double()).abs().max())
+                    / max(1.0, float(ref.abs().max())))
+        e32 = [rel(u, v) for u, v in zip((y, st), plain)]
+        e64 = [rel(u, v) for u, v in zip((y, st), exact)]
+        own = [rel(u, v) for u, v in zip(plain, exact)]
+        held32 = [e for e, o in zip(e32, own) if o <= SSD_TOL]
+        ok = (max(e64 + held32) <= SSD_TOL
+              and all(bool(torch.isfinite(t).all()) for t in (y, st)))
         is_main = (b, s, h, hd, n, q) == SSD_MAIN
         ms = cuda_ms(lambda: ssd_ops.ssd(*args, chunk=q), 10 if is_main else 20)
         plain_ms = cuda_ms(lambda: ssd_ref.ssd_chunked(*args, chunk=q),
                            3 if is_main else 5)
-        bound_ms, bound_by, exps, flops, nbytes = ssd_bound(b, s, h, hd, n, q)
-        print(f"[b] mamba2_ssd {name}: (B,S,H,hd,N)={(b, s, h, hd, n)} Q={q}:"
-              f" max_abs_err={err:.3e} (tol {lim:.3e}) kernel_ms={ms:.4f}"
-              f" plain_ms={plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by};"
-              f" {exps:.3e} exp, {flops:.3e} FLOP, {nbytes:.3e} B)"
-              f" {'ok' if ok else 'FAIL'}")
+        bound_ms, bound_by, exps, flops, nbytes, tc_ms = ssd_bound(
+            b, s, h, hd, n, q, with_state=with_state)
+        print(f"[b] mamba2_ssd {name}: (B,S,H,hd,N)={(b, s, h, hd, n)} Q={q}"
+              f" {decay} decay: max|diff|/max(1, max|ref|) of Y, final state"
+              f" vs fp64 plain {e64[0]:.2e}, {e64[1]:.2e}; vs fp32 plain "
+              f"{e32[0]:.2e}, {e32[1]:.2e} (fp32 plain to fp64 {own[0]:.2e}"
+              f", {own[1]:.2e}; held where within tol: {len(held32)} of 2)"
+              f" (tol {SSD_TOL:.0e}) kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}; "
+              f"{exps:.3e} exp, {flops:.3e} FLOP, {nbytes:.3e} B) "
+              f"bound_tc_ms={tc_ms:.4f} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"mamba2_ssd disagrees with its plain version: "
-                             f"{name} {(b, s, h, hd, n, q)} {err} > {lim}")
-        if is_main and decay == "sweep":
+                             f"{name} {(b, s, h, hd, n, q)} {e64} {e32}")
+        if is_main and decay == "sweep" and not with_state:
             row = {"name": "mamba2_ssd", "path": "zamba2-2.7b train",
                    "route": "cuda", "source": "src/repro_torch/csrc/mamba2_ssd.cu",
                    "replaces": "src/repro/kernels/mamba2_ssd/kernel.py:17",
-                   "launches": None, "max_abs_err": err, "ms": ms,
+                   "launches": None,
+                   "max_abs_err": float((y - plain[0]).abs().max()),
+                   "fwd_max_rel_err_fp64": max(e64), "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by,
+                   "bound_by": bound_by, "fwd_bound_tc_ms": tc_ms,
                    # no single PyTorch call computes the chunked SSD
                    "library_ms": None}
-        del args, y, plain
+            row.update(ssd_fwd_stages(torch, ssd_ref, ssd_kernel, regs,
+                                      args, q))
+        del args, y, st, plain, exact
         torch.cuda.empty_cache()
     return row
+
+
+def ssd_fwd_stages(torch, ssd_ref, ssd_kernel, regs, args, q):
+    """The main case's stage checks (see phase_ssd).  Returns the row's keys
+    for them."""
+    (y, st), (states, decay) = ssd_kernel.ssd_cuda(*args, chunk=q,
+                                                   return_states=True)
+    want, _ = ssd_ref.ssd_fwd_state_pass(
+        *ssd_ref.ssd_fwd_chunk_state(*args, chunk=q))
+    err = (float((states - want).abs().max())
+           / max(1.0, float(want.abs().max())))
+    g = torch.randn_like(args[0])
+    _, (s_in, _) = ssd_kernel.ssd_bwd_cuda(*args, g, chunk=q,
+                                           return_states=True)
+    as_bwd = torch.equal(states, s_in)
+    y2, st2 = ssd_kernel.ssd_cuda(*args, chunk=q)
+    same = torch.equal(y, y2) and torch.equal(st, st2)
+    ok = (err <= SSD_TOL and as_bwd and same
+          and bool(torch.isfinite(states).all()))
+    print(f"[b] mamba2_ssd main: states after the scan over the chunks vs "
+          f"ssd_fwd_state_pass: max|diff|/max(1, max|ref|)={err:.2e} (tol "
+          f"{SSD_TOL:.0e}); the backward's S_in the same bits: {as_bwd}; a "
+          f"second run the same bits: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("mamba2_ssd: the states after the scan over the "
+                         "chunks disagree with the plain stages or the "
+                         "backward's, or two runs differ")
+    del y, st, states, decay, want, g, s_in, y2, st2
+    b, s, h, hd = args[0].shape
+    n = args[2].shape[-1]
+    nbytes = ssd_design_bytes(b, s, h, hd, n, q)
+    stages = stage_ms(torch, ssd_kernel.FWD_KERNELS,
+                      lambda: ssd_kernel.ssd_cuda(*args, chunk=q))
+    stage_regs = kernel_registers(regs, SSD_FWD_INSTANCES)
+    print("[b] mamba2_ssd main: kernels (torch.profiler) " + " ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in stages.items())
+        + f" ms; the design's bytes with its scratch {nbytes:.3e} B, "
+        f"{nbytes / H100_BYTES_S * 1e3:.4f} ms at {H100_BYTES_S:.3g} B/s; "
+        + " ".join(f"{k}: {v['registers']} registers, "
+                   f"{v['spill_store_bytes']} B spill stores, "
+                   f"{v['spill_load_bytes']} B spill loads;"
+                   for k, v in stage_regs.items()))
+    return {"fwd_stages_ms": stages, "fwd_states_max_rel_err": err,
+            "fwd_design_bytes": nbytes, "fwd_regs": stage_regs}
 
 
 def ssd_bwd_bound(b, s, h, hd, n, q, itemsize=4):
@@ -548,6 +664,11 @@ def stage_ms(torch, names, fn, reps=10):
 # The instance of each kernel whose registers and spills are reported: its
 # template arguments at the main shape, demangled and mangled ("" for a
 # kernel that is no template)
+SSD_FWD_INSTANCES = {"ssd_fwd_chunk_state": ("<float, 64, 64, 64>",
+                                             "IfLi64ELi64ELi64E"),
+                     "ssd_fwd_state_pass": ("",),
+                     "ssd_fwd_chunk_out": ("<float, 64, 64, 64>",
+                                           "IfLi64ELi64ELi64E")}
 SSD_BWD_INSTANCES = {"ssd_bwd_chunk_state": ("<float, 64, 64, 64>",
                                              "IfLi64ELi64ELi64E"),
                      "ssd_bwd_state_pass": ("",),
@@ -662,7 +783,7 @@ def phase_ssd_bwd(torch, ssd_ops, ssd_ref, ssd_kernel):
             stages = stage_ms(torch, ssd_kernel.BWD_KERNELS,
                               lambda: ssd_kernel.ssd_bwd_cuda(*ins, g,
                                                               chunk=q))
-            out = recompute(functools.partial(ssd_kernel.ssd_cuda, chunk=q),
+            out = recompute(lambda *t: ssd_kernel.ssd_cuda(*t, chunk=q)[0],
                             functools.partial(ssd_ops.ssd_plain, chunk=q), *a)
             recompute_ms = cuda_ms(lambda: torch.autograd.grad(
                 out, a, g, retain_graph=True), 3)
@@ -1276,8 +1397,8 @@ def phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention):
     loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
     norm_rel = abs(nk - np_) / np_
     print(f"[c] zamba2 one group (6 Mamba2 layers + shared block), fp32 "
-          f"train step, kernel vs plain path: launches (ssd, ssd bwd, "
-          f"flash)="
+          f"train step, kernel vs plain path: op calls (ssd forward, 3 "
+          f"kernels each; ssd backward, 4 each; flash)="
           f"{launches}; loss {float(lk):.6f} vs {float(lp):.6f} (rel "
           f"{loss_rel:.2e}, tol {STEP_LOSS_TOL:.0e}); grad norm {nk:.6f} vs "
           f"{np_:.6f} (rel {norm_rel:.2e}, tol {STEP_NORM_TOL:.0e}); worst "
@@ -1323,9 +1444,10 @@ def phase_train(torch, ssd_ops, fa_ops, train):
               f"{r['fwd_ms']:.1f} bwd_ms={r['bwd_ms']:.1f} opt_ms="
               f"{r['opt_ms']:.1f} tokens_per_s={r['tokens_per_s']:.0f} "
               f"grad_norm={r['grad_norm']:.4f}")
-    print(f"[c] launches per step: mamba2_ssd {n_ssd / steps:g} forward and "
-          f"{n_bwd / steps:g} backward, flash_attention {n_fa / steps:g} "
-          f"(want 54, 54 and 9; totals {n_ssd}, {n_bwd}, {n_fa})")
+    print(f"[c] op calls per step: mamba2_ssd {n_ssd / steps:g} forward (3 "
+          f"kernels each) and {n_bwd / steps:g} backward (4 kernels each), "
+          f"flash_attention {n_fa / steps:g} (want 54, 54 and 9; totals "
+          f"{n_ssd}, {n_bwd}, {n_fa})")
     if n_params != 2_501_316_000:
         raise SystemExit(f"param count {n_params}")
     if (n_ssd, n_bwd, n_fa) != (54 * steps, 54 * steps, 9 * steps):
@@ -1466,7 +1588,8 @@ def run(where: dict) -> int:
     where["phase"] = "(b) wkv6"
     wkv_row = phase_wkv(torch, wkv_ops, wkv_ref, wkv_kernel, regs["wkv6"])
     where["phase"] = "(b) mamba2_ssd"
-    ssd_row = phase_ssd(torch, ssd_ops, ssd_ref)
+    ssd_row = phase_ssd(torch, ssd_ops, ssd_ref, ssd_kernel,
+                        regs["mamba2_ssd"])
     where["phase"] = "(b) mamba2_ssd backward"
     ssd_row.update(phase_ssd_bwd(torch, ssd_ops, ssd_ref, ssd_kernel))
     ssd_row["bwd_regs"] = kernel_registers(regs["mamba2_ssd"],

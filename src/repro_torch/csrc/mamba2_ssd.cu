@@ -1,57 +1,111 @@
-// Chunked Mamba2 SSD scan forward for Hopper (sm_90a), n_groups == 1.
+// Chunked Mamba2 SSD scan for Hopper (sm_90a), n_groups == 1: the forward
+// and its gradient.
 //
-// Replaces the Pallas TPU kernel `_ssd_kernel` in
-// src/repro/kernels/mamba2_ssd/kernel.py (launched by `ssd_pallas`), and
+// The forward replaces the Pallas TPU kernel `_ssd_kernel` in
+// src/repro/kernels/mamba2_ssd/kernel.py (launched by `ssd_pallas`) and
 // computes the function of the JAX model's chunk step `_ssd_chunk`
-// (src/repro/models/mamba2.py) scanned over the chunks from a zero state.
-// Like the Pallas kernel it writes Y only; the final state stays inside.
+// (src/repro/models/mamba2.py) scanned over the chunks, as the oracle
+// `ssd_ref` does: from a given initial state (or 0), Y and the final state.
 //
-// Function, for each batch row b and head h, over chunks of Q steps:
-//   cum[t]  = sum_{s<=t} dA[s] within the chunk
-//   M[t][j] = (C[t] . B[j]) exp(cum[t] - cum[j])   for j <= t, else 0
-//   Y[t]    = sum_j M[t][j] x[j] + exp(cum[t]) S C[t]
-//   S      <- exp(cum[Q-1]) S + sum_j exp(cum[Q-1] - cum[j]) x[j] B[j]^T
+// Function, for each batch row b and head h, over chunks of Q steps, with
+// cum[t] = sum_{s<=t} dA[s] within the chunk, E[t] = exp(cum[t]),
+// D[j] = exp(cum[Q-1] - cum[j]), L[t][j] = exp(cum[t] - cum[j]) for j <= t
+// (else 0), G = C.B^T, M = G o L and S_in the state entering the chunk:
+//   Y[t]    = sum_j M[t][j] x[j] + E[t] S_in C[t]
+//   S_out   = E[Q-1] S_in + sum_j D[j] x[j] B[j]^T
 // with x = xdt (B, S, H, hd), dA (B, S, H), B and C (B, S, N) (the one
-// group), all of one type T (float or bf16) and contiguous; S (hd x N)
-// starts at 0; arithmetic in fp32; Y (B, S, H, hd) in T.  S % Q == 0 (the
-// caller pads).
+// group), all of one type T (float or bf16), the states (hd x N) fp32;
+// arithmetic in fp32; Y (B, S, H, hd) in T.  S % Q == 0 (the caller pads).
 //
-// What bounds it on an H100: at zamba2-2.7b's training shape (B 2, S 1024,
-// H 80, hd 64, N 64, Q 64) the work is ~4.1e9 fp32 FLOPs (C.B^T and M.x
-// over the lower triangle, C.S and the state update) against ~86 MB of
-// inputs and output: 0.061 ms at 67 TFLOP/s against 0.026 ms at 3.35 TB/s,
-// so it is bound by operations.  This first version does them as fp32 FMAs
-// on the CUDA cores from shared memory (~1 load per FMA); C.B^T, M.x, C.S
-// and x^T.B suit tensor cores, which is later work, and so is filling the
-// card: the grid is one block per (b, h), 160 blocks at the main shape on
-// 132 SMs, each walking its 16 chunks in order.
+// The backward (`mamba2_ssd_bwd`) computes dx, d(dA), dB and dC from dY.
+// The JAX package has no backward kernel: its training differentiates the
+// scan of `_ssd_chunk`, and so the port's plain version, `ssd_chunked_bwd`
+// (kernels/mamba2_ssd/ref.py), writes that gradient out chunk by chunk.
+// With dS the cotangent of the state leaving a chunk (0 after the last):
+//   dM = dY.x^T (j <= t), dG = dM o L, P = dM o M
+//   dx[j]  = sum_t M[t][j] dY[t] + D[j] dS B[j]
+//   dC[t]  = sum_j dG[t][j] B[j] + E[t] dY[t].S_in      (per head)
+//   dB[j]  = sum_t dG[t][j] C[t] + D[j] x[j].dS          (per head)
+//   dcum[t] = sum_{j<t} P[t][j] - sum_{t'>t} P[t'][t] + E[t] C[t].(dY[t].S_in)
+//             - R[t],  R[j] = D[j] x[j].(dS B[j]) for j < Q-1, R[Q-1] = 0
+//   dcum[Q-1] += E[Q-1] <dS, S_in> + sum_{j<Q-1} R[j]
+//   d(dA)  = the reverse in-chunk cumsum of dcum
+//   dS    <- E[Q-1] dS + sum_t E[t] dY[t]^T C[t]
+// P's diagonal and R[Q-1] (D[Q-1] = exp(0) = 1) enter dcum once with each
+// sign; they are left out exactly, as in the plain version, rather than
+// summed and cancelled in rounding.
+//
+// What bounds them on an H100, at zamba2-2.7b's training shape (B 2, S
+// 1024, H 80, hd 64, N 64, Q 64; chip_smoke.py's ssd_bound and
+// ssd_bwd_bound count the work): the forward needs ~3.4e9 fp32 FLOPs (C.B^T
+// once for all heads, M.x over the lower triangle, C.S_in and the state
+// walk) against ~86 MB of inputs and Y, 0.051 ms at 67 TFLOP/s against
+// 0.026 ms at 3.35 TB/s; the backward ~9.7e9 FLOPs against ~0.13 GB, 0.14
+// ms against 0.04.  Both are bound by operations at the fp32 rate, and by
+// bytes once the products run on the tensor cores in 3xTF32 (three TF32
+// products each, at 495 TFLOP/s).
+// Only the state entering a chunk (and, backward, the cotangent of the
+// state leaving it) depends on the order of the chunks, and both are linear
+// recurrences with one scalar decay a_c = E[Q-1] per (chunk, head), so each
+// direction runs in stages:
+//   1. ssd_fwd_chunk_state / ssd_bwd_chunk_state, one block per (b, chunk,
+//      head group): each chunk's own term of the recurrence, x^T.(D o B)
+//      (hd x N, depth Q; backward also dY^T.(E o C)), and a_c, into fp32
+//      scratch (B, H, chunks, hd, N) and (B, H, chunks); one device
+//      function with a flag for the backward's half;
+//   2. ssd_fwd_state_pass / ssd_bwd_state_pass, one thread per (b, h, run
+//      of 4 state elements): one walk over the chunks, `walk`, in place on
+//      stage 1's scratch.  Forward, S_in[0] = the initial state (or 0),
+//      S_in[c+1] = a_c S_in[c] + x^T.(D o B), and the state after the last
+//      chunk is the final state; backward, S_in from 0 and dS from the last
+//      chunk back, dS[c-1] = a_c dS[c] + dY^T.(E o C);
+//   3. ssd_fwd_chunk_out / ssd_bwd_chunk_grads, one block per (b, chunk,
+//      head group): Y, or every gradient term above, for one chunk given
+//      S_in (and dS);
+//   4. backward only, ssd_head_sum adds the head groups' partials of dB
+//      and dC.
+// The forward's scratch after stage 2 is the backward's S_in bit for bit
+// (zero initial state): stage 1's term and the walk are the same code.
 // What the design does:
-//   * one block of 256 threads per (b, h) loops over the chunks (the Pallas
-//     grid's sequential "arbitrary" axis) with the fp32 state in shared
-//     memory; the Pallas kernel keeps all H heads in one program and shares
-//     C.B^T between them, this one recomputes C.B^T per head;
+//   * a head group is 4, 2 or 1 heads (the largest that divides H, picked
+//     by the launcher): 640 blocks of stages 1 and 3 at the main shape,
+//     ~4.8 an SM, where one block per (b, h) would give 160; a block
+//     loads B and C once and forms C.B^T once for its heads (the Pallas
+//     kernel shares it over all heads); the backward adds its heads' dB and
+//     dC in registers in head order, so the partials are (B, S, H / group,
+//     N);
+//   * every product runs on the tensor cores through one warp-level
+//     helper, `warp_mma`: mma.sync m16n8k8 TF32 in 3xTF32 (each fp32
+//     operand split as hi = tf32(v), lo = v - hi; lo.hi + hi.lo, then
+//     hi.hi, into an fp32 sum), which keeps fp32 accuracy: what it drops is
+//     ~2^-21 of a term (`split_tf32`).  mma.sync and not wgmma, because fp32
+//     and TF32 wgmma read both operands K-major only, and the kernels read
+//     x, dY, B, C, M, dG and the states along both of their dimensions.  A
+//     warp computes a strip of 16 rows by up to 32 columns of an output;
+//   * one shared-memory layout (`Tile`) serves a tile read along its rows
+//     and along its columns without bank conflicts, so no tile is copied
+//     or transposed;
+//   * the in-chunk cumsum is a warp scan in two floats (`chunk_decays`), and
+//     the other scalar parts are warp scans and reductions with a fixed
+//     shuffle pattern, so every sum has one order and two runs give the
+//     same bits, with no atomics;
 //   * the mask is applied before the exponent: exp runs only for j <= t,
 //     where cum[t] - cum[j] <= 0 (dA <= 0), and M's upper triangle is
-//     exactly 0, so no overflow can reach a product;
-//   * expf, not __expf: the fast version's error grows with the argument;
-//   * each product is a thread-per-column loop (column = key j, value
-//     column d, or state column n) over rows spaced by 256/columns, so one
-//     load of the column operand serves all of a thread's rows and the row
-//     operand is a warp broadcast; B and S rows are padded to N+1 floats so
-//     a warp reading one column of them hits 32 banks.
-// At Q = hd = N = 64 the tiles take 83,200 bytes of shared memory, above
-// 48 KB, so the launch opts in; a refused launch is returned as an error.
-//
-// The backward (`mamba2_ssd_bwd`, below) computes dx, d(dA), dB and dC from
-// dY.  The JAX package has no backward kernel: its training differentiates
-// the scan of `_ssd_chunk`, and so the port's plain version,
-// `ssd_chunked_bwd` (kernels/mamba2_ssd/ref.py), writes that gradient out
-// chunk by chunk.  The kernels compute the same terms in the stages of
-// `ssd_chunked_bwd_staged` (see there and below).
+//     exactly 0, so no overflow can reach a product; expf, not __expf: the
+//     fast version's error grows with the argument; all arithmetic is fp32
+//     whatever T is (bf16 tiles are converted as they are staged in shared
+//     memory).
+// Stages 1 and 3 copy the next head's tiles with cp.async while this head
+// computes.  Forward, stage 3 forms every head's decays at once, one warp
+// a head, and keeps M where B was once C.B^T is formed: 103,424 bytes at
+// the main shape, two blocks an SM; the backward's stage 3 takes 216,096
+// bytes of the 227 KB a block may have, one block of 8 warps an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -59,15 +113,8 @@
 namespace {
 
 constexpr int NTHREADS = 256;
-
-struct Args {
-  const void* x;    // xdt (B, S, H, HD)
-  const void* dA;   // (B, S, H)
-  const void* Bm;   // (B, S, N)
-  const void* Cm;   // (B, S, N)
-  void* y;          // (B, S, H, HD)
-  int B, S, H;
-};
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int NWARPS = NTHREADS / 32;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -83,269 +130,26 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-template <int Q, int HD, int N>
-constexpr size_t smem_bytes() {
-  // x, B (padded), C, M, S (padded), cum, exp(cum), exp(cum[Q-1] - cum)
-  return sizeof(float) * (size_t)(Q * HD + Q * (N + 1) + Q * N + Q * Q +
-                                  HD * (N + 1) + 3 * Q);
-}
-
-template <typename T, int Q, int HD, int N>
-__global__ void __launch_bounds__(NTHREADS) ssd_chunk_fwd(const Args a) {
-  constexpr int NP = N + 1;               // padded row stride of B and S
-  constexpr int MSTEP = NTHREADS / Q;     // M: column j, rows every MSTEP
-  constexpr int MR = Q / MSTEP;
-  constexpr int YSTEP = NTHREADS / HD;    // Y: column d, rows every YSTEP
-  constexpr int YR = Q / YSTEP;
-  constexpr int SSTEP = NTHREADS / N;     // S: column n, rows every SSTEP
-  constexpr int SR = HD / SSTEP;
-  static_assert(NTHREADS % Q == 0 && Q % MSTEP == 0 && NTHREADS % HD == 0 &&
-                    Q % YSTEP == 0 && NTHREADS % N == 0 && HD % SSTEP == 0,
-                "tile shape");
-
-  extern __shared__ float4 smem4[];
-  float* sX = reinterpret_cast<float*>(smem4);   // Q x HD: x, then x dec
-  float* sB = sX + Q * HD;                        // Q x NP
-  float* sC = sB + Q * NP;                        // Q x N
-  float* sM = sC + Q * N;                         // Q x Q
-  float* sS = sM + Q * Q;                         // HD x NP state
-  float* sCum = sS + HD * NP;                     // Q: dA, then its cumsum
-  float* sE = sCum + Q;                           // Q: exp(cum)
-  float* sD = sE + Q;                             // Q: exp(cum[Q-1] - cum)
-
-  const T* X = static_cast<const T*>(a.x);
-  const T* DA = static_cast<const T*>(a.dA);
-  const T* Bg = static_cast<const T*>(a.Bm);
-  const T* Cg = static_cast<const T*>(a.Cm);
-  T* Y = static_cast<T*>(a.y);
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x % a.H;
-  const long long xstep = (long long)a.H * HD;                // t -> t+1
-  const long long xbase = ((long long)b * a.S * a.H + h) * HD;  // (b,0,h,0)
-  const long long dbase = (long long)b * a.S * a.H + h;
-  const long long nbase = (long long)b * a.S * N;
-
-  for (int i = tid; i < HD * NP; i += NTHREADS) sS[i] = 0.f;
-
-  for (int c0 = 0; c0 < a.S; c0 += Q) {
-    __syncthreads();   // the previous chunk no longer reads the tiles
-    for (int i = tid; i < Q * HD; i += NTHREADS) {
-      const int t = i / HD, d = i % HD;
-      sX[i] = to_f(X[xbase + (long long)(c0 + t) * xstep + d]);
-    }
-    for (int i = tid; i < Q * N; i += NTHREADS) {
-      const int t = i / N, n = i % N;
-      const long long off = nbase + (long long)(c0 + t) * N + n;
-      sB[t * NP + n] = to_f(Bg[off]);
-      sC[i] = to_f(Cg[off]);
-    }
-    if (tid < Q) sCum[tid] = to_f(DA[dbase + (long long)(c0 + tid) * a.H]);
-    __syncthreads();
-
-    if (tid == 0) {   // in order, as the plain version's cumsum
-      float acc = 0.f;
-      for (int t = 0; t < Q; ++t) {
-        acc += sCum[t];
-        sCum[t] = acc;
-      }
-    }
-    __syncthreads();
-
-    if (tid < Q) {
-      sE[tid] = expf(sCum[tid]);
-      sD[tid] = expf(sCum[Q - 1] - sCum[tid]);
-    }
-    {   // M[t][j] for this thread's column j and rows t
-      const int j = tid % Q, r0 = tid / Q;
-      float acc[MR];
-#pragma unroll
-      for (int i = 0; i < MR; ++i) acc[i] = 0.f;
-#pragma unroll 8
-      for (int n = 0; n < N; ++n) {
-        const float bj = sB[j * NP + n];
-#pragma unroll
-        for (int i = 0; i < MR; ++i)
-          acc[i] = fmaf(sC[(r0 + i * MSTEP) * N + n], bj, acc[i]);
-      }
-      const float cj = sCum[j];
-#pragma unroll
-      for (int i = 0; i < MR; ++i) {
-        const int t = r0 + i * MSTEP;
-        sM[t * Q + j] = j <= t ? acc[i] * expf(sCum[t] - cj) : 0.f;
-      }
-    }
-    __syncthreads();
-
-    {   // Y[t][d] = M[t] . x[:, d] + exp(cum[t]) C[t] . S[d]
-      const int d = tid % HD, r0 = tid / HD;
-      float acc[YR], acs[YR];
-#pragma unroll
-      for (int i = 0; i < YR; ++i) acc[i] = acs[i] = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < Q; ++j) {
-        const float xj = sX[j * HD + d];
-#pragma unroll
-        for (int i = 0; i < YR; ++i)
-          acc[i] = fmaf(sM[(r0 + i * YSTEP) * Q + j], xj, acc[i]);
-      }
-#pragma unroll 8
-      for (int n = 0; n < N; ++n) {
-        const float sd = sS[d * NP + n];
-#pragma unroll
-        for (int i = 0; i < YR; ++i)
-          acs[i] = fmaf(sC[(r0 + i * YSTEP) * N + n], sd, acs[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < YR; ++i) {
-        const int t = r0 + i * YSTEP;
-        Y[xbase + (long long)(c0 + t) * xstep + d] =
-            from_f<T>(acc[i] + acs[i] * sE[t]);
-      }
-    }
-    __syncthreads();   // every thread has read x and the old state
-
-    for (int i = tid; i < Q * HD; i += NTHREADS) sX[i] *= sD[i / HD];
-    __syncthreads();
-
-    {   // S[d][n] <- exp(cum[Q-1]) S[d][n] + sum_j x'[j][d] B[j][n]
-      const int n = tid % N, r0 = tid / N;
-      const float decay = sE[Q - 1];
-      float s[SR];
-#pragma unroll
-      for (int i = 0; i < SR; ++i) s[i] = sS[(r0 + i * SSTEP) * NP + n] * decay;
-#pragma unroll 8
-      for (int j = 0; j < Q; ++j) {
-        const float bj = sB[j * NP + n];
-#pragma unroll
-        for (int i = 0; i < SR; ++i)
-          s[i] = fmaf(sX[j * HD + r0 + i * SSTEP], bj, s[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < SR; ++i) sS[(r0 + i * SSTEP) * NP + n] = s[i];
-    }
-  }
-}
-
-template <typename T, int Q, int HD, int N>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<Q, HD, N>();
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_fwd<T, Q, HD, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_fwd<T, Q, HD, N><<<a.B * a.H, NTHREADS, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int HD, int N>
-int launch_q(const Args& a, int q, cudaStream_t stream) {
-  switch (q) {
-    case 16: return launch<T, 16, HD, N>(a, stream);
-    case 32: return launch<T, 32, HD, N>(a, stream);
-    case 64: return launch<T, 64, HD, N>(a, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// (hd, N): zamba2-2.7b's (64, 64) and the JAX kernel sweep's (16, 16) and
-// (32, 8) (tests/test_kernels.py).
-template <typename T>
-int launch_shape(const Args& a, int hd, int n, int q, cudaStream_t stream) {
-  if (hd == 64 && n == 64) return launch_q<T, 64, 64>(a, q, stream);
-  if (hd == 16 && n == 16) return launch_q<T, 16, 16>(a, q, stream);
-  if (hd == 32 && n == 8) return launch_q<T, 32, 8>(a, q, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// ---------------------------------------------------------------- backward
-//
-// Per chunk, with cum, E[t] = exp(cum[t]), D[j] = exp(cum[Q-1] - cum[j]),
-// L[t][j] = exp(cum[t] - cum[j]) (j <= t, else 0), G = C.B^T, M = G o L,
-// S_in the state entering the chunk and dS the cotangent of the state
-// leaving it (0 after the last chunk):
-//   dM = dY.x^T (j <= t), dG = dM o L, P = dM o M
-//   dx[j]  = sum_t M[t][j] dY[t] + D[j] dS B[j]
-//   dC[t]  = sum_j dG[t][j] B[j] + E[t] dY[t].S_in      (per head)
-//   dB[j]  = sum_t dG[t][j] C[t] + D[j] x[j].dS          (per head)
-//   dcum[t] = sum_{j<t} P[t][j] - sum_{t'>t} P[t'][t] + E[t] C[t].(dY[t].S_in)
-//             - R[t],  R[j] = D[j] x[j].(dS B[j]) for j < Q-1, R[Q-1] = 0
-//   dcum[Q-1] += E[Q-1] <dS, S_in> + sum_{j<Q-1} R[j]
-//   d(dA)  = the reverse in-chunk cumsum of dcum
-//   dS    <- E[Q-1] dS + sum_t E[t] dY[t]^T C[t]
-// P's diagonal and R[Q-1] (D[Q-1] = exp(0) = 1) enter dcum once with each
-// sign; they are left out exactly, as in the plain version, rather than
-// summed and cancelled in rounding.
-//
-// What bounds it on an H100: at zamba2-2.7b's training shape the function
-// needs ~9.7e9 fp32 FLOPs (the products dY.x^T, M^T.dY, dG.B, dG^T.C over
-// the lower triangle, C.B^T once for all heads, dS.B, dY.S_in, x.dS and
-// the two state recurrences at hd x N x Q each, and little else) against
-// ~0.13 GB of inputs and outputs: 0.14 ms at 67 TFLOP/s against 0.04 ms at
-// 3.35 TB/s, so operations; with the products on the tensor cores in
-// 3xTF32 (three TF32 products each, at 495 TFLOP/s) ~0.06 ms.
-// Only the state entering a chunk and the cotangent leaving it depend on
-// the order of the chunks, and both are linear recurrences with one scalar
-// decay a_c = E[Q-1] per (chunk, head), so the backward runs in stages:
-//   1. ssd_bwd_chunk_state, one block per (b, chunk, head group): each
-//      chunk's own terms of the two recurrences, x^T.(D o B) and
-//      dY^T.(E o C) (hd x N, depth Q), and a_c, into fp32 scratch
-//      (B, H, chunks, hd, N) and (B, H, chunks);
-//   2. ssd_bwd_state_pass, one thread per (b, h, state element), walks the
-//      chunks forward, S_in[c+1] = a_c S_in[c] + x^T.(D o B), and back,
-//      dS[c-1] = a_c dS[c] + dY^T.(E o C), in place on stage 1's scratch;
-//   3. ssd_bwd_chunk_grads, one block per (b, chunk, head group): every
-//      term above for one chunk, given S_in and dS;
-//   4. ssd_head_sum adds the head groups' partials of dB and dC.
-// What the design does:
-//   * a head group is 4, 2 or 1 heads (the largest that divides H, picked
-//     by the launcher): 640 blocks of stages 1 and 3 at the main shape,
-//     ~4.8 an SM, where one block per (b, h) would give 160; a block
-//     loads B and C once and forms C.B^T once for its heads (the Pallas
-//     kernel shares it over all heads), and adds its heads' dB and dC in
-//     registers in head order, so the partials are (B, S, H / group, N);
-//   * every product runs on the tensor cores through one warp-level
-//     helper, `warp_mma`: mma.sync m16n8k8 TF32 in 3xTF32 (each fp32
-//     operand split as hi = tf32(v), lo = v - hi; lo.hi + hi.lo, then
-//     hi.hi, into an fp32 sum), which keeps fp32 accuracy: what it drops is
-//     ~2^-21 of a term (`split_tf32`).  mma.sync and not wgmma, because fp32
-//     and TF32 wgmma read both operands K-major only, and the backward reads
-//     x, dY, B, C, M, dG and dS along both of their dimensions.  A warp
-//     computes a strip of 16 rows by up to 32 columns of an output;
-//   * one shared-memory layout (`Tile`) serves a tile read along its rows
-//     and along its columns without bank conflicts, so no tile is copied
-//     or transposed;
-//   * the scalar parts are warp scans and reductions with a fixed shuffle
-//     pattern, so every sum has one order and two runs give the same bits,
-//     with no atomics;
-//   * the mask comes before the exponent and expf, not __expf, as in the
-//     forward; all arithmetic is fp32 whatever T is (bf16 tiles are
-//     converted as they are staged in shared memory).
-// Stages 1 and 3 copy the next head's tiles with cp.async while this head
-// computes; stage 3's tiles take 216,096 bytes at the main shape of the
-// 227 KB a block may have, so one block of 8 warps an SM.
-
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int NWARPS = NTHREADS / 32;
-
-struct BwdArgs {
+// One struct for the kernels of both directions; a direction leaves the
+// other's pointers null.
+struct Args {
   const void* x;    // xdt (B, S, H, HD)
   const void* dA;   // (B, S, H)
   const void* Bm;   // (B, S, N)
   const void* Cm;   // (B, S, N)
-  const void* dy;   // (B, S, H, HD)
-  void* dx;         // (B, S, H, HD)
-  void* ddA;        // (B, S, H)
+  const void* dy;   // backward: (B, S, H, HD)
+  void* y;          // forward: Y (B, S, H, HD)
+  void* dx;         // backward: (B, S, H, HD)
+  void* ddA;        // backward: (B, S, H)
   float* states;    // (B, H, S / Q, HD, N): x^T.(D o B), then S_in
-  float* dstates;   // (B, H, S / Q, HD, N): dY^T.(E o C), then dS
+  float* dstates;   // backward: (B, H, S / Q, HD, N): dY^T.(E o C), then dS
   float* decay;     // (B, H, S / Q): a_c = exp(cum[Q-1])
-  float* dBp;       // (B, S, H / hg, N): the head groups' partials of dB
-  float* dCp;       // (B, S, H / hg, N): of dC
+  float* dBp;       // backward: (B, S, H / hg, N): the head groups' dB
+  float* dCp;       // backward: (B, S, H / hg, N): their dC
   int B, S, H, hg;  // hg heads a block, hg in {1, 2, 4} dividing H
 };
 
-// The backward's shared-memory tiles: fp32, rows of W = max(COLS, 32)
+// The shared-memory tiles: fp32, rows of W = max(COLS, 32)
 // floats, element (r, c) at r * W + (c ^ swz(r)).  mma.sync reads a tile
 // along a row (lane (g, t) at (r0 + g, c0 + t), r0 % 8 == 0, c0 % 4 == 0)
 // or along a column (lane at (r0 + t, c0 + g), r0 % 4 == 0, c0 % 8 == 0),
@@ -354,7 +158,7 @@ struct BwdArgs {
 // groups of 4 banks, along a column the 4 values of t in 4 distinct groups
 // of 8, so both reads hit 32 banks.  No padded stride does both: a stride
 // of 4 (mod 32) floats suits rows, 8 suits columns, and x, dY, B, C, dG and
-// dS are read both ways.  Aligned runs of 4 columns stay together, so a
+// the states are read both ways.  Aligned runs of 4 columns stay together, so a
 // row is staged with 16-byte stores.
 __device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
 
@@ -629,20 +433,14 @@ __device__ __forceinline__ void chunk_decays(const T* dA, long long step,
   }
 }
 
-// Head h's x and dY rows of the chunk starting at row row0 = b S + c Q into
-// the tiles at xy (x, then dY), and its dA into dA_s: fp32 by cp.async
-// (dA by warp 0, each lane the steps chunk_decays has it read), bf16 by
-// loads; the caller commits.
-template <int Q, int HD, typename T>
-__device__ __forceinline__ void fetch_xy(float* xy, float* dA_s,
-                                         const BwdArgs& a, long long row0,
-                                         int h) {
+
+// Head h's dA of the chunk starting at row row0 = b S + c Q into dA_s:
+// fp32 by cp.async from warp 0, each lane the steps chunk_decays has it
+// read; bf16 is read where it lies (head_decays).  The caller commits.
+template <int Q, typename T>
+__device__ __forceinline__ void fetch_dA(float* dA_s, const Args& a,
+                                         long long row0, int h) {
   constexpr int PER = Q > 32 ? Q / 32 : 1;
-  const long long xstride = (long long)a.H * HD;
-  stage<Q, HD>(Tile<HD>{xy},
-               static_cast<const T*>(a.x) + (row0 * a.H + h) * HD, xstride);
-  stage<Q, HD>(Tile<HD>{xy + Q * Tile<HD>::W},
-               static_cast<const T*>(a.dy) + (row0 * a.H + h) * HD, xstride);
   if constexpr (sizeof(T) == sizeof(float)) {
     if (threadIdx.x < 32)
       for (int e = 0; e < PER; ++e) {
@@ -655,11 +453,28 @@ __device__ __forceinline__ void fetch_xy(float* xy, float* dA_s,
   }
 }
 
-// Warp 0: cum, E and D of head h from its dA as fetch_xy left it: in dA_s
-// (fp32, once this lane's copies have landed) or in device memory (bf16).
+// Head h's x rows (and, BWD, its dY rows) of that chunk into the tiles at
+// xy (x, then dY), fp32 by cp.async, bf16 by loads, and its dA into dA_s
+// (fetch_dA); the caller commits.
+template <bool BWD, int Q, int HD, typename T>
+__device__ __forceinline__ void fetch_xy(float* xy, float* dA_s,
+                                         const Args& a, long long row0,
+                                         int h) {
+  const long long xstride = (long long)a.H * HD;
+  stage<Q, HD>(Tile<HD>{xy},
+               static_cast<const T*>(a.x) + (row0 * a.H + h) * HD, xstride);
+  if constexpr (BWD)
+    stage<Q, HD>(Tile<HD>{xy + Q * Tile<HD>::W},
+                 static_cast<const T*>(a.dy) + (row0 * a.H + h) * HD,
+                 xstride);
+  fetch_dA<Q, T>(dA_s, a, row0, h);
+}
+
+// One warp: cum, E and D of head h from its dA as fetch_dA left it: in dA_s
+// (fp32, once the copies have landed) or in device memory (bf16).
 template <int Q, typename T>
 __device__ __forceinline__ void head_decays(const float* dA_s,
-                                            const BwdArgs& a, long long row0,
+                                            const Args& a, long long row0,
                                             int h, float* sCum, float* sLo,
                                             float* sE, float* sD) {
   if constexpr (sizeof(T) == sizeof(float)) {
@@ -671,28 +486,30 @@ __device__ __forceinline__ void head_decays(const float* dA_s,
   }
 }
 
-template <int Q, int HD, int N>
+template <int Q, int HD, int N, bool BWD>
 constexpr size_t state_smem_bytes() {
-  // B, C (Q x N); two sets (this head's and the next's) of x, dY (Q x HD)
-  // and dA (Q); cum (two floats), E, D
-  return sizeof(float) *
-         (size_t)(2 * Q * Tile<N>::W + 4 * Q * Tile<HD>::W + 6 * Q);
+  // B (and C, BWD) (Q x N); two sets (this head's and the next's) of x (and
+  // dY, BWD) (Q x HD) and dA (Q); cum (two floats), E, D
+  constexpr int XY = BWD ? 2 : 1;
+  return sizeof(float) * (size_t)(XY * Q * Tile<N>::W +
+                                  2 * XY * Q * Tile<HD>::W + 6 * Q);
 }
 
-// Stage 1.  Block (b, c, group): for each head h of the group,
-// x^T.(D o B) and dY^T.(E o C) of chunk c into states / dstates[b, h, c],
-// and a_c into decay[b, h, c].  The next head's x, dY and (fp32) dA are
-// copied while this head computes; 99,840 bytes of tiles at the main
-// shape, two blocks an SM.
-template <typename T, int Q, int HD, int N>
-__global__ void __launch_bounds__(NTHREADS, 2) ssd_bwd_chunk_state(
-    const BwdArgs a) {
+// Stage 1 of either direction.  Block (b, c, group): for each head h of the
+// group, x^T.(D o B) of chunk c into states[b, h, c] (and, BWD,
+// dY^T.(E o C) into dstates[b, h, c]), and a_c into decay[b, h, c].  The
+// next head's x (dY) and (fp32) dA are copied while this head computes;
+// 99,840 bytes of tiles at the main shape backward, 50,688 forward; two
+// blocks an SM (at three the forward's registers spill).
+template <bool BWD, typename T, int Q, int HD, int N>
+__device__ __forceinline__ void chunk_state(const Args& a) {
   using SO = Strips<HD, N, NWARPS>;
-  constexpr int SET = 2 * Q * Tile<HD>::W + Q;   // x, dY, dA
+  constexpr int XY = BWD ? 2 : 1;
+  constexpr int SET = XY * Q * Tile<HD>::W + Q;   // x (dY), dA
   extern __shared__ float4 smem4[];
   const Tile<N> sB{reinterpret_cast<float*>(smem4)};
-  const Tile<N> sC{sB.p + Q * Tile<N>::W};
-  float* const sets = sC.p + Q * Tile<N>::W;
+  const Tile<N> sC{sB.p + Q * Tile<N>::W};      // BWD only
+  float* const sets = sB.p + XY * Q * Tile<N>::W;
   float* sCum = sets + 2 * SET;
   float* sLo = sCum + Q;
   float* sE = sLo + Q;
@@ -707,45 +524,54 @@ __global__ void __launch_bounds__(NTHREADS, 2) ssd_bwd_chunk_state(
   const long long row0 = (long long)b * a.S + (long long)c * Q;   // (b, cQ)
 
   stage<Q, N>(sB, static_cast<const T*>(a.Bm) + row0 * N, N);
-  stage<Q, N>(sC, static_cast<const T*>(a.Cm) + row0 * N, N);
-  fetch_xy<Q, HD, T>(sets, sets + SET - Q, a, row0, grp * a.hg);
+  if constexpr (BWD)
+    stage<Q, N>(sC, static_cast<const T*>(a.Cm) + row0 * N, N);
+  fetch_xy<BWD, Q, HD, T>(sets, sets + SET - Q, a, row0, grp * a.hg);
   sm90::cp_async_commit();
   sm90::cp_async_wait<0>();
   if (warp == 0)
     head_decays<Q, T>(sets + SET - Q, a, row0, grp * a.hg, sCum, sLo, sE, sD);
   __syncthreads();
   for (int hh = 0; hh < a.hg; ++hh) {
-    // head hh's x, dY, E and D are in place; the other set was last read
+    // head hh's x (dY), E and D are in place; the other set was last read
     // by the previous head, before its first barrier
     const int cur = hh & 1, h = grp * a.hg + hh;
     const long long bhc = ((long long)b * a.H + h) * nC + c;
     float* set = sets + cur * SET;
     if (hh + 1 < a.hg) {
-      fetch_xy<Q, HD, T>(sets + (cur ^ 1) * SET,
-                         sets + (cur ^ 1) * SET + SET - Q, a, row0, h + 1);
+      fetch_xy<BWD, Q, HD, T>(sets + (cur ^ 1) * SET,
+                              sets + (cur ^ 1) * SET + SET - Q, a, row0,
+                              h + 1);
       sm90::cp_async_commit();
     }
     if (tid == 0) a.decay[bhc] = sE[Q - 1];
     if (warp < SO::COUNT) {
       const int m0 = SO::m0(warp), n0 = SO::n0(warp);
-      float ds[SO::NT][4], dds[SO::NT][4];
+      // x^T.(D o B) and (BWD) dY^T.(E o C), B and C scaled as they are read
+      float ds[SO::NT][4];
       zero(ds);
-      zero(dds);
-      // x^T.(D o B) and dY^T.(E o C), B and C scaled as they are read
       warp_mma<SO::NT, Q, true, false, true>(ds, Tile<HD>{set}, sB, m0, n0,
                                              0, Q, sD);
-      warp_mma<SO::NT, Q, true, false, true>(
-          dds, Tile<HD>{set + Q * Tile<HD>::W}, sC, m0, n0, 0, Q, sE);
       float* st = a.states + bhc * HD * N;
-      float* dst = a.dstates + bhc * HD * N;
 #pragma unroll
       for (int j = 0; j < SO::NT; ++j)
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int d = m0 + g + 8 * half, n = n0 + 8 * j + 2 * t4;
-          store2(st + d * N + n, ds[j][2 * half], ds[j][2 * half + 1]);
-          store2(dst + d * N + n, dds[j][2 * half], dds[j][2 * half + 1]);
-        }
+        for (int half = 0; half < 2; ++half)
+          store2(st + (m0 + g + 8 * half) * N + n0 + 8 * j + 2 * t4,
+                 ds[j][2 * half], ds[j][2 * half + 1]);
+      if constexpr (BWD) {
+        float dds[SO::NT][4];
+        zero(dds);
+        warp_mma<SO::NT, Q, true, false, true>(
+            dds, Tile<HD>{set + Q * Tile<HD>::W}, sC, m0, n0, 0, Q, sE);
+        float* dst = a.dstates + bhc * HD * N;
+#pragma unroll
+        for (int j = 0; j < SO::NT; ++j)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            store2(dst + (m0 + g + 8 * half) * N + n0 + 8 * j + 2 * t4,
+                   dds[j][2 * half], dds[j][2 * half + 1]);
+      }
     }
     __syncthreads();   // this head's tiles, E and D are read
     if (warp == 0 && hh + 1 < a.hg)
@@ -756,52 +582,219 @@ __global__ void __launch_bounds__(NTHREADS, 2) ssd_bwd_chunk_state(
   }
 }
 
+template <typename T, int Q, int HD, int N>
+__global__ void __launch_bounds__(NTHREADS, 2) ssd_fwd_chunk_state(
+    const Args a) {
+  chunk_state<false, T, Q, HD, N>(a);
+}
+
+template <typename T, int Q, int HD, int N>
+__global__ void __launch_bounds__(NTHREADS, 2) ssd_bwd_chunk_state(
+    const Args a) {
+  chunk_state<true, T, Q, HD, N>(a);
+}
+
 __device__ __forceinline__ float4 fma4(float a, float4 x, float4 y) {
   return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z),
                      fmaf(a, x.w, y.w));
 }
 
-// Stage 2.  Thread (b, h, e) for each run of 4 of the hd x N state
-// elements (16-byte loads and stores): states[b, h, c] <- S_in[c] and
-// dstates[b, h, c] <- dS[c], in place, both walks at once, U chunks' loads
-// in flight before their stores.
-__global__ void __launch_bounds__(NTHREADS) ssd_bwd_state_pass(
-    float* __restrict__ states, float* __restrict__ dstates,
-    const float* __restrict__ decay, int nC, int hdn, long long total4) {
-  constexpr int U = 4;
+// Stage 2's walk, for one run of 4 of a (b, h)'s hd x N state elements
+// (16-byte loads and stores): chunk c's term p[c] (at p + c * hdn4, from
+// stage 1) is replaced, in place, by the value entering c, acc, and then
+// acc <- a_c acc + term; chunks in order, or from the last back with BACK.
+// U chunks' loads are in flight before their stores (all of zamba2's 16).
+// Returns the value after the walk's last chunk.
+template <bool BACK>
+__device__ __forceinline__ float4 walk(float4* p, const float* dec, int nC,
+                                       int hdn4, float4 acc) {
+  constexpr int U = 16;
+  for (int c0 = 0; c0 < nC; c0 += U) {
+    float4 v[U];
+    float av[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = c0 + u, c = BACK ? nC - 1 - i : i;
+      if (i < nC) {
+        v[u] = p[(long long)c * hdn4];
+        av[u] = dec[c];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = c0 + u, c = BACK ? nC - 1 - i : i;
+      if (i < nC) {
+        p[(long long)c * hdn4] = acc;   // the value entering c
+        acc = fma4(av[u], acc, v[u]);   // carried to the next chunk
+      }
+    }
+  }
+  return acc;
+}
+
+// Stage 2 forward.  Thread (b, h, e): states[b, h, c] <- S_in[c] from
+// S_in[0] = init[b, h] (0 where init is null), and the state after the
+// last chunk into final_state[b, h].
+__global__ void __launch_bounds__(NTHREADS) ssd_fwd_state_pass(
+    float* __restrict__ states, const float* __restrict__ decay,
+    const float* __restrict__ init, float* __restrict__ final_state, int nC,
+    int hdn, long long total4) {
   const long long i = (long long)blockIdx.x * NTHREADS + threadIdx.x;
   if (i >= total4) return;
   const int hdn4 = hdn / 4;
   const long long bh = i / hdn4;
-  float4* s = reinterpret_cast<float4*>(states + bh * nC * hdn) + i % hdn4;
-  float4* d = reinterpret_cast<float4*>(dstates + bh * nC * hdn) + i % hdn4;
-  const float* dec = decay + bh * nC;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f), dacc = acc;
-  for (int c0 = 0; c0 < nC; c0 += U) {
-    float4 v[U], w[U];
-    float av[U], aw[U];
+  const int e = static_cast<int>(i % hdn4);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (init)   // S_in[0], the initial state
+    acc = reinterpret_cast<const float4*>(init + bh * hdn)[e];
+  acc = walk<false>(reinterpret_cast<float4*>(states + bh * nC * hdn) + e,
+                    decay + bh * nC, nC, hdn4, acc);
+  reinterpret_cast<float4*>(final_state + bh * hdn)[e] = acc;
+}
+
+// Stage 2 backward.  Thread (b, h, e): states[b, h, c] <- S_in[c] from 0,
+// then dstates[b, h, c] <- dS[c] from the last chunk back, from 0.
+__global__ void __launch_bounds__(NTHREADS) ssd_bwd_state_pass(
+    float* __restrict__ states, float* __restrict__ dstates,
+    const float* __restrict__ decay, int nC, int hdn, long long total4) {
+  const long long i = (long long)blockIdx.x * NTHREADS + threadIdx.x;
+  if (i >= total4) return;
+  const int hdn4 = hdn / 4;
+  const long long bh = i / hdn4;
+  const int e = static_cast<int>(i % hdn4);
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  walk<false>(reinterpret_cast<float4*>(states + bh * nC * hdn) + e,
+              decay + bh * nC, nC, hdn4, zero4);
+  walk<true>(reinterpret_cast<float4*>(dstates + bh * nC * hdn) + e,
+             decay + bh * nC, nC, hdn4, zero4);
+}
+
+template <int Q, int HD, int N>
+__host__ __device__ constexpr int out_bm_floats() {   // B, then M
+  return Q * Tile<N>::W > Q * Tile<Q>::W ? Q * Tile<N>::W : Q * Tile<Q>::W;
+}
+
+template <int Q, int HD, int N>
+constexpr size_t out_smem_bytes() {
+  // C (Q x N); B, then M; two sets (this head's and the next's) of x
+  // (Q x HD) and S_in (HD x N); for each of up to 4 heads its dA, cum (two
+  // floats), E and D (Q each)
+  return sizeof(float) *
+         (size_t)(Q * Tile<N>::W + out_bm_floats<Q, HD, N>() +
+                  2 * (Q * Tile<HD>::W + HD * Tile<N>::W) + 4 * 5 * Q);
+}
+
+// Stage 3 forward.  Block (b, c, group): C.B^T of chunk c once and every
+// head's cum, E and D, then for each head of the group M = (C.B^T) o L and
+// Y = E o (C.S_in^T) + M.x, into Y in T.  The next head's x and S_in are
+// copied into a second set of tiles while this head computes.
+template <typename T, int Q, int HD, int N>
+__global__ void __launch_bounds__(NTHREADS, 2) ssd_fwd_chunk_out(
+    const Args a) {
+  using SQ = Strips<Q, Q, NWARPS>;    // C.B^T and M
+  using SY = Strips<Q, HD, NWARPS>;   // Y
+  constexpr int SET = Q * Tile<HD>::W + HD * Tile<N>::W;   // x, S_in
+  extern __shared__ float4 smem4[];
+  const Tile<N> sC{reinterpret_cast<float*>(smem4)};
+  const Tile<N> sB{sC.p + Q * Tile<N>::W};
+  const Tile<Q> sM{sB.p};   // B's space, once C.B^T is in registers
+  float* const sets = sB.p + out_bm_floats<Q, HD, N>();
+  float* const sDA = sets + 2 * SET;   // head hh's dA at hh Q
+  float* const sDec = sDA + 4 * Q;     // head hh's cum, its low part, E, D
+  auto dec = [&](int hh, int k) { return sDec + (4 * hh + k) * Q; };
+
+  T* Y = static_cast<T*>(a.y);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int groups = a.H / a.hg, nC = a.S / Q;
+  const int grp = blockIdx.x % groups;
+  const int c = (blockIdx.x / groups) % nC;
+  const int b = blockIdx.x / (groups * nC);
+  const long long row0 = (long long)b * a.S + (long long)c * Q;   // (b, cQ)
+
+  // head hh's x and S_in into set `which`
+  auto fetch = [&](int hh, int which) {
+    const int h = grp * a.hg + hh;
+    const long long bhc = ((long long)b * a.H + h) * nC + c;
+    float* set = sets + which * SET;
+    stage<Q, HD>(Tile<HD>{set},
+                 static_cast<const T*>(a.x) + (row0 * a.H + h) * HD,
+                 (long long)a.H * HD);
+    stage<HD, N>(Tile<N>{set + Q * Tile<HD>::W}, a.states + bhc * HD * N, N);
+    sm90::cp_async_commit();
+  };
+
+  stage<Q, N>(sC, static_cast<const T*>(a.Cm) + row0 * N, N);
+  stage<Q, N>(sB, static_cast<const T*>(a.Bm) + row0 * N, N);
+  for (int hh = 0; hh < a.hg; ++hh)
+    fetch_dA<Q, T>(sDA + hh * Q, a, row0, grp * a.hg + hh);
+  fetch(0, 0);
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+  if (warp < a.hg)   // warp hh: head hh's decays
+    head_decays<Q, T>(sDA + warp * Q, a, row0, grp * a.hg + warp,
+                      dec(warp, 0), dec(warp, 1), dec(warp, 2), dec(warp, 3));
+  float gq[SQ::NT][4];   // this warp's strip of C.B^T, for every head
+  zero(gq);
+  // a strip wholly above the diagonal (j > t) is masked to 0: left out
+  const bool above = SQ::n0(warp) >= SQ::m0(warp) + 16;
+  if (warp < SQ::COUNT && !above)
+    warp_mma<SQ::NT, N, false, true>(gq, sC, sB, SQ::m0(warp), SQ::n0(warp));
+  __syncthreads();   // B is read: its space takes M; the decays are in place
+
+  for (int hh = 0; hh < a.hg; ++hh) {
+    // head hh's tiles are in place; set cur ^ 1 and M were last read by the
+    // previous head's products, before its last barrier
+    const int cur = hh & 1, h = grp * a.hg + hh;
+    if (hh + 1 < a.hg) fetch(hh + 1, cur ^ 1);
+    const float* sCum = dec(hh, 0);
+    const float* sLo = dec(hh, 1);
+    const float* sE = dec(hh, 2);
+    float* set = sets + cur * SET;
+    const Tile<HD> sX{set};
+    const Tile<N> sS{set + Q * Tile<HD>::W};   // S_in
+
+    if (warp < SQ::COUNT) {   // M = G o L, the mask before the exponent
+      const int m0 = SQ::m0(warp), n0 = SQ::n0(warp);
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int c = c0 + u, r = nC - 1 - c;
-      if (c < nC) {
-        v[u] = s[(long long)c * hdn4];
-        av[u] = dec[c];
-        w[u] = d[(long long)r * hdn4];
-        aw[u] = dec[r];
+      for (int j = 0; j < SQ::NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = m0 + g + (i >> 1) * 8;
+          const int col = n0 + 8 * j + 2 * t4 + (i & 1);
+          float m = 0.f;
+          if (col <= r)
+            m = gq[j][i] *
+                expf((sCum[r] - sCum[col]) + (sLo[r] - sLo[col]));
+          sM(r, col) = m;
+        }
+    }
+    __syncthreads();   // M is in place
+
+    if (warp < SY::COUNT) {   // Y = E o (C.S_in^T) + M.x
+      const int m0 = SY::m0(warp), n0 = SY::n0(warp);
+      float acc[SY::NT][4];
+      zero(acc);
+      warp_mma<SY::NT, N, false, true>(acc, sC, sS, m0, n0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float et = sE[m0 + g + 8 * (i >> 1)];   // E[t] scales C.S_in^T
+#pragma unroll
+        for (int jj = 0; jj < SY::NT; ++jj) acc[jj][i] *= et;
+      }
+      warp_mma<SY::NT, Q, false, false>(acc, sM, sX, m0, n0, 0, m0 + 16);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        T* dst = Y + ((row0 + m0 + g + 8 * half) * a.H + h) * HD;
+#pragma unroll
+        for (int jj = 0; jj < SY::NT; ++jj)
+          store2(dst + n0 + 8 * jj + 2 * t4, acc[jj][2 * half],
+                 acc[jj][2 * half + 1]);
       }
     }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int c = c0 + u, r = nC - 1 - c;
-      if (c < nC) {
-        // S_in[c+1] = a_c S_in[c] + x^T.(D o B) of chunk c
-        s[(long long)c * hdn4] = acc;
-        acc = fma4(av[u], acc, v[u]);
-        // dS[r-1] = a_r dS[r] + dY^T.(E o C) of chunk r
-        d[(long long)r * hdn4] = dacc;
-        dacc = fma4(aw[u], dacc, w[u]);   // dS carried to the chunk before
-      }
-    }
+    sm90::cp_async_wait<0>();
+    __syncthreads();   // M and this head's tiles are read; the next head's
+                       // tiles are in place
   }
 }
 
@@ -818,13 +811,14 @@ constexpr size_t grads_smem_bytes() {
                   Q * Strips<Q, N, NWARPS>::ACROSS + NWARPS);
 }
 
-// Stage 3.  Block (b, c, group): dx and d(dA) of chunk c for each head of
-// the group, and the group's partials of dB and dC.  The next head's x, dY,
-// S_in, dS and (fp32) dA are copied into a second set of tiles while this
-// head computes: cp.async for fp32; bf16 is loaded and converted at once.
+// Stage 3 backward.  Block (b, c, group): dx and d(dA) of chunk c for each
+// head of the group, and the group's partials of dB and dC.  The next
+// head's x, dY, S_in, dS and (fp32) dA are copied into a second set of
+// tiles while this head computes: cp.async for fp32; bf16 is loaded and
+// converted at once.
 template <typename T, int Q, int HD, int N>
 __global__ void __launch_bounds__(NTHREADS, 1) ssd_bwd_chunk_grads(
-    const BwdArgs a) {
+    const Args a) {
   using SQ = Strips<Q, Q, NWARPS>;    // C.B^T and dY.x^T
   using SX = Strips<Q, HD, NWARPS>;   // dx
   using SN = Strips<Q, N, NWARPS>;    // dB and dC
@@ -863,7 +857,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) ssd_bwd_chunk_grads(
     const int h = grp * a.hg + hh;
     const long long bhc = ((long long)b * a.H + h) * nC + c;
     float* set = sets + which * SET;
-    fetch_xy<Q, HD, T>(set, set + SET - Q, a, row0, h);
+    fetch_xy<true, Q, HD, T>(set, set + SET - Q, a, row0, h);
     stage<HD, N>(Tile<N>{set + 2 * Q * Tile<HD>::W},
                           a.states + bhc * HD * N, N);
     stage<HD, N>(
@@ -1108,12 +1102,34 @@ cudaError_t opt_in(K* kernel, size_t smem) {
 }
 
 template <typename T, int Q, int HD, int N>
-int launch_bwd(const BwdArgs& a, void* dB, void* dC, cudaStream_t stream) {
+int launch_fwd(const Args& a, const float* init, float* final_state,
+               cudaStream_t stream) {
+  const int nC = a.S / Q;
+  const unsigned blocks = static_cast<unsigned>(a.B * nC * (a.H / a.hg));
+  const long long total4 = (long long)a.B * a.H * HD * N / 4;
+  const size_t smem1 = state_smem_bytes<Q, HD, N, false>();
+  const size_t smem3 = out_smem_bytes<Q, HD, N>();
+  cudaError_t err = opt_in(ssd_fwd_chunk_state<T, Q, HD, N>, smem1);
+  if (err == cudaSuccess) err = opt_in(ssd_fwd_chunk_out<T, Q, HD, N>, smem3);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_fwd_chunk_state<T, Q, HD, N><<<blocks, NTHREADS, smem1, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_fwd_state_pass<<<static_cast<unsigned>((total4 + NTHREADS - 1) /
+                                             NTHREADS),
+                       NTHREADS, 0, stream>>>(a.states, a.decay, init,
+                                              final_state, nC, HD * N, total4);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_fwd_chunk_out<T, Q, HD, N><<<blocks, NTHREADS, smem3, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int Q, int HD, int N>
+int launch_bwd(const Args& a, void* dB, void* dC, cudaStream_t stream) {
   const int nC = a.S / Q;
   const unsigned blocks = static_cast<unsigned>(a.B * nC * (a.H / a.hg));
   const long long total4 = (long long)a.B * a.H * HD * N / 4;
   const long long rows = (long long)a.B * a.S;
-  const size_t smem1 = state_smem_bytes<Q, HD, N>();
+  const size_t smem1 = state_smem_bytes<Q, HD, N, true>();
   const size_t smem3 = grads_smem_bytes<Q, HD, N>();
   cudaError_t err = opt_in(ssd_bwd_chunk_state<T, Q, HD, N>, smem1);
   if (err == cudaSuccess)
@@ -1136,67 +1152,91 @@ int launch_bwd(const BwdArgs& a, void* dB, void* dC, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD, int N>
-int launch_bwd_q(const BwdArgs& a, void* dB, void* dC, int q,
-                 cudaStream_t stream) {
-  switch (q) {
-    case 16: return launch_bwd<T, 16, HD, N>(a, dB, dC, stream);
-    case 32: return launch_bwd<T, 32, HD, N>(a, dB, dC, stream);
-    case 64: return launch_bwd<T, 64, HD, N>(a, dB, dC, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// f(Int<HD>, Int<N>, Int<Q>) for the shapes the kernels are built for:
+// (hd, N) zamba2-2.7b's (64, 64) and the JAX kernel sweep's (16, 16) and
+// (32, 8) (tests/test_kernels.py); Q 16, 32 or 64.
+template <typename F>
+int dispatch(int hd, int n, int q, F&& f) {
+  auto by_q = [&](auto hd_, auto n_) {
+    switch (q) {
+      case 16: return f(hd_, n_, Int<16>{});
+      case 32: return f(hd_, n_, Int<32>{});
+      case 64: return f(hd_, n_, Int<64>{});
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  };
+  if (hd == 64 && n == 64) return by_q(Int<64>{}, Int<64>{});
+  if (hd == 16 && n == 16) return by_q(Int<16>{}, Int<16>{});
+  if (hd == 32 && n == 8) return by_q(Int<32>{}, Int<8>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
-int launch_bwd_shape(const BwdArgs& a, void* dB, void* dC, int hd, int n,
-                     int q, cudaStream_t stream) {
-  if (hd == 64 && n == 64) return launch_bwd_q<T, 64, 64>(a, dB, dC, q, stream);
-  if (hd == 16 && n == 16) return launch_bwd_q<T, 16, 16>(a, dB, dC, q, stream);
-  if (hd == 32 && n == 8) return launch_bwd_q<T, 32, 8>(a, dB, dC, q, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+bool bad_shape(int B, int S, int H, int q, int hg) {
+  return B <= 0 || S <= 0 || H <= 0 || q <= 0 || S % q != 0 ||
+         (hg != 1 && hg != 2 && hg != 4) || H % hg != 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, for every input and Y.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// Y (B, S, H, hd) of xdt, dA, B and C, and the final state (B, H, hd, n,
+// fp32), from the initial state init (B, H, hd, n, fp32; null: zeros).
+// dtype: 0 = float32, 1 = bfloat16, for every input and Y; every row and
+// state 16-byte aligned.  states (B, H, S / q, hd, n) and decay (B, H,
+// S / q) are fp32 scratch of the caller's; after the call states holds the
+// state entering each chunk.  hg heads a block (1, 2 or 4, dividing H).
+// Three launches on the stream: the per-chunk state terms, the scan over
+// the chunks, the per-chunk output.  Returns cudaGetLastError() after each
+// (0 on success).
 extern "C" int mamba2_ssd_fwd(const void* x, const void* dA, const void* Bm,
-                       const void* Cm, void* y, int dtype, int B, int S,
-                       int H, int hd, int n, int q, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || q <= 0 || S % q != 0)
+                              const void* Cm, void* y, const float* init,
+                              float* final_state, float* states, float* decay,
+                              int dtype, int B, int S, int H, int hd, int n,
+                              int q, int hg, void* stream) {
+  if (bad_shape(B, S, H, q, hg) || !final_state)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x, dA, Bm, Cm, y, B, S, H};
+  const Args a{x,      dA,      Bm,    Cm,      nullptr, y, nullptr, nullptr,
+               states, nullptr, decay, nullptr, nullptr, B, S,       H,
+               hg};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_shape<float>(a, hd, n, q, st);
-  if (dtype == 1) return launch_shape<__nv_bfloat16>(a, hd, n, q, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(hd, n, q, [&](auto hd_, auto n_, auto q_) {
+    constexpr int HD = decltype(hd_)::value, N = decltype(n_)::value,
+                  Q = decltype(q_)::value;
+    if (dtype == 0)
+      return launch_fwd<float, Q, HD, N>(a, init, final_state, st);
+    if (dtype == 1)
+      return launch_fwd<__nv_bfloat16, Q, HD, N>(a, init, final_state, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
-
-// The gradient of mamba2_ssd_fwd's Y with cotangent dy: dx, ddA in the
-// inputs' shapes, dB, dC as (B, S, N), all in the inputs' type (dtype as
-// above), every row 16-byte aligned.  states and dstates (B, H, S / q, hd,
-// n), decay (B, H, S / q), dBp and dCp (B, S, H / hg, n) are fp32 scratch
-// of the caller's; after the call states holds the state entering each
-// chunk and dstates the cotangent of the state leaving it.  hg heads a
-// block (1, 2 or 4, dividing H).  Four launches on the stream: the
-// per-chunk state terms, the scan over the chunks, the per-chunk
-// gradients, the sum over head groups.  Returns cudaGetLastError() (0 on
-// success).
+// The gradient of mamba2_ssd_fwd's Y (zero initial state) with cotangent
+// dy: dx, ddA in the inputs' shapes, dB, dC as (B, S, N), all in the
+// inputs' type (dtype as above), every row 16-byte aligned.  states and
+// dstates (B, H, S / q, hd, n), decay (B, H, S / q), dBp and dCp (B, S,
+// H / hg, n) are fp32 scratch of the caller's; after the call states holds
+// the state entering each chunk and dstates the cotangent of the state
+// leaving it.  hg as above.  Four launches on the stream: the per-chunk
+// state terms, the scan over the chunks, the per-chunk gradients, the sum
+// over head groups.  Returns cudaGetLastError() (0 on success).
 extern "C" int mamba2_ssd_bwd(const void* x, const void* dA, const void* Bm,
                               const void* Cm, const void* dy, void* dx,
                               void* ddA, void* dB, void* dC, float* states,
                               float* dstates, float* decay, float* dBp,
                               float* dCp, int dtype, int B, int S, int H,
                               int hd, int n, int q, int hg, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || q <= 0 || S % q != 0 ||
-      (hg != 1 && hg != 2 && hg != 4) || H % hg != 0)
+  if (bad_shape(B, S, H, q, hg))
     return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs a{x,      dA,    Bm,  Cm,  dy, dx, ddA, states, dstates,
-                  decay,  dBp,   dCp, B,   S,  H,  hg};
+  const Args a{x,      dA,      Bm,    Cm,  dy,  nullptr, dx, ddA,
+               states, dstates, decay, dBp, dCp, B,       S,  H,   hg};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd_shape<float>(a, dB, dC, hd, n, q, st);
-  if (dtype == 1)
-    return launch_bwd_shape<__nv_bfloat16>(a, dB, dC, hd, n, q, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(hd, n, q, [&](auto hd_, auto n_, auto q_) {
+    constexpr int HD = decltype(hd_)::value, N = decltype(n_)::value,
+                  Q = decltype(q_)::value;
+    if (dtype == 0) return launch_bwd<float, Q, HD, N>(a, dB, dC, st);
+    if (dtype == 1) return launch_bwd<__nv_bfloat16, Q, HD, N>(a, dB, dC, st);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }

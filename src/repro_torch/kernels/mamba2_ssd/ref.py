@@ -6,11 +6,15 @@ scanned over the chunks.  It is the path tensors on the CPU take and what
 the CUDA forward kernel is held against on the card.  `ssd_chunked_bwd` is
 its gradient written out chunk by chunk: the CPU path's backward, and what
 the CUDA backward kernel is held against beside autograd through
-`ssd_chunked`.  `ssd_chunked_bwd_staged` computes the same gradient in the
-three stages the CUDA backward runs (`ssd_bwd_chunk_state`,
-`ssd_bwd_state_pass`, `ssd_bwd_chunk_grads`): the plain version of each
-stage.  `ssd_sequential` is the step-by-step recurrence
-(`ssd_sequential_ref`), an independent formulation for cross-checks.
+`ssd_chunked`.  `ssd_chunked_staged` computes `ssd_chunked`'s Y and final
+state in the three stages the CUDA forward runs (`ssd_fwd_chunk_state`,
+`ssd_fwd_state_pass`, `ssd_fwd_chunk_out`), and `ssd_chunked_bwd_staged`
+the gradient in the three stages the CUDA backward runs
+(`ssd_bwd_chunk_state`, `ssd_bwd_state_pass`, `ssd_bwd_chunk_grads`): the
+plain version of each stage; the backward's first two stages are the
+forward's with the cotangent's half added, as in the kernels.
+`ssd_sequential` is the step-by-step recurrence (`ssd_sequential_ref`), an
+independent formulation for cross-checks.
 
 The model module is imported as a module, not by name: models.mamba2
 imports the op, the op imports this file, and this file reaches back for
@@ -138,8 +142,8 @@ def _matmul(a, b, name):
 def _chunked(xdt, dA, B_, C_, dY, chunk):
     """The inputs cut into chunks, in fp32 (fp64 for fp64 inputs), laid out
     (B, G, Hg, nC, Q, .) so that a chunk's products are batched matmuls:
-    x, dy (B,G,Hg,nC,Q,hd); Bc, Cc (B,G,1,nC,Q,N); cum, E = exp(cum) and
-    D = exp(cum[Q-1] - cum) (B,G,Hg,nC,Q)."""
+    x, dy (B,G,Hg,nC,Q,hd) (dy None where dY is); Bc, Cc (B,G,1,nC,Q,N);
+    cum, E = exp(cum) and D = exp(cum[Q-1] - cum) (B,G,Hg,nC,Q)."""
     ct = torch.promote_types(xdt.dtype, torch.float32)
     Bb, S, H, hd = xdt.shape
     G, N = B_.shape[2], B_.shape[3]
@@ -152,7 +156,8 @@ def _chunked(xdt, dA, B_, C_, dY, chunk):
         return t.to(ct).reshape(Bb, nC, Q, G, H // G, w).permute(
             0, 3, 4, 1, 2, 5)
 
-    x, dy = heads(xdt, hd), heads(dY, hd)
+    x = heads(xdt, hd)
+    dy = None if dY is None else heads(dY, hd)
     Bc, Cc = (t.to(ct).reshape(Bb, nC, Q, G, 1, N).permute(0, 3, 4, 1, 2, 5)
               for t in (B_, C_))
     cum = torch.cumsum(heads(dA[..., None], 1)[..., 0], dim=-1)
@@ -161,39 +166,101 @@ def _chunked(xdt, dA, B_, C_, dY, chunk):
     return x, dy, Bc, Cc, cum, E, D
 
 
-def ssd_bwd_chunk_state(xdt, dA, B_, C_, dY, *, chunk: int, mm=None):
-    """Stage 1 of the staged backward, every chunk at once: chunk c's own
-    term of the state leaving it, x^T.(D o B), and of the cotangent of the
-    state entering it, dY^T.(E o C) (hd x N each, depth Q), and its decay
-    a_c = E[Q-1] = exp(cum[Q-1]).  Returns the two terms as (B,H,nC,hd,N)
+def _back(t):
+    """(B, G, h, nC, Q, w) -> (B, S, G * h, w)"""
+    Bb, nC, Q = t.shape[0], t.shape[3], t.shape[4]
+    return t.permute(0, 3, 4, 1, 2, 5).reshape(Bb, nC * Q, -1, t.shape[-1])
+
+
+def _walk(terms, a, s, reverse=False):
+    """Stage 2's one walk over the chunks, elementwise over (hd, N): the
+    value entering chunk c is s, then s <- a_c s + terms[c]; chunks in
+    order, or from the last back.  terms (B,H,nC,hd,N), a (B,H,nC), s
+    (B,H,hd,N).  Returns (the value entering each chunk (B,H,nC,hd,N), the
+    value after the walk's last chunk)."""
+    out = torch.empty_like(terms)
+    chunks = range(a.shape[-1])
+    for c in (reversed(chunks) if reverse else chunks):
+        out[:, :, c] = s
+        s = a[:, :, c, None, None] * s + terms[:, :, c]
+    return out, s
+
+
+def ssd_fwd_chunk_state(xdt, dA, B_, C_, *, chunk: int, mm=None):
+    """Stage 1 of the staged forward, every chunk at once: chunk c's own
+    term of the state leaving it, x^T.(D o B) (hd x N, depth Q), and its
+    decay a_c = E[Q-1] = exp(cum[Q-1]).  Returns the term as (B,H,nC,hd,N)
     and a (B,H,nC).  `mm(a, b, name)` computes each product (default
     torch.matmul; the name says which)."""
     mm = mm or _matmul
-    x, dy, Bc, Cc, _, E, D = _chunked(xdt, dA, B_, C_, dY, chunk)
+    x, _, Bc, _, _, E, D = _chunked(xdt, dA, B_, C_, None, chunk)
     Bb, G, Hg, nC, Q, hd = x.shape
     N = Bc.shape[-1]
     ds = mm(x.mT, D[..., None] * Bc, "x^T.(D o B)")
-    dds = mm(dy.mT, E[..., None] * Cc, "dY^T.(E o C)")
     return (ds.reshape(Bb, G * Hg, nC, hd, N),
-            dds.reshape(Bb, G * Hg, nC, hd, N),
             E[..., -1].reshape(Bb, G * Hg, nC))
 
 
+def ssd_fwd_state_pass(ds, a, initial_state=None):
+    """Stage 2 of the staged forward, the one scan over the chunks:
+    S_in[0] = initial_state (or 0), S_in[c+1] = a_c S_in[c] + ds[c].  ds
+    (B,H,nC,hd,N) and a (B,H,nC) from stage 1, initial_state (B,H,hd,N).
+    Returns (S_in (B,H,nC,hd,N), the final state (B,H,hd,N))."""
+    s0 = (torch.zeros_like(ds[:, :, 0]) if initial_state is None
+          else initial_state.to(ds.dtype))
+    return _walk(ds, a, s0)
+
+
+def ssd_fwd_chunk_out(xdt, dA, B_, C_, s_in, *, chunk: int, mm=None):
+    """Stage 3 of the staged forward, every chunk at once given the state
+    S_in entering it ((B,H,nC,hd,N), from stage 2): Y = M.x + E o
+    (C.S_in^T), M = (C.B^T) o L.  Returns Y (B,S,H,hd) in fp32 (fp64 for
+    fp64 inputs); `mm` as in `ssd_fwd_chunk_state`."""
+    mm = mm or _matmul
+    x, _, Bc, Cc, cum, E, _ = _chunked(xdt, dA, B_, C_, None, chunk)
+    Bb, G, Hg, nC, Q, hd = x.shape
+    N = Bc.shape[-1]
+    s_in = s_in.to(x.dtype).reshape(Bb, G, Hg, nC, hd, N)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(mask, cum[..., :, None] - cum[..., None, :],
+                              -1e9))
+    M = mm(Cc, Bc.mT, "C.B^T") * L
+    y = mm(M, x, "M.x") + E[..., None] * mm(Cc, s_in.mT, "C.S_in^T")
+    return _back(y)
+
+
+def ssd_chunked_staged(xdt, dA, B_, C_, *, chunk: int, initial_state=None,
+                       mm=None):
+    """`ssd_chunked`'s (Y, final_state) through the three stages of the
+    CUDA forward: stage 1 (chunk-parallel), stage 2 (the scan over the
+    chunks, from initial_state or 0), stage 3 (chunk-parallel).  `mm` as in
+    `ssd_fwd_chunk_state`."""
+    ds, a = ssd_fwd_chunk_state(xdt, dA, B_, C_, chunk=chunk, mm=mm)
+    s_in, final = ssd_fwd_state_pass(ds, a, initial_state)
+    return ssd_fwd_chunk_out(xdt, dA, B_, C_, s_in, chunk=chunk, mm=mm), final
+
+
+def ssd_bwd_chunk_state(xdt, dA, B_, C_, dY, *, chunk: int, mm=None):
+    """Stage 1 of the staged backward, every chunk at once: the forward's
+    stage 1 (chunk c's term of the state leaving it, x^T.(D o B), and a_c),
+    and chunk c's own term of the cotangent of the state entering it,
+    dY^T.(E o C) (hd x N, depth Q).  Returns the two terms as
+    (B,H,nC,hd,N) and a (B,H,nC); `mm` as in `ssd_fwd_chunk_state`."""
+    ds, a = ssd_fwd_chunk_state(xdt, dA, B_, C_, chunk=chunk, mm=mm)
+    mm = mm or _matmul
+    _, dy, _, Cc, _, E, _ = _chunked(xdt, dA, B_, C_, dY, chunk)
+    dds = mm(dy.mT, E[..., None] * Cc, "dY^T.(E o C)")
+    return ds, dds.reshape(ds.shape), a
+
+
 def ssd_bwd_state_pass(ds, dds, a):
-    """Stage 2, the one scan over the chunks, elementwise over (hd, N):
-    S_in[0] = 0, S_in[c+1] = a_c S_in[c] + ds[c] (the state entering c),
-    and dS[nC-1] = 0, dS[c-1] = a_c dS[c] + dds[c] (the cotangent of the
-    state leaving c).  ds, dds (B,H,nC,hd,N) and a (B,H,nC) from stage 1.
-    Returns (S_in, dS), each (B,H,nC,hd,N)."""
-    nC = a.shape[-1]
-    s_in, d_s = torch.empty_like(ds), torch.empty_like(dds)
-    s, d = torch.zeros_like(ds[:, :, 0]), torch.zeros_like(dds[:, :, 0])
-    for c in range(nC):
-        s_in[:, :, c] = s
-        s = a[:, :, c, None, None] * s + ds[:, :, c]
-    for c in reversed(range(nC)):
-        d_s[:, :, c] = d
-        d = a[:, :, c, None, None] * d + dds[:, :, c]
+    """Stage 2 of the staged backward, the forward's walk from 0 and a walk
+    from the last chunk back: S_in[0] = 0, S_in[c+1] = a_c S_in[c] + ds[c]
+    (the state entering c), and dS[nC-1] = 0, dS[c-1] = a_c dS[c] + dds[c]
+    (the cotangent of the state leaving c).  ds, dds (B,H,nC,hd,N) and a
+    (B,H,nC) from stage 1.  Returns (S_in, dS), each (B,H,nC,hd,N)."""
+    s_in, _ = ssd_fwd_state_pass(ds, a)
+    d_s, _ = _walk(dds, a, torch.zeros_like(dds[:, :, 0]), reverse=True)
     return s_in, d_s
 
 
@@ -231,12 +298,10 @@ def ssd_bwd_chunk_grads(xdt, dA, B_, C_, dY, s_in, d_s, *, chunk: int,
     dcum[..., -1] += E[..., -1] * (d_s * s_in).sum((-2, -1)) + R.sum(-1)
     ddA = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
 
-    def back(t):   # (B, G, h, nC, Q, w) -> (B, S, G * h, w)
-        return t.permute(0, 3, 4, 1, 2, 5).reshape(Bb, nC * Q, -1, t.shape[-1])
-
-    return (back(dx).to(dtypes[0]), back(ddA[..., None])[..., 0].to(dtypes[1]),
-            back(dB.sum(2, keepdim=True)).to(dtypes[2]),
-            back(dC.sum(2, keepdim=True)).to(dtypes[3]))
+    return (_back(dx).to(dtypes[0]),
+            _back(ddA[..., None])[..., 0].to(dtypes[1]),
+            _back(dB.sum(2, keepdim=True)).to(dtypes[2]),
+            _back(dC.sum(2, keepdim=True)).to(dtypes[3]))
 
 
 def ssd_chunked_bwd_staged(xdt, dA, B_, C_, dY, *, chunk: int, mm=None):

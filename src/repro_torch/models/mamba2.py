@@ -3,8 +3,9 @@
 Training uses the chunked algorithm (an intra-chunk "attention-like" term
 plus the state carried from chunk to chunk), run by the `ssd` op: the
 hand-written CUDA kernel on the card, the plain chunked version (this
-file's `_ssd_chunk` over the chunks) on the CPU.  Decode and the recurrent
-state wait for the zamba2 serving slice.
+file's `_ssd_chunk` over the chunks) on the CPU.  `mamba_forward` takes an
+initial state and returns the final state as the JAX layer does (no
+gradient through either); decode waits for the zamba2 serving slice.
 """
 from __future__ import annotations
 
@@ -96,9 +97,12 @@ def _ssd_chunk(S0, blk, *, H, G, N, hd):
     return S1.reshape(B_, H, hd, N), Y.reshape(B_, Q, H, hd)
 
 
-def mamba_forward(p, x, cfg):
-    """x: (B,S,D) -> (B,S,D).  Chunked SSD over the full sequence; S is
-    padded to a multiple of the chunk for the scan and cut back after."""
+def mamba_forward(p, x, cfg, *, initial_state=None, return_state=False):
+    """x: (B,S,D) -> (B,S,D), or (out, final SSM state (B,H,hd,N) fp32) with
+    `return_state`; the scan starts from initial_state (B,H,hd,N) fp32, or
+    0.  Chunked SSD over the full sequence; S is padded to a multiple of the
+    chunk for the scan and cut back after (the padded steps, dA 0 and x 0,
+    leave the state as it was at step S)."""
     s = cfg.ssm
     d_inner, H, G, N, W, convch, _ = dims(cfg)
     hd = s.head_dim
@@ -121,9 +125,14 @@ def mamba_forward(p, x, cfg):
         xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
         Bh = F.pad(Bh, (0, 0, 0, 0, 0, pad))
         Ch = F.pad(Ch, (0, 0, 0, 0, 0, pad))
-    Y = ssd_ops.ssd(xdt, dA, Bh, Ch, chunk=Q)[:, :S]
+    Y = ssd_ops.ssd(xdt, dA, Bh, Ch, chunk=Q, initial_state=initial_state,
+                    return_state=return_state)
+    if return_state:
+        Y, S_fin = Y
+    Y = Y[:, :S]
     Y = Y + p["D_skip"].float()[:, None] * xin.reshape(B_, S, H, hd).float()
     y = Y.reshape(B_, S, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"].to(x.dtype)
+    out = y @ p["out_proj"].to(x.dtype)
+    return (out, S_fin) if return_state else out
 

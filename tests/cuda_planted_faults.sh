@@ -1,6 +1,6 @@
 #!/bin/bash
-# Planted faults in the CUDA A^T B, flash-attention, SSD backward and WKV
-# kernels (four, four, three and three): each one is applied to a copy of
+# Planted faults in the CUDA A^T B, flash-attention, SSD and WKV kernels
+# (four, four, six and three): each one is applied to a copy of
 # src/, tests/ and chip_smoke.py in a temporary directory, then the card
 # tests of that kernel run against the copy
 # (tests/test_torch_tiled_matmul_cuda.py, which include the METG ladder's
@@ -8,8 +8,8 @@
 # tests/test_torch_ssd_cuda.py or tests/test_torch_wkv6_cuda.py); for A^T B
 # also a short METG ladder run, for the SSD backward and WKV chip_smoke.py.
 # Every fault must fail the card tests; a fault on the METG path's fp32
-# product must also stop the ladder with failed tasks, and an SSD backward
-# or WKV fault must fail chip_smoke.py.  Prints,
+# product must also stop the ladder with failed tasks, and an SSD or WKV
+# fault must fail chip_smoke.py.  Prints,
 # per fault, the ids of the card tests that failed, pytest's summary and
 # the ladder's or chip_smoke.py's last line.  Exits 1 if a fault's pattern
 # does not apply.  Names given as arguments run only those faults.
@@ -47,9 +47,21 @@ FAULTS[skip_last_key_tile]='s/for (int it = 0; it < n_tiles; ++it) {/for (int it
 # flash bf16: output truncated instead of rounded to nearest
 FILES[bf16_out_truncation]=$FA
 FAULTS[bf16_out_truncation]='s/return __float2bfloat16(x);   \/\/ round to nearest even/return __float2bfloat16_rz(x);/'
-# SSD backward, stage 2: dS not carried to the chunk before (it stays 0)
+# SSD backward, stage 2: dS not carried to the chunk before (it stays 0;
+# the walk from the last chunk back only)
 FILES[drop_ds_carry]=$SSD
-FAULTS[drop_ds_carry]='s|dacc = fma4(aw\[u\], dacc, w\[u\]);   // dS carried to the chunk before|(void)w[u];|'
+FAULTS[drop_ds_carry]='s|acc = fma4(av\[u\], acc, v\[u\]);   // carried to the next chunk|if (!BACK) acc = fma4(av[u], acc, v[u]);|'
+# SSD forward, stage 2: the initial state ignored (the walk starts from 0)
+FILES[ignore_initial_state]=$SSD
+FAULTS[ignore_initial_state]='s|if (init)   // S_in\[0\], the initial state|if (false)|'
+# SSD, stage 2's forward walk (the forward's, and the backward's S_in): the
+# state stored after the chunk's update, not before (each chunk sees the
+# state leaving it; the final state stays right)
+FILES[ssd_state_after_update]=$SSD
+FAULTS[ssd_state_after_update]='s|p\[(long long)c \* hdn4\] = acc;   // the value entering c|if (BACK) p[(long long)c * hdn4] = acc;|; s|acc = fma4(av\[u\], acc, v\[u\]);   // carried to the next chunk|acc = fma4(av[u], acc, v[u]); if (!BACK) p[(long long)c * hdn4] = acc;|'
+# SSD forward, stage 3: Y without the inter-chunk term E o (C.S_in^T)
+FILES[drop_inter_chunk]=$SSD
+FAULTS[drop_inter_chunk]='s|const float et = sE\[m0 + g + 8 \* (i >> 1)\];   // E\[t\] scales C.S_in^T|const float et = 0.f;|'
 # SSD backward, stage 3: d(dA) = dcum, the reverse in-chunk cumsum skipped
 FILES[skip_reverse_cumsum]=$SSD
 FAULTS[skip_reverse_cumsum]='s|from_f<T>(excl + run\[e\]);   // d(dA)\[t\]: the reverse cumsum|from_f<T>(dc[e]);|'

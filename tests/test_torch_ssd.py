@@ -7,8 +7,13 @@ summation order differs.  Against the step-by-step recurrence the
 tolerance is 1e-3, the JAX kernel sweep's chunk-vs-step bound
 (tests/test_kernels.py).  The op's gradients (on the CPU the plain backward
 `ssd_chunked_bwd`, held on its own in tests/test_torch_ssd_bwd.py) against
-`jax.grad` of `ssd_ref` within 1e-4 of the largest |grad|.  The CUDA
-kernels are held against the same plain versions on the card
+`jax.grad` of `ssd_ref` within 1e-4 of the largest |grad|.  The staged
+plain forward `ssd_chunked_staged` (the three stages the CUDA forward runs)
+against `ssd_chunked`, `ssd_ref` and the Pallas kernel, with and without an
+initial state, within TOL (fp32, summation order only); its stage 2 against
+the recurrence written out per element.  The op's and `mamba_forward`'s
+initial state and final state against `ssd_ref` and JAX's `mamba_forward`.
+The CUDA kernels are held against the same plain versions on the card
 (chip_smoke.py, tests/test_torch_ssd_cuda.py)."""
 import functools
 
@@ -47,7 +52,14 @@ def _inputs(B, S, H, hd, N, G=1, seed=0, decay="sweep"):
     dA = -np.log1p(np.exp(n(B, S, H))).astype(np.float32)     # -softplus
     if decay == "fast":
         dA = dA - 5.0
+    elif decay == "slow":
+        dA = dA * 1e-3
     return xdt, dA, n(B, S, G, N) * 0.5, n(B, S, G, N) * 0.5
+
+
+def _state(B, H, hd, N, seed):
+    return np.random.default_rng(seed).standard_normal(
+        (B, H, hd, N)).astype(np.float32)
 
 
 def _close(t, j, tol=TOL):
@@ -133,6 +145,149 @@ def test_gradients_match_jax(chunk):
     for t, j in zip(ins, jgrads):
         ok, err = _close(t.grad, j, GRAD_TOL)
         assert ok, err
+
+
+@pytest.mark.parametrize("initial", [False, True], ids=["zero", "s0"])
+@pytest.mark.parametrize("decay", ["sweep", "slow", "fast"])
+@pytest.mark.parametrize("n_chunks", [1, 2, 4])
+@pytest.mark.parametrize("B,S,H,hd,N,chunk", SWEEP)
+def test_staged_matches_chunked(B, S, H, hd, N, chunk, n_chunks, decay,
+                                initial):
+    """The staged forward's Y and final state against ssd_chunked at one,
+    two and four chunks (stage 2's boundary terms: S_in[0] the initial
+    state, the state after the last chunk the final state)."""
+    arrs = _inputs(B, n_chunks * chunk, H, hd, N, seed=chunk + n_chunks,
+                   decay=decay)
+    s0 = torch.from_numpy(_state(B, H, hd, N, 11)) if initial else None
+    ins = [torch.from_numpy(a) for a in arrs]
+    y, state = ref.ssd_chunked(*ins, chunk=chunk, initial_state=s0)
+    sy, sstate = ref.ssd_chunked_staged(*ins, chunk=chunk, initial_state=s0)
+    assert sy.shape == y.shape and sstate.shape == state.shape
+    for got, want in ((sy, y), (sstate, state)):
+        ok, err = _close(got, want.numpy())
+        assert ok, err
+
+
+@pytest.mark.parametrize("initial", [False, True], ids=["zero", "s0"])
+@pytest.mark.parametrize("B,S,H,hd,N,chunk", SWEEP)
+def test_staged_matches_jax_ref_and_pallas(B, S, H, hd, N, chunk, initial):
+    """The staged forward against JAX's ssd_ref (Y and the final state),
+    and, from a zero state, against the Pallas kernel in interpret mode."""
+    arrs = _inputs(B, S, H, hd, N, seed=chunk + 3)
+    s0 = _state(B, H, hd, N, 12) if initial else None
+    y, state = ref.ssd_chunked_staged(
+        *map(torch.from_numpy, arrs), chunk=chunk,
+        initial_state=None if s0 is None else torch.from_numpy(s0))
+    jy, jstate = jax_ops.ssd_ref(
+        *map(jnp.asarray, arrs), chunk=chunk,
+        initial_state=None if s0 is None else jnp.asarray(s0))
+    assert _close(y, jy)[0] and _close(state, jstate)[0]
+    if not initial:
+        assert _close(y, jax_ops.ssd(*map(jnp.asarray, arrs), chunk=chunk))[0]
+
+
+@pytest.mark.parametrize("initial", [False, True], ids=["zero", "s0"])
+@pytest.mark.parametrize("n_chunks", [1, 2, 5])
+def test_fwd_state_pass_matches_recurrence(n_chunks, initial):
+    """Stage 2 of the forward against the recurrence written out per
+    element in numpy, in the same order: S_in[c+1] = a_c S_in[c] + ds_c
+    from S_in[0] = S0 (or 0), and the final state S_in[nC]."""
+    rng = np.random.default_rng(n_chunks + 10)
+    B, H, hd, N = 2, 3, 4, 2
+    ds = rng.standard_normal((B, H, n_chunks, hd, N)).astype(np.float32)
+    a = rng.uniform(0.0, 1.0, (B, H, n_chunks)).astype(np.float32)
+    s0 = (rng.standard_normal((B, H, hd, N)).astype(np.float32) if initial
+          else np.zeros((B, H, hd, N), np.float32))
+    s_in, final = ref.ssd_fwd_state_pass(
+        torch.from_numpy(ds), torch.from_numpy(a),
+        torch.from_numpy(s0) if initial else None)
+    want, want_final = np.zeros_like(ds), np.zeros_like(s0)
+    for b in range(B):
+        for h in range(H):
+            for d in range(hd):
+                for n in range(N):
+                    s = s0[b, h, d, n]
+                    for c in range(n_chunks):
+                        want[b, h, c, d, n] = s
+                        s = a[b, h, c] * s + ds[b, h, c, d, n]
+                    want_final[b, h, d, n] = s
+    np.testing.assert_array_equal(s_in.numpy(), want)
+    np.testing.assert_array_equal(final.numpy(), want_final)
+
+
+@pytest.mark.parametrize("B,S,H,hd,N,chunk", SWEEP)
+def test_op_state_arguments_match_jax_ref(B, S, H, hd, N, chunk):
+    """ops.ssd with an initial state and return_state on the CPU (the plain
+    version, no launch) against JAX's ssd_ref: Y and the final state; with
+    only one of the two, the same Y, or the same pair from a zero state."""
+    arrs = _inputs(B, S, H, hd, N, seed=chunk + 4)
+    s0 = _state(B, H, hd, N, 13)
+    ins = list(map(torch.from_numpy, arrs))
+    before = ops.ssd.launches
+    y, state = ops.ssd(*ins, chunk=chunk, initial_state=torch.from_numpy(s0),
+                       return_state=True)
+    assert ops.ssd.launches == before
+    jy, jstate = jax_ops.ssd_ref(*map(jnp.asarray, arrs), chunk=chunk,
+                                 initial_state=jnp.asarray(s0))
+    assert y.dtype == torch.float32 and state.shape == (B, H, hd, N)
+    assert _close(y, jy)[0] and _close(state, jstate)[0]
+    only = ops.ssd(*ins, chunk=chunk, initial_state=torch.from_numpy(s0))
+    assert torch.equal(only, y)
+    y0, state0 = ops.ssd(*ins, chunk=chunk, return_state=True)
+    jy0, jstate0 = jax_ops.ssd_ref(*map(jnp.asarray, arrs), chunk=chunk)
+    assert _close(y0, jy0)[0] and _close(state0, jstate0)[0]
+
+
+@pytest.mark.parametrize("given", ["initial_state", "return_state", "both"])
+def test_op_state_arguments_refuse_autograd(given):
+    """With an initial state or the final state asked for, the op raises
+    while autograd records through an input (the backward takes neither),
+    and computes under torch.no_grad()."""
+    arrs = _inputs(1, 32, 2, 16, 16, seed=14)
+    kw = {}
+    if given in ("initial_state", "both"):
+        kw["initial_state"] = torch.from_numpy(_state(1, 2, 16, 16, 15))
+    if given in ("return_state", "both"):
+        kw["return_state"] = True
+    ins = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.ssd(*ins, chunk=16, **kw)
+    with torch.no_grad():
+        out = ops.ssd(*ins, chunk=16, **kw)
+    assert bool(torch.isfinite(out[0] if kw.get("return_state") else out)
+                .all())
+    s0 = kw.get("initial_state")
+    if s0 is not None:
+        s0.requires_grad_()
+        with pytest.raises(RuntimeError, match="no gradient"):
+            ops.ssd(*(t.detach() for t in ins), chunk=16, **kw)
+
+
+@pytest.mark.parametrize("S", [45, 64])
+def test_model_state_arguments_match_jax(S):
+    """mamba_forward with an initial state and return_state against JAX's,
+    one reduced zamba2 layer in fp32, JAX params through the bridge: S = 45
+    (padded to 48; the padded steps leave the state as at step 45) and a
+    multiple of the chunk (16); output and final state within 1e-4."""
+    jcfg = jax_get_config("zamba2-2.7b").reduced()
+    cfg = get_config("zamba2-2.7b").reduced()
+    rng = np.random.default_rng(16)
+    tree = jax.tree_util.tree_map(
+        lambda a: (np.asarray(a) + 0.1 * rng.standard_normal(a.shape))
+        .astype(np.float32),
+        jax_mamba2.init_mamba(jax.random.PRNGKey(0), jcfg, 0))
+    x = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    _, H, _, N, *_ = mamba2.dims(cfg)
+    s0 = _state(2, H, cfg.ssm.head_dim, N, 17)
+    jout, jstate = jax_mamba2.mamba_forward(
+        jax.tree_util.tree_map(jnp.asarray, tree), jnp.asarray(x), jcfg,
+        initial_state=jnp.asarray(s0), return_state=True)
+    with torch.no_grad():
+        out, state = mamba2.mamba_forward(
+            bridge.from_jax(tree, "cpu"), torch.from_numpy(x), cfg,
+            initial_state=torch.from_numpy(s0), return_state=True)
+    assert out.shape == (2, S, cfg.d_model) and state.shape == s0.shape
+    assert _close(out, jout, 1e-4)[0] and _close(state, jstate, 1e-4)[0]
 
 
 def test_recompute_backward_gradcheck():

@@ -18,7 +18,8 @@ autograd.Function.
   against the recurrence written out element by element; and with the
   products that the kernel runs on the tensor cores emulated in 3xTF32
   against the fp64 autograd at a full-width head (TOL), where plain TF32
-  does not hold."""
+  does not hold; likewise the staged plain forward `ssd_chunked_staged`'s
+  Y and final state against the fp64 plain forward."""
 import numpy as np
 import pytest
 
@@ -198,10 +199,11 @@ def test_state_pass_matches_recurrence(n_chunks):
     assert not s_in[:, :, 0].any() and not d_s[:, :, -1].any()
 
 
-# The products that the CUDA backward runs on the tensor cores in 3xTF32
-# (csrc/mamba2_ssd.cu), by the names the staged plain version gives them.
-TC_PRODUCTS = {name for name, route in kernel.BWD_ROUTES.items()
-               if route == "3xTF32"}
+# The products that the CUDA forward and backward run on the tensor cores
+# in 3xTF32 (csrc/mamba2_ssd.cu), by the names the staged plain versions
+# give them.
+TC_PRODUCTS = {name for routes in (kernel.FWD_ROUTES, kernel.BWD_ROUTES)
+               for name, route in routes.items() if route == "3xTF32"}
 
 
 def _tf32(t):
@@ -265,6 +267,33 @@ def test_tensor_core_products_emulated(split):
     worst = max(errs, key=lambda k: errs[k][0] / errs[k][1])
     print(f"{'3xTF32' if split else 'TF32'}: worst {worst} "
           f"{errs[worst][0] / errs[worst][1]:.2e} (tol {TOL:.0e})")
+    held = all(err <= TOL * scale for err, scale in errs.values())
+    assert held == split, errs
+
+
+@pytest.mark.parametrize("decay", ["sweep", "fast"])
+@pytest.mark.parametrize("split", [True, False], ids=["3xtf32", "tf32"])
+def test_forward_tensor_core_products_emulated(split, decay):
+    """The staged forward with every product the kernel runs on the tensor
+    cores in 3xTF32 holds Y and the final state within TOL of the fp64
+    plain forward, at one batch row of zamba2-2.7b's training shape with 8
+    of its 80 heads and an initial state; plain TF32 for the same products
+    does not."""
+    *arrs, _ = _inputs(1, 1024, 8, 64, 64, seed=22, decay=decay)
+    s0 = np.random.default_rng(23).standard_normal(
+        (1, 8, 64, 64)).astype(np.float32)
+    exact = ref.ssd_chunked(*(torch.from_numpy(a).double() for a in arrs),
+                            chunk=64,
+                            initial_state=torch.from_numpy(s0).double())
+    mm = _emulated(split)
+    got = ref.ssd_chunked_staged(*map(torch.from_numpy, arrs), chunk=64,
+                                 initial_state=torch.from_numpy(s0), mm=mm)
+    assert mm.seen == set(kernel.FWD_ROUTES)
+    errs = {name: _err(g, e) for name, g, e in
+            zip(("Y", "final_state"), got, exact)}
+    print(f"{'3xTF32' if split else 'TF32'} {decay}: " + " ".join(
+        f"{k} {e / sc:.2e}" for k, (e, sc) in errs.items())
+        + f" (tol {TOL:.0e})")
     held = all(err <= TOL * scale for err, scale in errs.values())
     assert held == split, errs
 

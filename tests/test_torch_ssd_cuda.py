@@ -1,6 +1,9 @@
 """The CUDA chunked Mamba2 SSD kernels against their plain versions, on the
-card: the forward against `ssd_chunked`, the backward kernel against
-autograd through it and against the plain backward `ssd_chunked_bwd`.
+card: the forward against `ssd_chunked` (in fp32 and in fp64, with and
+without an initial state, Y and the final state), its scratch after the
+scan over the chunks against the plain stages and bit for bit against the
+backward's; the backward kernel against autograd through it and against
+the plain backward `ssd_chunked_bwd`.
 
 Needs an NVIDIA Hopper card and nvcc: the kernel has no CPU mode, so these
 tests skip elsewhere.  Run on the card with
@@ -58,9 +61,123 @@ def test_cuda_kernel_matches_plain(B, S, H, hd, N, chunk, decay):
     y = ops.ssd(*ins, chunk=chunk)
     assert ops.ssd.launches == before + 1
     plain, _ = ref.ssd_chunked(*ins, chunk=chunk)
+    exact, _ = ref.ssd_chunked(*(t.double() for t in ins), chunk=chunk)
     torch.cuda.synchronize()
     ok, err = _close(y, plain)
     assert ok and bool(torch.isfinite(y).all()), err
+    ok, err = _close(y, exact)
+    assert ok, err
+
+
+# The backward sweep's shapes, and one chunk (S = chunk) and head groups of
+# 4, 2 and 1 (H = 3 and 5) among them
+FWD_SWEEP = [
+    (2, 128, 8, 16, 16, 16), (2, 128, 8, 16, 16, 32),
+    (1, 64, 4, 32, 8, 16), (1, 64, 4, 32, 8, 32), (1, 64, 4, 32, 8, 64),
+    (1, 192, 3, 64, 64, 32), (1, 64, 3, 64, 64, 64), (2, 128, 5, 16, 16, 32),
+    (1, 32, 5, 32, 8, 32), (2, 96, 6, 16, 16, 16), (2, 256, 4, 64, 64, 64)]
+
+
+def _s0(B, H, hd, N, seed):
+    return torch.randn((B, H, hd, N), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,N,chunk", FWD_SWEEP)
+def test_cuda_forward_initial_state(B, S, H, hd, N, chunk):
+    """Y and the final state from an initial state, through the op under
+    no_grad (one launch), against ssd_chunked in fp32 and in fp64 on the
+    same values."""
+    _need_card()
+    ins = _inputs(B, S, H, hd, N, seed=chunk + hd + H)
+    s0 = _s0(B, H, hd, N, S)
+    before = ops.ssd.launches
+    with torch.no_grad():
+        y, state = ops.ssd(*ins, chunk=chunk, initial_state=s0,
+                           return_state=True)
+    assert ops.ssd.launches == before + 1
+    plain = ref.ssd_chunked(*ins, chunk=chunk, initial_state=s0)
+    exact = ref.ssd_chunked(*(t.double() for t in ins), chunk=chunk,
+                            initial_state=s0.double())
+    torch.cuda.synchronize()
+    assert state.dtype == torch.float32 and state.shape == s0.shape
+    for out, p, e in zip((y, state), plain, exact):
+        assert bool(torch.isfinite(out).all())
+        ok, err = _close(out, p)
+        assert ok, err
+        ok, err = _close(out, e)
+        assert ok, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,N,chunk", [
+    (2, 256, 4, 64, 64, 64), (1, 64, 3, 32, 8, 16), (2, 128, 5, 16, 16, 32)])
+def test_cuda_forward_states_match_state_pass(B, S, H, hd, N, chunk):
+    """The forward's scratch after its scan over the chunks (the state
+    entering each chunk) and the chunks' decays against the plain stages 1
+    and 2 from an initial state; from a zero state, the same bits as the
+    backward's S_in (stage 1's term and the walk are one code)."""
+    _need_card()
+    ins = _inputs(B, S, H, hd, N, seed=19 + H)
+    s0 = _s0(B, H, hd, N, 20)
+    (_, final), (states, decay) = kernel.ssd_cuda(
+        *ins, chunk=chunk, initial_state=s0, return_states=True)
+    ds, a = ref.ssd_fwd_chunk_state(*ins, chunk=chunk)
+    want, want_final = ref.ssd_fwd_state_pass(ds, a, s0)
+    torch.cuda.synchronize()
+    assert states.shape == want.shape == (B, H, S // chunk, hd, N)
+    for x, p in ((states, want), (decay, a), (final, want_final)):
+        ok, err = _close(x, p)
+        assert ok, err
+    _, (zero_states, _) = kernel.ssd_cuda(*ins, chunk=chunk,
+                                          return_states=True)
+    g = torch.randn((B, S, H, hd), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(21))
+    _, (s_in, _) = kernel.ssd_bwd_cuda(*ins, g, chunk=chunk,
+                                       return_states=True)
+    assert torch.equal(zero_states, s_in)
+
+
+@pytest.mark.cuda
+def test_cuda_forward_is_deterministic():
+    """No atomics: two runs give the same Y and final state bit for bit."""
+    _need_card()
+    ins = _inputs(2, 256, 8, 64, 64, seed=22)
+    s0 = _s0(2, 8, 64, 64, 23)
+    first = kernel.ssd_cuda(*ins, chunk=64, initial_state=s0)
+    again = kernel.ssd_cuda(*ins, chunk=64, initial_state=s0)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", ["initial_state", "return_state"])
+def test_cuda_forward_state_arguments_refuse_autograd(given):
+    """On the card too, the op raises while autograd records through an
+    input and an initial state or the final state is asked for."""
+    _need_card()
+    ins = [t.requires_grad_() for t in _inputs(1, 64, 4, 64, 64, seed=24)]
+    kw = ({"initial_state": _s0(1, 4, 64, 64, 25)}
+          if given == "initial_state" else {"return_state": True})
+    before = ops.ssd.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ops.ssd(*ins, chunk=64, **kw)
+    assert ops.ssd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dtype", "shape", "device"])
+def test_cuda_forward_refuses_bad_initial_state(case):
+    """The launcher takes an fp32 (B, H, hd, N) initial state on the
+    inputs' card, and raises on anything else before any launch."""
+    _need_card()
+    ins = _inputs(1, 64, 4, 64, 64, seed=26)
+    s0 = _s0(1, 4, 64, 64, 27)
+    s0 = {"dtype": s0.bfloat16(), "shape": s0[:, :2],
+          "device": s0.cpu()}[case]
+    with pytest.raises(ValueError, match="initial_state"):
+        kernel.ssd_cuda(*ins, chunk=64, initial_state=s0)
 
 
 @pytest.mark.cuda
