@@ -21,14 +21,17 @@ Phases; any failure exits non-zero:
       the JAX sweep and from initial states; at the main shape its stage-2
       states against the plain stages and bit for bit against the
       backward's, two runs bit for bit, each stage's ms, registers and
-      spills, both bounds and the design's bytes), A^T B in fp32 and bf16
+      spills, both bounds and the design's bytes; at zamba2-2.7b's serving
+      shape (4, 4224, 80, 64) from a zero state with the final state, its
+      ms, both bounds and each stage's ms), A^T B in fp32 and bf16
       (the JAX sweep, a ragged shape, the
       METG ladder); error against the stated tolerance, kernel / plain /
       library ms and the bound, and the kernel and tiling each case took
       (bf16 flash and A^T B: the tensor cores), held equal to what the
       launchers' `route` / `plan` state; the gemma2 row's library call is
       torch.compile(flex_attention) with its softcap and band, the zamba2
-      row's SDPA; then the SSD backward kernels (three chunk-parallel
+      row's SDPA, at its training shape and at its serving shape (4, 4200,
+      32, 80) in bf16; then the SSD backward kernels (three chunk-parallel
       stages and the sum over head groups, the products in 3xTF32 on the
       tensor cores) against autograd through the plain version and against
       the plain backward `ssd_chunked_bwd` (fp32 at the main shape in three
@@ -49,7 +52,17 @@ Phases; any failure exits non-zero:
       full-width gemma2-2b (26 layers) and through full-width rwkv6-1.6b (24
       layers), random weights from a seed; every kernel of the path must
       have launched once per layer and prefill batch, and the kernel path's
-      prefill must agree with the plain path's.  Then zamba2-2.7b training:
+      prefill must agree with the plain path's.  Then the same traffic
+      through full-width zamba2-2.7b (54 Mamba2 layers, the shared block 9
+      times): 54 SSD op calls and 9 flash launches per prefill batch and
+      none in decode; the kernel path's prefill against the plain path's in
+      bf16 (printed) and fp32 (held: logits, every layer's SSM state and
+      conv ring, the K/V caches), the kernel path's prefills timed; in
+      fp32 the chunked prefill of each prompt's first 130 tokens against
+      130 decode steps (logits, states, rings, K/V); the served first
+      tokens are the bf16 prefill's argmax; one bf16 prefill and one
+      decode step under torch.profiler (device ms, idle share, the kernels
+      with the most device time).  Then zamba2-2.7b training:
       one fp32 train step at full width and one group of depth, kernel path
       against plain path (loss, grad norm, every gradient; 6 SSD forward and
       6 backward op calls); then the full model (54 Mamba2 layers) trained 6
@@ -64,7 +77,10 @@ Phases; any failure exits non-zero:
       registers and spills; the SSD row with its forward's fwd_* keys,
       stage ms, TF32-rate bound, design bytes, registers and spills, and
       its backward's bwd_* keys: ms, stage ms, both bounds, routes,
-      registers and spills), and
+      registers and spills; the SSD row and the zamba2 flash row with
+      zamba2 serving's op calls, serve_launches, and their serving shape's
+      figures, serve_shape; the flash row with the served figures and the
+      two profiles, serve), and
       {"ok": true, "device": {...}}.
 Every exit with a non-zero code prints its reason on stdout: no card, a
 failed import (as when the script stands alone, without src/), a failed
@@ -125,6 +141,14 @@ STATE_TOL = 1e-3
 # the shared block's attention at q/k/v (B, S, 32, 80), no GQA, causal only
 SSD_MAIN = (2, 1024, 80, 64, 64, 64)
 ZB, ZS, ZH, ZHD = 2, 1024, 32, 80
+# zamba2-2.7b serving, 4 x 4200 (ARGV): each layer's prefill SSD at 66
+# chunks of 64 (4200 padded to 4224), zero initial state, final state
+# returned; the shared block's flash at q/k/v (4, 4200, 32, 80), causal
+SSD_SERVE = (4, 4224, 80, 64, 64, 64)
+ZSB, ZSS = 4, 4200
+# the decode check: the first 130 tokens of each prompt (two chunks of 64
+# and a ragged tail), chunked prefill against token-by-token decode
+DECODE_CHECK_LEN = 130
 TRAIN_ARGV = ["--arch", "zamba2-2.7b", "--no-reduced", "--steps", "6",
               "--global-batch", "2", "--seq", "1024", "--device", "cuda"]
 # SSD kernel vs plain chunked version, fp32: summation order only, as WKV_TOL
@@ -407,14 +431,16 @@ def wkv_stages(torch, wkv_ops, wkv_ref, wkv_kernel, regs, args, q, s0, y,
             "scratch_bytes": scratch, "regs": stage_regs}
 
 
-def ssd_bound(b, s, h, hd, n, q, itemsize=4, with_state=False):
+def ssd_bound(b, s, h, hd, n, q, itemsize=4, with_state=False,
+              final_state=False):
     """Least time for the chunked SSD, from counts of what the function
     needs: C.B^T over the lower triangle j <= t once per (b, chunk), since
     with one group B and C are shared by every head (the Pallas kernel
     computes it once for all heads); per (b, h, chunk) the cumsum, the
     decay exps and M over j <= t, M.x, C.S and its scaling, the state
-    update.  x, dA, B and C (and the initial state) read once, Y (and the
-    final state) written once.  Two bounds: every FLOP at the fp32 rate;
+    update.  x, dA, B and C (and the initial state, `with_state`) read
+    once, Y written once (and the final state: `with_state` or
+    `final_state`).  Two bounds: every FLOP at the fp32 rate;
     and the products (C.B^T, M.x, C.S, the state update) as 3xTF32 on the
     tensor cores, three TF32 products each at the TF32 rate, beside the
     rest at the fp32 rate (the two units run at once, so the larger).  Exps
@@ -427,7 +453,8 @@ def ssd_bound(b, s, h, hd, n, q, itemsize=4, with_state=False):
     rest = nblk * (q + pairs * 2 + q * hd * 2 + q * hd + hd * n * 2)
     flops = prod + rest
     nbytes = (itemsize * (2 * b * s * h * hd + b * s * h + 2 * b * s * n)
-              + (8 if with_state else 0) * b * h * hd * n)
+              + (8 if with_state else 4 if final_state else 0)
+              * b * h * hd * n)
     t_exp = exps / H100_EXP_S
     t_ops = max(t_exp, flops / H100_FP32_FLOPS)
     t_bytes = nbytes / H100_BYTES_S
@@ -476,8 +503,11 @@ def phase_ssd(torch, ssd_ops, ssd_ref, ssd_kernel, regs):
     the plain stages 1 and 2 and bit for bit against the backward's S_in,
     two runs the same bits, each stage's ms (torch.profiler), registers and
     spills (`regs`: the build's entries for mamba2_ssd), both bounds and the
-    design's bytes.  Returns the row for the main-path case (zamba2-2.7b
-    training, test-sweep inputs)."""
+    design's bytes.  At zamba2-2.7b's serving shape (SSD_SERVE, from a zero
+    state with the final state, as the prefill calls it) its ms with the
+    final state, both bounds and each stage's ms.  Returns the row for the
+    main-path case (zamba2-2.7b training, test-sweep inputs), with the
+    serving shape's figures under "serve_shape"."""
     print("[b] mamba2_ssd forward kernels vs plain chunked version; products: "
           + ", ".join(f"{k} {v}" for k, v in ssd_kernel.FWD_ROUTES.items()))
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -485,7 +515,8 @@ def phase_ssd(torch, ssd_ops, ssd_ref, ssd_kernel, regs):
     # (name, (B, S, H, hd, N, Q), decay, initial state)
     cases = [("main", SSD_MAIN, "sweep", False),
              ("main slow decay", SSD_MAIN, "slow", False),
-             ("main fast decay", SSD_MAIN, "fast", False)]
+             ("main fast decay", SSD_MAIN, "fast", False),
+             ("zamba2 serve", SSD_SERVE, "sweep", False)]
     cases += [("JAX sweep", (b, s, h, hd, n, q), "sweep", False)
               for b, s, h, hd, n in [(2, 128, 8, 16, 16), (1, 64, 4, 32, 8)]
               for q in (16, 32)]
@@ -515,11 +546,16 @@ def phase_ssd(torch, ssd_ops, ssd_ref, ssd_kernel, regs):
         ok = (max(e64 + held32) <= SSD_TOL
               and all(bool(torch.isfinite(t).all()) for t in (y, st)))
         is_main = (b, s, h, hd, n, q) == SSD_MAIN
-        ms = cuda_ms(lambda: ssd_ops.ssd(*args, chunk=q), 10 if is_main else 20)
+        is_serve = (b, s, h, hd, n, q) == SSD_SERVE
+        big = is_main or is_serve
+        with torch.no_grad():
+            ms = cuda_ms(lambda: ssd_ops.ssd(*args, chunk=q,
+                                             return_state=is_serve),
+                         10 if big else 20)
         plain_ms = cuda_ms(lambda: ssd_ref.ssd_chunked(*args, chunk=q),
-                           3 if is_main else 5)
+                           3 if big else 5)
         bound_ms, bound_by, exps, flops, nbytes, tc_ms = ssd_bound(
-            b, s, h, hd, n, q, with_state=with_state)
+            b, s, h, hd, n, q, with_state=with_state, final_state=is_serve)
         print(f"[b] mamba2_ssd {name}: (B,S,H,hd,N)={(b, s, h, hd, n)} Q={q}"
               f" {decay} decay: max|diff|/max(1, max|ref|) of Y, final state"
               f" vs fp64 plain {e64[0]:.2e}, {e64[1]:.2e}; vs fp32 plain "
@@ -545,6 +581,20 @@ def phase_ssd(torch, ssd_ops, ssd_ref, ssd_kernel, regs):
                    "library_ms": None}
             row.update(ssd_fwd_stages(torch, ssd_ref, ssd_kernel, regs,
                                       args, q))
+        if is_serve:
+            stages = stage_ms(torch, ssd_kernel.FWD_KERNELS,
+                              lambda: ssd_kernel.ssd_cuda(*args, chunk=q))
+            print("[b] mamba2_ssd zamba2 serve: kernels (torch.profiler) "
+                  + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                             else f"{k} {v}" for k, v in stages.items())
+                  + " ms")
+            row["serve_shape"] = {
+                "shape": [b, s, h, hd, n, q],
+                "max_abs_err": float((y - plain[0]).abs().max()),
+                "fwd_max_rel_err_fp64": max(e64), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_tc_ms": tc_ms,
+                "library_ms": None, "stages_ms": stages}
         del args, y, st, plain, exact
         torch.cuda.empty_cache()
     return row
@@ -1049,19 +1099,21 @@ def flex_yardstick(torch, q, k, v, window, cap, scale, compiled):
 
 def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
     """Kernel vs plain version; returns the rows for the two main paths'
-    cases (gemma2-2b serving, zamba2-2.7b training).  Each case prints the
-    kernel and tiling it took, which must be the one `route` states (bf16:
-    the tensor cores)."""
+    cases (gemma2-2b serving, zamba2-2.7b training), the latter with
+    zamba2-2.7b serving's bf16 case (its prefill's shape, SDPA the library
+    call) under "serve_shape".  Each case prints the kernel and tiling it
+    took, which must be the one `route` states (bf16: the tensor cores)."""
     from torch.nn.attention.flex_attention import flex_attention
     print("[b] flash_attention kernel vs plain blockwise version")
     flex = torch.compile(flex_attention)
     flex_compile_s = None
     gen = torch.Generator(device="cuda").manual_seed(0)
-    row = zrow = None
+    row = zrow = zsrow = None
     cases = [(dt, B, S, HQ, G, HD, w, CAP) for dt in ("bfloat16", "float32")
              for w in (4096, S + 1)]
     cases += [(dt, ZB, ZS, ZH, ZH, ZHD, None, 0.0)
               for dt in ("bfloat16", "float32")]
+    cases += [("bfloat16", ZSB, ZSS, ZH, ZH, ZHD, None, 0.0)]
     cases += [(dt, 2, 203, 8, 2, hd, 50, CAP) for dt in ("bfloat16", "float32")
               for hd in (32, 80, 256)]
     for dt, b, s, hq, g, hd, window, cap in cases:
@@ -1092,10 +1144,12 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
             ok = err < FP32_TOL
         ok = ok and bool(torch.isfinite(out).all())
         main_shape = (b, s, hq, g, hd) == (B, S, HQ, G, HD)
+        serve_shape = (b, s, hq, g, hd) == (ZSB, ZSS, ZH, ZH, ZHD)
+        big = main_shape or serve_shape
         ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw),
-                     5 if main_shape else 20)
+                     5 if big else 20)
         plain_ms = cuda_ms(lambda: fa_ref.flash_attention_blockwise(
-            q, k, v, **kw), 2 if main_shape else 5)
+            q, k, v, **kw), 2 if big else 5)
         bound_ms, bound_by, flops = attention_bound(
             b, s, hq, g, hd, window, q.element_size(),
             H100_BF16_FLOPS if dt == "bfloat16" else H100_FP32_FLOPS)
@@ -1146,7 +1200,8 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
             print(f"[b] causal only (softcap 0, no window), bf16 main shape: "
                   f"kernel_ms={ms_causal:.3f} sdpa_ms={sdpa_ms:.3f} "
                   f"max_abs_err vs sdpa={sdpa_err:.3e}")
-        if (b, s, hq, g, hd) == (ZB, ZS, ZH, ZH, ZHD) and dt == "bfloat16":
+        zamba_shape = (b, s, hq, g, hd) == (ZB, ZS, ZH, ZH, ZHD)
+        if (zamba_shape or serve_shape) and dt == "bfloat16":
             # SDPA computes exactly this function: causal, no window, no
             # softcap, one K/V head per query head
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1155,9 +1210,19 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
                 is_causal=True, scale=hd ** -0.5)
             sdpa_err = float((sdpa().transpose(1, 2).float() - out.float())
                              .abs().max())
-            sdpa_ms = cuda_ms(sdpa, 20)
-            print(f"[b] zamba2 shape: sdpa_ms={sdpa_ms:.4f} max_abs_err vs "
-                  f"sdpa={sdpa_err:.3e}")
+            sdpa_ms = cuda_ms(sdpa, 5 if serve_shape else 20)
+            print(f"[b] zamba2 {'serve' if serve_shape else 'train'} shape: "
+                  f"sdpa_ms={sdpa_ms:.4f} max_abs_err vs sdpa="
+                  f"{sdpa_err:.3e}")
+            del qt, kt, vt, sdpa
+        if serve_shape:
+            zsrow = {"shape": [b, s, hq, g, hd], "max_abs_err": err,
+                     "bf16_excess": excess, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": sdpa_ms,
+                     "library": "scaled_dot_product_attention",
+                     "tiling": rt.describe()}
+        if zamba_shape and dt == "bfloat16":
             zrow = {"name": "flash_attention", "path": "zamba2-2.7b train",
                     "route": "cuda",
                     "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1169,6 +1234,7 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
                     "tiling": rt.describe()}
         del q, k, v, out, plain, plain32
         torch.cuda.empty_cache()
+    zrow["serve_shape"] = zsrow
     return row, zrow
 
 
@@ -1345,6 +1411,221 @@ def phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref, serve):
     return launches, launches // len(res["batches"])
 
 
+def zamba_cache_rel(a, b):
+    """max|a - b| / max(1, max|b|) of two zamba2 caches: per layer for the
+    SSM states and the conv rings, per shared-block application for the
+    K/V caches (k and v, the larger)."""
+    def rel(x, y):
+        return float((x.float() - y.float()).abs().max()
+                     / y.float().abs().max().clamp(min=1.0))
+    out = {key: [rel(x, y) for x, y in zip(a["mamba"][key], b["mamba"][key])]
+           for key in ("ssm", "conv")}
+    out["kv"] = [max(rel(ka, kb), rel(va, vb)) for ka, kb, va, vb in zip(
+        a["kv"][0], b["kv"][0], a["kv"][1], b["kv"][1])]
+    return out
+
+
+def zamba_cache_ok(rel) -> bool:
+    """Layer 0's SSM state and conv ring within SSD_TOL (layer 0 runs the
+    SSD on the same inputs on both sides); every layer's and every K/V
+    application's within STATE_TOL (later layers carry the summation-order
+    differences forward, as rwkv6's do)."""
+    return (rel["ssm"][0] <= SSD_TOL and rel["conv"][0] <= SSD_TOL
+            and max(rel["ssm"] + rel["conv"] + rel["kv"]) <= STATE_TOL)
+
+
+def zamba_cache_line(rel) -> str:
+    return "; ".join(
+        f"{key} layer 0 {v[0]:.3e}, max {max(v):.3e} (at {v.index(max(v))})"
+        for key, v in rel.items())
+
+
+def phase_serve_zamba(torch, ssd_ops, fa_ops, attention, fa_ref, serve):
+    """Full-width zamba2-2.7b served through `launch.serve` (the prefill
+    through the SSD and flash kernels, decode carrying the state), then the
+    kernel path's prefill against the plain path's (both ops patched to
+    their plain versions) in bf16 and fp32, and in fp32 the chunked prefill
+    of the first DECODE_CHECK_LEN tokens against token-by-token decode.
+    Returns the SSD op calls and the flash launches of the served run, each
+    with its count per prefill batch, and the served figures."""
+    print(f"[c] zamba2-2.7b serve on {card_line()}")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_ops.ssd.launches = fa_ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", "zamba2-2.7b", *ARGV])
+    wall = time.perf_counter() - t0
+    n_ssd, n_fa = ssd_ops.ssd.launches, fa_ops.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    model, params = res["model"], res["params"]
+    cfg = model.cfg
+    if (cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.n_heads,
+            cfg.resolved_head_dim) != (54, 2560, 32000, 32, 80):
+        raise SystemExit(f"not zamba2-2.7b at full width: {cfg}")
+    n_app = cfg.n_layers // cfg.attn_every
+    nb = len(res["batches"])
+    p50, p95, p99 = np.percentile(res["latency_ms"], [50, 95, 99])
+    figures = {"prefill_ms": res["prefill_s"] * 1e3,
+               "decode_ms_per_token": res["decode_s"] * 1e3
+               / res["decode_steps"],
+               "latency_ms": [p50, p95, p99], "max_memory_allocated_GB":
+               peak / 1e9}
+    print(f"[c] zamba2-2.7b served {len(res['replies'])} requests in "
+          f"{wall:.1f}s (weights included); prefill_ms="
+          f"{figures['prefill_ms']:.1f} decode_ms_per_token="
+          f"{figures['decode_ms_per_token']:.2f} latency_ms p50={p50:.1f} "
+          f"p95={p95:.1f} p99={p99:.1f} max_memory_allocated_GB="
+          f"{peak / 1e9:.2f}")
+    print(f"[c] zamba2 serve: mamba2_ssd op calls={n_ssd} "
+          f"({len(SSD_FWD_INSTANCES)} kernels each: "
+          f"{n_ssd * len(SSD_FWD_INSTANCES)} launches), "
+          f"flash_attention launches={n_fa} (want {cfg.n_layers} and "
+          f"{n_app} a prefill batch x {nb} batches; decode launches neither)")
+    if (n_ssd, n_fa) != (cfg.n_layers * nb, n_app * nb):
+        raise SystemExit(f"zamba2 serve: {n_ssd} SSD op calls and {n_fa} "
+                         f"flash launches over {nb} batches")
+    if len(res["replies"]) != 4:
+        raise SystemExit("not every request was answered")
+    for row in res["replies"]:
+        if row.shape != (16,) or row.min() < 0 or row.max() >= cfg.vocab_size:
+            raise SystemExit(f"bad reply {row}")
+
+    toks = torch.as_tensor(np.stack(res["prompts"]), device="cuda").long()
+    V = cfg.vocab_size
+    plain_model = model.with_opts(q_block=1024, kv_block=1024)
+    results, prefill_ms = {}, {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            prefill_ms[dtype] = []
+            for _ in range(PREFILL_REPS):
+                lg_k = c_k = None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg_k, c_k = model.forward(params, {"tokens": toks},
+                                          mode="prefill", dtype=dtype)
+                torch.cuda.synchronize()
+                prefill_ms[dtype].append((time.perf_counter() - t0) * 1e3)
+            n = (ssd_ops.ssd.launches, fa_ops.flash_attention.launches)
+            with mock.patch.object(ssd_ops, "ssd", ssd_ops.ssd_plain), \
+                    mock.patch.object(attention, "flash_attention",
+                                      fa_ref.flash_attention_blockwise):
+                lg_p, c_p = plain_model.forward(params, {"tokens": toks},
+                                                mode="prefill", dtype=dtype)
+            if (ssd_ops.ssd.launches,
+                    fa_ops.flash_attention.launches) != n:
+                raise SystemExit("the plain path launched a kernel")
+            a, b = lg_k[:, :V].float(), lg_p[:, :V].float()
+            if not (bool(torch.isfinite(a).all())
+                    and bool(torch.isfinite(b).all())):
+                raise SystemExit("non-finite prefill logits")
+            results[dtype] = (a, b, zamba_cache_rel(c_k, c_p))
+            del lg_k, c_k, lg_p, c_p
+            torch.cuda.empty_cache()
+    print("[c] zamba2 prefill forwards after the served one, kernel path, "
+          "ms: " + "; ".join(f"{str(dtype)[6:]} {[round(t, 1) for t in ts]}"
+                             for dtype, ts in prefill_ms.items()))
+    for dtype, (a, b, rel) in results.items():
+        print(f"[c] zamba2 prefill in {str(dtype)[6:]}, kernel vs plain "
+              f"path: last-position logits max_abs_err="
+              f"{float((a - b).abs().max()):.4f}; |logit|max="
+              f"{float(b.abs().max()):.3f}; top-2 margins="
+              f"{[round(float(m), 4) for m in top2_margin(b)]}; "
+              f"max|diff|/max(1, max|ref|): {zamba_cache_line(rel)}")
+    # the served first tokens are the bf16 kernel path's argmax: the same
+    # function on the same inputs through the same kernels, so every token,
+    # not only those whose top-2 margin exceeds LOGIT_TOL
+    a = results[torch.bfloat16][0]
+    served = torch.as_tensor([r[0] for r in res["replies"]], device="cuda")
+    equal = int((served == a.argmax(-1)).sum())
+    print(f"[c] zamba2 served first tokens equal to the bf16 kernel-path "
+          f"prefill's argmax: {equal}/{len(served)} (top-2 margin > "
+          f"{LOGIT_TOL}: {int((top2_margin(a) > LOGIT_TOL).sum())})")
+    if equal != len(served):
+        raise SystemExit("zamba2: served first tokens are not the prefill's")
+    a, b, rel = results[torch.float32]
+    err, sure = float((a - b).abs().max()), top2_margin(b) > LOGIT_TOL
+    same = (a.argmax(-1) == b.argmax(-1)) | ~sure
+    print(f"[c] zamba2 fp32 check, kernel vs plain path: logits max_abs_err="
+          f"{err:.3e} (tol {LOGIT_TOL}); first tokens compared where margin "
+          f"> tol: {int(sure.sum())}/{len(sure)}; states: layer 0 tol "
+          f"{SSD_TOL:.0e}, every layer and K/V tol {STATE_TOL:.0e}")
+    if err >= LOGIT_TOL or not bool(same.all()):
+        raise SystemExit("zamba2: kernel path and plain path disagree")
+    if not zamba_cache_ok(rel):
+        raise SystemExit("zamba2: kernel-path and plain-path caches disagree")
+    del results, a, b
+
+    # where the device time goes: one bf16 prefill and one decode step
+    # under the profiler, each beside the same work without it just before
+    nreq, S = toks.shape
+    with torch.inference_mode():
+        cache = model.init_cache(nreq, S + 1, device="cuda")
+        (lg, _), figures["prefill_profile"] = device_profile(
+            torch, f"zamba2 prefill (bf16, {nreq} x {S})",
+            lambda: model.forward(params, {"tokens": toks}, mode="prefill",
+                                  cache=cache),
+            float(np.median(prefill_ms[torch.bfloat16])))
+        tok = lg[:, :V].argmax(-1)
+        pos = torch.full((nreq,), S, device="cuda")
+
+        def step():
+            return model.decode_step(params, tok, pos, cache)
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        _, figures["decode_profile"] = device_profile(
+            torch, "zamba2 decode step (bf16)", step,
+            (time.perf_counter() - t0) * 1e3 / 5)
+        del cache, lg, tok
+
+    # decode against the kernels' state: prefill T tokens at once, and
+    # decode them one at a time, both from init_cache, in fp32
+    T = DECODE_CHECK_LEN
+    short = toks[:, :T]
+    with torch.inference_mode():
+        n = (ssd_ops.ssd.launches, fa_ops.flash_attention.launches)
+        lg_p, c_p = model.forward(
+            params, {"tokens": short}, mode="prefill", dtype=torch.float32,
+            cache=model.init_cache(nreq, T, dtype=torch.float32,
+                                   device="cuda"))
+        if (ssd_ops.ssd.launches - n[0],
+                fa_ops.flash_attention.launches - n[1]) != (cfg.n_layers,
+                                                            n_app):
+            raise SystemExit("zamba2: the short prefill did not run the "
+                             "kernels")
+        c_d = model.init_cache(nreq, T, dtype=torch.float32, device="cuda")
+        n = (ssd_ops.ssd.launches, fa_ops.flash_attention.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(T):
+            lg_d, c_d = model.decode_step(
+                params, short[:, t], torch.full((nreq,), t, device="cuda"),
+                c_d, dtype=torch.float32)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / T
+        if (ssd_ops.ssd.launches, fa_ops.flash_attention.launches) != n:
+            raise SystemExit("zamba2: decode launched a kernel")
+    a, b = lg_p[:, :V].float(), lg_d[:, :V].float()
+    rel = zamba_cache_rel(c_p, c_d)
+    err, sure = float((a - b).abs().max()), top2_margin(b) > LOGIT_TOL
+    same = (a.argmax(-1) == b.argmax(-1)) | ~sure
+    print(f"[c] zamba2 fp32, chunked prefill (kernels) vs {T} decode steps "
+          f"({step_ms:.1f} ms a step in fp32): logits max_abs_err={err:.3e} "
+          f"(tol {LOGIT_TOL}); first tokens compared where margin > tol: "
+          f"{int(sure.sum())}/{len(sure)}; max|diff|/max(1, max|decode|): "
+          f"{zamba_cache_line(rel)}")
+    if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+        raise SystemExit("zamba2: non-finite logits in the decode check")
+    if err >= LOGIT_TOL or not bool(same.all()) or not zamba_cache_ok(rel):
+        raise SystemExit("zamba2: chunked prefill and token-by-token "
+                         "decode disagree")
+    print(f"[c] zamba2 serve phase took {time.perf_counter() - t_phase:.1f}s")
+    return (n_ssd, n_ssd // nb), (n_fa, n_fa // nb), figures
+
+
 def leaf_items(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -1484,8 +1765,9 @@ def phase_train(torch, ssd_ops, fa_ops, train):
     rep, profiled, step_ms = [], None, None
     for i in range(4):
         if i == 2:   # one step under the profiler: where the device time goes
-            params, opt_state, m, profiled = profiled_step(
-                torch, step_fn, params, opt_state, batch, step_ms)
+            (params, opt_state, m), profiled = device_profile(
+                torch, "train step", lambda: step_fn(params, opt_state,
+                                                     batch), step_ms)
         else:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1501,23 +1783,22 @@ def phase_train(torch, ssd_ops, fa_ops, train):
     return (n_ssd, n_ssd // steps), (n_fa, n_fa // steps), n_bwd, profiled
 
 
-def profiled_step(torch, step_fn, params, opt_state, batch, step_ms,
-                  top=10):
-    """One train step under torch.profiler: its wall ms (host clock, the
-    device synchronised, the profiler's own cost included), the device ms
-    summed over the kernels, memory copies and sets it ran (one stream, so
-    they do not overlap), the device's idle share of step_ms, the wall ms
-    of the same step without the profiler, and the kernels that took the
-    most device time with their launch counts.  Returns the step's outputs
-    and that summary (device ms "not measured" where the profiler shows no
-    device time)."""
+def device_profile(torch, what, fn, ref_ms, top=10):
+    """fn() once under torch.profiler: its wall ms (host clock, the device
+    synchronised, the profiler's own cost included), the device ms summed
+    over the kernels, memory copies and sets it ran (one stream, so they do
+    not overlap), the device's idle share of ref_ms (the same work timed
+    just before without the profiler), and the kernels that took the most
+    device time with their launch counts.  Returns fn's result and that
+    summary (device ms "not measured" where the profiler shows no device
+    time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        params, opt_state, m = step_fn(params, opt_state, batch)
+        out = fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
@@ -1531,21 +1812,20 @@ def profiled_step(torch, step_fn, params, opt_state, batch, step_ms,
     kernels.sort(reverse=True)
     device_ms = sum(k[0] for k in kernels)
     if device_ms <= 0:
-        print(f"[c] profiled train step: wall_ms={wall_ms:.1f}; device time "
+        print(f"[c] profiled {what}: wall_ms={wall_ms:.1f}; device time "
               f"not measured (the profiler shows none)")
-        return params, opt_state, m, {"wall_ms": wall_ms,
-                                      "device_ms": "not measured"}
-    summary = {"wall_ms": wall_ms, "step_ms": step_ms,
+        return out, {"wall_ms": wall_ms, "device_ms": "not measured"}
+    summary = {"wall_ms": wall_ms, "unprofiled_ms": ref_ms,
                "device_ms": device_ms,
-               "idle_share": 1.0 - device_ms / step_ms,
+               "idle_share": 1.0 - device_ms / ref_ms,
                "top": [{"kernel": k[:120], "ms": ms, "launches": n}
                        for ms, n, k in kernels[:top]]}
-    print(f"[c] profiled train step: wall_ms={wall_ms:.1f} (profiler "
-          f"included) device_ms={device_ms:.1f}; the step before it without "
-          f"the profiler step_ms={step_ms:.1f}, idle_share="
+    print(f"[c] profiled {what}: wall_ms={wall_ms:.1f} (profiler included) "
+          f"device_ms={device_ms:.1f}; the same just before without the "
+          f"profiler {ref_ms:.1f} ms, idle_share="
           f"{summary['idle_share']:.3f}; most device time: " + "; ".join(
               f"{k[:70]} {ms:.1f} ms / {n}" for ms, n, k in kernels[:top]))
-    return params, opt_state, m, summary
+    return out, summary
 
 
 def run(where: dict) -> int:
@@ -1612,6 +1892,13 @@ def run(where: dict) -> int:
     where["phase"] = "(c) rwkv6-1.6b serve"
     wkv_row["launches"], wkv_row["launches_per_forward"] = phase_serve_rwkv(
         torch, wkv_ops, rwkv, wkv_ref, serve)
+    where["phase"] = "(c) zamba2-2.7b serve"
+    (ssd_row["serve_launches"], ssd_row["serve_launches_per_forward"]), \
+        (zrow["serve_launches"], zrow["serve_launches_per_forward"]), \
+        zrow["serve"] = phase_serve_zamba(torch, ssd_ops, fa_ops, attention,
+                                          fa_ref, serve)
+    gc.collect()               # the served model and its caches go first
+    torch.cuda.empty_cache()
     where["phase"] = "(c) zamba2 one-group train step"
     phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention)
     where["phase"] = "(c) zamba2-2.7b training"

@@ -5,10 +5,13 @@ batches of up to --requests, through prefill + greedy decode.
         --requests 4 --prompt-len 4200 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --no-reduced --requests 4 --prompt-len 4200 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --no-reduced --requests 4 --prompt-len 4200 --max-new 16
 
 Runs on the card unless --device cpu.  Weights are random, made from --seed
 on the device, and cast to bf16 once at load, except the leaves the model
-reads in fp32 (norms; rwkv's decay and bonus params).
+reads in fp32 (norms; rwkv's decay and bonus params; the Mamba2 layers'
+A_log, dt_bias and D_skip).
 Per-request latency runs from submit to reply.
 """
 from __future__ import annotations

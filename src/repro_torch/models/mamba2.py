@@ -1,11 +1,16 @@
 """Mamba2 (SSD) block — chunked state-space-dual formulation.
 
-Training uses the chunked algorithm (an intra-chunk "attention-like" term
-plus the state carried from chunk to chunk), run by the `ssd` op: the
-hand-written CUDA kernel on the card, the plain chunked version (this
-file's `_ssd_chunk` over the chunks) on the CPU.  `mamba_forward` takes an
-initial state and returns the final state as the JAX layer does (no
-gradient through either); decode waits for the zamba2 serving slice.
+Training and prefill use the chunked algorithm (an intra-chunk
+"attention-like" term plus the state carried from chunk to chunk), run by
+the `ssd` op: the hand-written CUDA kernel on the card, the plain chunked
+version (this file's `_ssd_chunk` over the chunks) on the CPU.
+`mamba_forward` takes an initial state and returns the final state as the
+JAX layer does (no gradient through either), and with `return_cache` the
+conv ring too, for serving.  Decode (`mamba_decode`) is the O(1)-state
+recurrence, one token a step, in plain tensor ops.
+
+State per layer: ssm (B, H, hd, N) fp32 + conv ring (B, W-1, convch) of
+the last pre-conv inputs (`init_mamba_state`).
 """
 from __future__ import annotations
 
@@ -56,16 +61,22 @@ def _split_proj(zxbcdt, cfg):
     return z, xin, Bc, Cc, dt
 
 
-def _conv(xBC, w, b):
-    """Causal depthwise conv, window W, then SiLU.  xBC: (B,S,C); w: (W,C)."""
+def _conv(xBC, w, b, conv_state=None):
+    """Causal depthwise conv, window W, then SiLU.  xBC: (B,S,C); w: (W,C);
+    conv_state: (B, W-1, C) ring of the trailing pre-conv inputs, or None
+    (zeros).  Returns (silu(out), new ring): the last W-1 rows of the input
+    behind the ring, in xBC's dtype."""
     W = w.shape[0]
-    full = F.pad(xBC, (0, 0, W - 1, 0))
+    if conv_state is not None:
+        full = torch.cat([conv_state.to(xBC.dtype), xBC], dim=1)
+    else:
+        full = F.pad(xBC, (0, 0, W - 1, 0))
     S = xBC.shape[1]
     out = full[:, 0:S] * w[0].to(xBC.dtype)
     for i in range(1, W):
         out = out + full[:, i:i + S] * w[i].to(xBC.dtype)
     out = out + b.to(xBC.dtype)
-    return F.silu(out)
+    return F.silu(out), full[:, S:]
 
 
 def _ssd_chunk(S0, blk, *, H, G, N, hd):
@@ -97,12 +108,15 @@ def _ssd_chunk(S0, blk, *, H, G, N, hd):
     return S1.reshape(B_, H, hd, N), Y.reshape(B_, Q, H, hd)
 
 
-def mamba_forward(p, x, cfg, *, initial_state=None, return_state=False):
+def mamba_forward(p, x, cfg, *, initial_state=None, return_state=False,
+                  return_cache=False):
     """x: (B,S,D) -> (B,S,D), or (out, final SSM state (B,H,hd,N) fp32) with
-    `return_state`; the scan starts from initial_state (B,H,hd,N) fp32, or
-    0.  Chunked SSD over the full sequence; S is padded to a multiple of the
-    chunk for the scan and cut back after (the padded steps, dA 0 and x 0,
-    leave the state as it was at step S)."""
+    `return_state`, or (out, {"ssm": that state, "conv": the conv ring
+    (B,W-1,convch) in x's dtype}) with `return_cache`; the scan starts from
+    initial_state (B,H,hd,N) fp32, or 0, and the conv from zeros.  Chunked
+    SSD over the full sequence; S is padded to a multiple of the chunk for
+    the scan and cut back after (the padded steps, dA 0 and x 0, leave the
+    state as it was at step S)."""
     s = cfg.ssm
     d_inner, H, G, N, W, convch, _ = dims(cfg)
     hd = s.head_dim
@@ -111,7 +125,8 @@ def mamba_forward(p, x, cfg, *, initial_state=None, return_state=False):
     pad = (-S) % Q
     zxbcdt = x @ p["in_proj"].to(x.dtype)
     z, xin, Bc, Cc, dt = _split_proj(zxbcdt, cfg)
-    xBC = _conv(torch.cat([xin, Bc, Cc], -1), p["conv_w"], p["conv_b"])
+    xBC, ring = _conv(torch.cat([xin, Bc, Cc], -1), p["conv_w"],
+                      p["conv_b"])
     xin, Bc, Cc = (xBC[..., :d_inner], xBC[..., d_inner:d_inner + G * N],
                    xBC[..., d_inner + G * N:])
     dt = F.softplus(dt.float() + p["dt_bias"].float())
@@ -125,14 +140,61 @@ def mamba_forward(p, x, cfg, *, initial_state=None, return_state=False):
         xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
         Bh = F.pad(Bh, (0, 0, 0, 0, 0, pad))
         Ch = F.pad(Ch, (0, 0, 0, 0, 0, pad))
+    with_state = return_state or return_cache
     Y = ssd_ops.ssd(xdt, dA, Bh, Ch, chunk=Q, initial_state=initial_state,
-                    return_state=return_state)
-    if return_state:
+                    return_state=with_state)
+    if with_state:
         Y, S_fin = Y
     Y = Y[:, :S]
     Y = Y + p["D_skip"].float()[:, None] * xin.reshape(B_, S, H, hd).float()
     y = Y.reshape(B_, S, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"].to(x.dtype)
+    if return_cache:
+        return out, {"ssm": S_fin, "conv": ring}
     return (out, S_fin) if return_state else out
+
+
+def mamba_decode(p, x, cfg, state):
+    """One step.  x: (B,1,D); state {"ssm": (B,H,hd,N) fp32, "conv":
+    (B,W-1,convch)} -> (out (B,1,D), new state in that layout, the ring in
+    x's dtype)."""
+    s = cfg.ssm
+    d_inner, H, G, N, W, convch, _ = dims(cfg)
+    hd = s.head_dim
+    B_ = x.shape[0]
+    Hg = H // G
+    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    z, xin, Bc, Cc, dt = _split_proj(zxbcdt, cfg)
+    xBC, ring = _conv(torch.cat([xin, Bc, Cc], -1), p["conv_w"],
+                      p["conv_b"], conv_state=state["conv"])
+    xin, Bc, Cc = (xBC[..., :d_inner], xBC[..., d_inner:d_inner + G * N],
+                   xBC[..., d_inner + G * N:])
+    dt = F.softplus(dt.float() + p["dt_bias"].float())            # (B,1,H)
+    A = -torch.exp(p["A_log"].float())
+    dA = torch.exp(dt[:, 0] * A)                                  # (B,H)
+    xh = xin.reshape(B_, G, Hg, hd).float()
+    xdt = xh * dt[:, 0].reshape(B_, G, Hg)[..., None]
+    Bh = Bc.reshape(B_, G, N).float()
+    Ch = Cc.reshape(B_, G, N).float()
+    # S1 = exp(dt A) S0 + (dt x) (x) B;  Y = C . S1 + D x
+    S1 = (state["ssm"].reshape(B_, G, Hg, hd, N)
+          * dA.reshape(B_, G, Hg)[..., None, None]
+          + torch.einsum("bghd,bgn->bghdn", xdt, Bh))
+    Y = torch.einsum("bgn,bghdn->bghd", Ch, S1)
+    Y = Y + p["D_skip"].float().reshape(G, Hg)[None, :, :, None] * xh
+    y = Y.reshape(B_, 1, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(x.dtype)
+    return out, {"ssm": S1.reshape(B_, H, hd, N), "conv": ring}
+
+
+def init_mamba_state(cfg, batch: int, n_layers: int = 0, *, device="cuda"):
+    """{"ssm": ([L,] B, H, hd, N), "conv": ([L,] B, W-1, convch)}, fp32
+    zeros."""
+    d_inner, H, G, N, W, convch, _ = dims(cfg)
+    L = (n_layers,) if n_layers else ()
+    return {"ssm": zeros_init(L + (batch, H, cfg.ssm.head_dim, N),
+                              device=device),
+            "conv": zeros_init(L + (batch, W - 1, convch), device=device)}
 

@@ -42,7 +42,9 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device="cuda"):
-        """KV cache, or for an ssm model its fp32 recurrent state (max_len
+        """KV cache on `device`: for a dense model its K/V; for a hybrid
+        one the shared block's K/V and each Mamba2 layer's fp32 SSM state
+        and conv ring; for an ssm model its fp32 recurrent state (max_len
         and dtype unused)."""
         if self.cfg.family == "ssm":
             return self._mod.init_state(self.cfg, batch, device=device)

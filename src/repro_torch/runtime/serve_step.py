@@ -6,9 +6,12 @@ Unlike the JAX version, which returns new caches, prefill writes its K/V
 straight into the preallocated `cache_len` cache and each decode step writes
 its token's K/V in place at the row's position.  An ssm model (rwkv6)
 prefills with its chunked forward, which returns the recurrent state that
-decode then carries.  JAX's `greedy_generate` prefills such a model token by
+decode then carries.  A hybrid model (zamba2) takes the transformer's
+branch: its preallocated cache holds the shared block's K/V and every
+Mamba2 layer's SSM state and conv ring, which the chunked prefill fills in
+place.  JAX's `greedy_generate` prefills both recurrent families token by
 token through `decode_step` instead: the same function up to rounding, but
-one that never runs the chunked-WKV kernel."""
+one that never runs the chunked-WKV or the SSD kernel."""
 from __future__ import annotations
 
 import time
@@ -19,8 +22,8 @@ from torch.overrides import TorchFunctionMode
 
 class _LeafReads(TorchFunctionMode):
     """Sees every torch call while active.  For each param leaf, and each view
-    indexed out of one (a layer, embedding rows), it records whether a call
-    reads it through a cast to `dtype` or some other way."""
+    indexed or unbound out of one (a layer, embedding rows), it records
+    whether a call reads it through a cast to `dtype` or some other way."""
 
     def __init__(self, leaves: dict, dtype):
         super().__init__()
@@ -34,7 +37,11 @@ class _LeafReads(TorchFunctionMode):
         out = func(*args, **kwargs)
         read = {self.path[id(a)] for a in (*args, *kwargs.values())
                 if isinstance(a, torch.Tensor) and id(a) in self.path}
-        if read and isinstance(out, torch.Tensor):
+        if read and func in (torch.Tensor.unbind, torch.unbind):
+            for t in out:                        # the layers of a stack
+                self.path[id(t)] = self.path[id(args[0])]
+                self.keep.append(t)
+        elif read and isinstance(out, torch.Tensor):
             if func is torch.Tensor.__getitem__ and id(args[0]) in self.path:
                 self.path[id(out)] = self.path[id(args[0])]
                 self.keep.append(out)
@@ -73,7 +80,8 @@ def serving_params(model, params, dtype=torch.bfloat16):
     """Cast to `dtype` once at load every leaf that the model reads only
     through a cast to `dtype` (projection matrices, embeddings, mixing
     vectors); every leaf it reads in its own fp32 keeps it (norm scales and
-    biases; rwkv's decay base w0, decay LoRA w2, bonus u and ln_x).
+    biases; rwkv's decay base w0, decay LoRA w2, bonus u and ln_x; the
+    Mamba2 layers' A_log, dt_bias and D_skip).
 
     For a model served in `dtype` this is exact, leaf by leaf: the model
     computes the same values from the cast params, and each decode step reads
@@ -124,15 +132,13 @@ def greedy_generate(model, params, batch, max_new: int, cache_len: int,
 
     If `timings` is a dict, it receives "prefill_s" and "decode_s" (the
     device synchronised at each boundary)."""
-    if model.cfg.family == "hybrid":
-        raise NotImplementedError(
-            "family 'hybrid': recurrent serving of zamba2 is not ported")
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     t0 = _now(dev) if timings is not None else 0.0
-    # an ssm prefill returns its state; a transformer's fills this cache
+    # an ssm prefill returns its state; a transformer's or a hybrid's fills
+    # this cache
     cache = (None if model.cfg.family == "ssm"
              else model.init_cache(B, cache_len, device=dev))
     tok, cache = prefill(params, batch, cache)

@@ -45,5 +45,6 @@ def test_entry_points_default_to_cuda():
     assert metg.parse_args([]).device == "cuda"
     for fn in (model.Model.init, model.Model.init_cache, transformer.init_lm,
                transformer.init_cache, rwkv.init_lm, rwkv.init_state,
-               zamba.init_lm, mamba2.init_mamba, train_step.init_train_state):
+               zamba.init_lm, zamba.init_cache, mamba2.init_mamba,
+               mamba2.init_mamba_state, train_step.init_train_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"

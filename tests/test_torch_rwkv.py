@@ -193,6 +193,9 @@ RWKV_FP32 = {"ln0.s", "ln0.b", "ln1.s", "ln1.b", "ln2.s", "ln2.b",
              "tm.ln_x.b"}
 GEMMA_FP32 = {"blocks.ln1", "blocks.ln2", "blocks.pn1", "blocks.pn2",
               "final_norm"}   # the norm scales, as before the cast rule
+# the norm scales and the Mamba2 layers' A_log, dt_bias and D_skip
+ZAMBA_FP32 = {"mamba_ln", "mamba.A_log", "mamba.dt_bias", "mamba.D_skip",
+              "mamba.norm", "shared.ln1", "shared.ln2", "final_norm"}
 
 
 def _dtypes(tree, prefix=""):
@@ -204,7 +207,8 @@ def _dtypes(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch,fp32", [("rwkv6-1.6b", RWKV_FP32),
-                                       ("gemma2-2b", GEMMA_FP32)])
+                                       ("gemma2-2b", GEMMA_FP32),
+                                       ("zamba2-2.7b", ZAMBA_FP32)])
 def test_serving_params_keep_fp32_reads(arch, fp32):
     """The leaves the model reads in fp32 stay fp32, every other leaf is
     bf16; gemma2's serving params are what they were before the rule."""

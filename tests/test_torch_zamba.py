@@ -126,17 +126,6 @@ def test_loss_and_every_gradient_match_jax(setup):
         assert float(np.abs(a).max()) > 0
 
 
-def test_serving_modes_raise_until_ported(setup):
-    _, cfg, _, tokens, _ = setup
-    model = _model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="serving zamba2"):
-        model.forward(params, {"tokens": torch.from_numpy(tokens)},
-                      mode="prefill")
-    with pytest.raises(NotImplementedError, match="serving zamba2"):
-        model.init_cache(2, 16, device="cpu")
-
-
 def test_flash_function_backward_is_the_blockwise_autograd():
     """The recompute op the card's `flash_attention` uses (forward: kernel;
     backward: autograd of the recomputed blockwise version), with the plain
