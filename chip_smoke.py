@@ -12,9 +12,10 @@ Phases; any failure exits non-zero:
   (b) each kernel against its plain PyTorch version on the card, at the main
       paths' shapes and small cases: flash attention in bf16 and fp32 (head
       dims 256, 80 and 32), the chunked WKV in fp32 (two decay regimes, an
-      initial state; at the main shape its three stages' scratch after the
-      scan over the chunks against the plain stages, two runs bit for bit,
-      each stage's ms, the scratch bytes, registers and spills), the chunked
+      initial state, rwkv6's training shape (2, 1024, 32, 64); at the main
+      shape its three stages' scratch after the scan over the chunks
+      against the plain stages, two runs bit for bit, each stage's ms, the
+      scratch bytes, registers and spills), the chunked
       SSD forward in fp32 (three chunk-parallel stages and a scan over the
       chunks, the products in 3xTF32 on the tensor cores; Y and the final
       state against the plain version in fp32 and fp64, in three decays,
@@ -70,7 +71,32 @@ Phases; any failure exits non-zero:
       (3 kernels each) and 54 backward (4 kernels each) op calls and 9 flash
       launches per step, a finite, non-zero
       gradient on every leaf, and 4 more steps on one repeated batch whose
-      loss must fall;
+      loss must fall.  Then, the zamba2 model freed: (b) the WKV op under
+      autograd at rwkv6's training shape (2, 1024, 32, 64), chunk 64, in two
+      decays: its y and final state (the kernel's) against the plain
+      chunked version's, and its gradients (the recompute of the plain
+      version) against autograd through the plain version on the card, the
+      plain fp32 autograd against fp64 (printed), the op's and
+      the plain version's ms, the bound and the backward's ms; (b) the
+      flash op's gradients at gemma2's training shape (2, 1024, 16/4, 256)
+      with its softcap and window, fp32 (outputs and gradients), and in
+      bf16 the kernel against its plain version, its ms, the plain
+      version's, the bound, torch.compile(flex_attention)'s and the
+      backward's ms; (c) one fp32 train step of gemma2-2b and of rwkv6-1.6b
+      at full width and 2 layers, kernel path against plain path (loss,
+      grad norm, every gradient; 2 op calls each); (c) full-width
+      gemma2-2b (26 layers) trained 4 steps at batch 2 x 1024 through
+      launch.train with 26 flash op calls a step, the same gradient,
+      repeated-batch and profile checks as zamba2, then 2 steps with
+      --remat full: 52 flash op calls a step (the forward and its rerun),
+      step 1's loss and grad norm equal to the run without remat and a
+      lower peak memory; (c) full-width rwkv6-1.6b (24 layers) trained
+      likewise with 24 WKV op calls (72 kernel launches) a step; (c) reduced
+      gemma2-2b on the card trained 4 steps with --ckpt-dir, then --resume
+      to step 6: it resumes from step 4, the params and moments it restored
+      onto the card equal step 4's arrays.npz bit for bit, in the tensors
+      the run initialised (restored in place, the device memory grown by
+      no more than its largest leaf), its losses are finite;
   (d) last lines: the card, a JSON line of per-kernel results (flash
       attention once per path; A^T B at the ladder's top, with every shape
       it was held at; the WKV row with its stages' ms, scratch bytes,
@@ -80,7 +106,12 @@ Phases; any failure exits non-zero:
       registers and spills; the SSD row and the zamba2 flash row with
       zamba2 serving's op calls, serve_launches, and their serving shape's
       figures, serve_shape; the flash row with the served figures and the
-      two profiles, serve), and
+      two profiles, serve; the gemma2 flash row with its training run's
+      train_launches, train_launches_per_forward, remat_launches,
+      train_shape, train_bwd_ms and train_step_profile; the WKV row with
+      rwkv6 training's train_launches, train_launches_per_forward,
+      train_shape, bwd_ms (the recompute), bwd_fp64_err and
+      train_step_profile), and
       {"ok": true, "device": {...}}.
 Every exit with a non-zero code prints its reason on stdout: no card, a
 failed import (as when the script stands alone, without src/), a failed
@@ -88,12 +119,15 @@ check or any exception, with the phase it happened in.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
+import io
 import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -168,7 +202,19 @@ GRAD_TOL = 1e-5
 # of its largest |plain grad|; a wrong kernel or a dropped backward term is
 # off by O(1).
 STEP_LOSS_TOL, STEP_NORM_TOL, STEP_GRAD_TOL = 1e-5, 1e-4, 1e-3
-REPEAT_LR = 1e-5     # the repeated-batch steps (see phase_train)
+REPEAT_LR = 1e-5     # the repeated-batch steps (see train_full_width)
+# gemma2-2b and rwkv6-1.6b training at batch 2 x 1024 (ZB x ZS): flash at
+# q (2, 1024, 16, 256), k/v 4 heads, the local layers' window; the WKV at
+# (B, S, H, hd, Q)
+GTRAIN = (ZB, ZS, HQ, G, HD, 4096)
+WTRAIN = (ZB, ZS, 32, 64, 64)
+GEMMA_TRAIN_ARGV = ["--arch", "gemma2-2b", "--no-reduced", "--steps", "4",
+                    "--global-batch", "2", "--seq", "1024", "--device",
+                    "cuda"]
+RWKV_TRAIN_ARGV = ["--arch", "rwkv6-1.6b"] + GEMMA_TRAIN_ARGV[2:]
+# gemma2 step 1 with --remat full against the run without: the same ops
+# rerun, so only the order cuBLAS and the kernels sum in could differ
+REMAT_LOSS_TOL, REMAT_NORM_TOL = 1e-5, 1e-3
 # A^T B as (K, M, N): the JAX kernel sweep (tests/test_kernels.py:18-29), a
 # ragged shape, and the METG ladder's squares (launch/metg.py)
 MATMUL_SWEEP = [(256, 256, 256), (512, 256, 384), (384, 128, 512),
@@ -322,12 +368,13 @@ def wkv_bound(b, s, h, hd, q, with_state):
 
 def phase_wkv(torch, wkv_ops, wkv_ref, wkv_kernel, regs):
     """Chunked-WKV kernels vs plain version in fp32, y and the final state
-    within WKV_TOL.  At the main shape also the scratch after stage 2 (the
-    state entering each chunk) against the plain stages 1 and 2 within
-    WKV_TOL, a second run the same bits, each stage's ms (torch.profiler),
-    the scratch bytes and each stage's registers and spills (`regs`: the
-    build's entries for wkv6).  Returns the row for the main-path case
-    (rwkv6-1.6b prefill, test-sweep inputs)."""
+    within WKV_TOL, at the serving shape, small shapes, an initial state and
+    rwkv6's training shape (WTRAIN).  At the main shape also the scratch
+    after stage 2 (the state entering each chunk) against the plain stages
+    1 and 2 within WKV_TOL, a second run the same bits, each stage's ms
+    (torch.profiler), the scratch bytes and each stage's registers and
+    spills (`regs`: the build's entries for wkv6).  Returns the row for
+    the main-path case (rwkv6-1.6b prefill, test-sweep inputs)."""
     print("[b] wkv6 kernels vs plain chunked version")
     gen = torch.Generator(device="cuda").manual_seed(1)
     row = None
@@ -338,7 +385,9 @@ def phase_wkv(torch, wkv_ops, wkv_ref, wkv_kernel, regs):
              ("small", (2, 96, 4, 32, 16), "sweep", False),
              ("small", (2, 96, 4, 32, 32), "sweep", False),
              ("small", (1, 64, 2, 64, 32), "sweep", False),
-             ("initial state", (2, 256, 4, 64, 64), "sweep", True)]
+             ("initial state", (2, 256, 4, 64, 64), "sweep", True),
+             ("training", WTRAIN, "sweep", False),
+             ("training slow decay", WTRAIN, "slow", False)]
     for name, (b, s, h, hd, q), decay, with_state in cases:
         n = lambda: torch.randn((b, s, h, hd), generator=gen,  # noqa: E731
                                 device="cuda")
@@ -1028,26 +1077,39 @@ def phase_metg(torch, mm_ops, metg):
     return launches
 
 
-def grad_check(torch, name, kernel_fn, plain_fn, ins, g):
-    """Gradients of sum(out * g) through the kernel op against autograd
-    through the plain version on the same inputs; then the kernel op's
-    backward ms (recompute and its autograd).  Returns (max rel err, ms)."""
+def grad_check(torch, name, kernel_fn, plain_fn, ins, g, out_tol):
+    """The kernel op's outputs under autograd (a tensor, or a tuple whose
+    first is differentiated and the others unused, as in training) against
+    the plain version's on the same inputs, max |diff| <= out_tol *
+    max(1, max |plain|) each; then the gradients of sum(out * g) through
+    the op against autograd through the plain version (GRAD_TOL), and the
+    op's backward ms (recompute and its autograd).  The op's backward is
+    the plain version's autograd rerun, so the gradients check how the
+    recompute is wired and the outputs check the kernel.  Returns (max
+    rel gradient err, ms)."""
     a = [t.clone().requires_grad_() for t in ins]
     b = [t.clone().requires_grad_() for t in ins]
-    out = kernel_fn(*a)
-    ga = torch.autograd.grad(out, a, g, retain_graph=True)
-    gb = torch.autograd.grad(plain_fn(*b), b, g)
+    outs, plains = kernel_fn(*a), plain_fn(*b)
+    if torch.is_tensor(outs):
+        outs, plains = (outs,), (plains,)
+    out_errs = [float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+                for x, y in zip(outs, plains)]
+    ga = torch.autograd.grad(outs[0], a, g, retain_graph=True)
+    gb = torch.autograd.grad(plains[0], b, g)
     errs = [float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
             for x, y in zip(ga, gb)]
-    ok = max(errs) <= GRAD_TOL and all(bool(torch.isfinite(x).all())
-                                       for x in ga)
-    ms = cuda_ms(lambda: torch.autograd.grad(out, a, g, retain_graph=True), 3)
-    print(f"[b] grad {name}: max|diff|/max(1, max|plain|) per input "
-          f"{[float(f'{e:.3e}') for e in errs]} (tol {GRAD_TOL:.0e}) "
-          f"backward_ms={ms:.2f} {'ok' if ok else 'FAIL'}")
+    ok = (max(out_errs) <= out_tol and max(errs) <= GRAD_TOL
+          and all(bool(torch.isfinite(x).all()) for x in outs + ga))
+    ms = cuda_ms(lambda: torch.autograd.grad(outs[0], a, g,
+                                             retain_graph=True), 3)
+    print(f"[b] grad {name}: outputs max|diff|/max(1, max|plain|) "
+          f"{[float(f'{e:.3e}') for e in out_errs]} (tol {out_tol:.0e}); "
+          f"gradients per input {[float(f'{e:.3e}') for e in errs]} (tol "
+          f"{GRAD_TOL:.0e}) backward_ms={ms:.2f} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"{name}: kernel-op gradients disagree with the "
-                         f"plain version's autograd: {errs}")
+        raise SystemExit(f"{name}: the kernel op's outputs or gradients "
+                         f"disagree with the plain version's: {out_errs} "
+                         f"{errs}")
     return max(errs), ms
 
 
@@ -1062,7 +1124,8 @@ def phase_grads(torch, fa_ops, fa_ref):
     g = torch.randn((ZB, ZS, ZH, ZHD), generator=gen, device="cuda")
     grad_check(torch, f"flash_attention fp32 {(ZB, ZS, ZH, ZHD)} causal",
                lambda *a: fa_ops.flash_attention(*a, **kw),
-               lambda *a: fa_ref.flash_attention_blockwise(*a, **kw), qkv, g)
+               lambda *a: fa_ref.flash_attention_blockwise(*a, **kw), qkv, g,
+               FP32_TOL)
     qkv = [t.bfloat16().requires_grad_() for t in qkv]
     out = fa_ops.flash_attention(*qkv, **kw)
     fa_bwd = cuda_ms(lambda: torch.autograd.grad(out, qkv, g.bfloat16(),
@@ -1634,10 +1697,13 @@ def leaf_items(tree, prefix=""):
         yield prefix, tree
 
 
-def phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention):
-    """One fp32 train step's loss and gradients at full width and one group
-    of depth (6 Mamba2 layers, one shared block), kernel path vs plain
-    path, the same params and batch."""
+def phase_train_step(torch, arch, n_layers, patches, counters, want):
+    """One fp32 train step's loss and gradients of `arch` at full width
+    and `n_layers` of depth, kernel path vs plain path (each `patches`
+    entry (module, attribute, plain version) swapped in), the same params
+    and batch.  Every count of `counters` ({label: (function, attribute)})
+    is set to 0 before the kernel path and held at `want` after it, and
+    the plain path launches nothing."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import Pipeline
     from repro_torch.launch.train import to_device
@@ -1646,7 +1712,7 @@ def phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention):
     from repro_torch.optim.adamw import global_norm
     from repro_torch.runtime.train_step import value_and_grad
 
-    cfg = get_config("zamba2-2.7b").replace(n_layers=6)
+    cfg = get_config(arch).replace(n_layers=n_layers)
     model = build_model(cfg, Options(q_block=512, kv_block=512))
     params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
     batch = to_device(next(Pipeline(cfg.vocab_size, ZS, ZB).batches(1)),
@@ -1656,17 +1722,18 @@ def phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention):
         logits = model.forward(p, b, dtype=torch.float32)
         return softmax_xent(logits, b["labels"], cfg.vocab_size), {}
 
-    ssd_ops.ssd.launches = ssd_ops.ssd.bwd_launches = 0
-    fa_ops.flash_attention.launches = 0
+    def read():
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     (lk, _), gk = value_and_grad(loss_fn, params, batch)
-    launches = (ssd_ops.ssd.launches, ssd_ops.ssd.bwd_launches,
-                fa_ops.flash_attention.launches)
-    with mock.patch.object(ssd_ops, "ssd", ssd_ops.ssd_plain), \
-            mock.patch.object(attention, "flash_attention",
-                              fa_ref.flash_attention_blockwise):
+    launches = read()
+    with contextlib.ExitStack() as stack:
+        for module, attr, plain in patches:
+            stack.enter_context(mock.patch.object(module, attr, plain))
         (lp, _), gp = value_and_grad(loss_fn, params, batch)
-    if (ssd_ops.ssd.launches, ssd_ops.ssd.bwd_launches,
-            fa_ops.flash_attention.launches) != launches:
+    if read() != launches:
         raise SystemExit("the plain path launched a kernel")
     nk, np_ = float(global_norm(gk)), float(global_norm(gp))
     worst, bad = 0.0, []
@@ -1677,27 +1744,32 @@ def phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention):
             bad.append((path, rel))
     loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
     norm_rel = abs(nk - np_) / np_
-    print(f"[c] zamba2 one group (6 Mamba2 layers + shared block), fp32 "
-          f"train step, kernel vs plain path: op calls (ssd forward, 3 "
-          f"kernels each; ssd backward, 4 each; flash)="
-          f"{launches}; loss {float(lk):.6f} vs {float(lp):.6f} (rel "
-          f"{loss_rel:.2e}, tol {STEP_LOSS_TOL:.0e}); grad norm {nk:.6f} vs "
-          f"{np_:.6f} (rel {norm_rel:.2e}, tol {STEP_NORM_TOL:.0e}); worst "
-          f"leaf max|diff|/max|plain| {worst:.2e} (tol {STEP_GRAD_TOL:.0e}) "
-          f"over {len(list(leaf_items(gk)))} leaves")
-    if launches != (6, 6, 1):
-        raise SystemExit(f"launches {launches}, want 6 SSD forward, 6 SSD "
-                         f"backward and 1 flash")
+    print(f"[c] {arch} {n_layers} layers at full width, fp32 train step, "
+          f"kernel vs plain path: op calls {launches} (want {want}); loss "
+          f"{float(lk):.6f} vs {float(lp):.6f} (rel {loss_rel:.2e}, tol "
+          f"{STEP_LOSS_TOL:.0e}); grad norm {nk:.6f} vs {np_:.6f} (rel "
+          f"{norm_rel:.2e}, tol {STEP_NORM_TOL:.0e}); worst leaf "
+          f"max|diff|/max|plain| {worst:.2e} (tol {STEP_GRAD_TOL:.0e}) over "
+          f"{len(list(leaf_items(gk)))} leaves")
+    if launches != want:
+        raise SystemExit(f"op calls {launches}, want {want}")
     if loss_rel > STEP_LOSS_TOL or norm_rel > STEP_NORM_TOL or bad:
         raise SystemExit(f"kernel-path train step disagrees: {bad}")
     del params, gk, gp
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
-def phase_train(torch, ssd_ops, fa_ops, train):
-    """Full-width zamba2-2.7b through `launch.train.main`, then gradient
-    and repeated-batch checks, one of whose steps runs under the profiler.
-    Returns the launches of the run and per forward: ((ssd, per forward),
-    (flash, per forward), ssd backward, the profiled step's summary)."""
+def train_full_width(torch, train, argv, name, dims, want_params, counters,
+                     want_per_step):
+    """Full-width training through `launch.train.main(argv)`, every count
+    of `counters` ({label: (function, attribute)}) set to 0 just before and
+    read just after; then gradient and repeated-batch checks, one of whose
+    steps runs under the profiler.  Holds the config's (n_layers, d_model,
+    vocab) `dims`, the param count, each count at `want_per_step` a step
+    and finite losses.  Returns (counts over the run, steps, the run's
+    records, losses and peak bytes, the profiled step's summary); the model
+    is freed on return."""
     from repro_torch.data.pipeline import Pipeline
     from repro_torch.models.common import param_count, tree_leaves
     from repro_torch.runtime.train_step import (make_loss_fn, make_train_step,
@@ -1706,17 +1778,16 @@ def phase_train(torch, ssd_ops, fa_ops, train):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ssd_ops.ssd.launches = ssd_ops.ssd.bwd_launches = 0
-    fa_ops.flash_attention.launches = 0
-    res = train.main(TRAIN_ARGV)
-    n_ssd, n_fa = ssd_ops.ssd.launches, fa_ops.flash_attention.launches
-    n_bwd = ssd_ops.ssd.bwd_launches
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    res = train.main(argv)
+    counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     model, params, opt_state = res["model"], res["params"], res["opt_state"]
     cfg, steps = model.cfg, len(res["losses"])
     n_params = param_count(params)
-    if (cfg.n_layers, cfg.d_model, cfg.vocab_size) != (54, 2560, 32000):
-        raise SystemExit(f"not zamba2-2.7b at full width: {cfg}")
-    print(f"[c] zamba2-2.7b trained {steps} steps at batch {ZB} x {ZS}: "
+    if (cfg.n_layers, cfg.d_model, cfg.vocab_size) != dims:
+        raise SystemExit(f"not {name} at full width: {cfg}")
+    print(f"[c] {name} trained {steps} steps at batch {ZB} x {ZS}: "
           f"params={n_params:,}; losses={[round(x, 4) for x in res['losses']]}"
           f"; peak max_memory_allocated_GB="
           f"{res['peak_bytes'] / 1e9:.2f}")
@@ -1725,21 +1796,20 @@ def phase_train(torch, ssd_ops, fa_ops, train):
               f"{r['fwd_ms']:.1f} bwd_ms={r['bwd_ms']:.1f} opt_ms="
               f"{r['opt_ms']:.1f} tokens_per_s={r['tokens_per_s']:.0f} "
               f"grad_norm={r['grad_norm']:.4f}")
-    print(f"[c] op calls per step: mamba2_ssd {n_ssd / steps:g} forward (3 "
-          f"kernels each) and {n_bwd / steps:g} backward (4 kernels each), "
-          f"flash_attention {n_fa / steps:g} (want 54, 54 and 9; totals "
-          f"{n_ssd}, {n_bwd}, {n_fa})")
-    if n_params != 2_501_316_000:
-        raise SystemExit(f"param count {n_params}")
-    if (n_ssd, n_bwd, n_fa) != (54 * steps, 54 * steps, 9 * steps):
-        raise SystemExit(f"launches {n_ssd}, {n_bwd}, {n_fa} over {steps} "
-                         f"steps")
+    print(f"[c] op calls per step: " + ", ".join(
+        f"{k} {n / steps:g} (want {want_per_step[k]}; total {n})"
+        for k, n in counts.items()))
+    if n_params != want_params:
+        raise SystemExit(f"param count {n_params}, want {want_params}")
+    if any(counts[k] != want_per_step[k] * steps for k in counts):
+        raise SystemExit(f"op calls {counts} over {steps} steps, want "
+                         f"{want_per_step} a step")
     if not np.isfinite(res["losses"]).all():
         raise SystemExit("non-finite training loss")
 
     # one repeated batch: every leaf's gradient, then 4 steps at warmup 0
     batch = train.to_device(next(Pipeline(cfg.vocab_size, ZS, ZB, seed=1)
-                                 .batches(1)), "cuda")
+                                 .batches(1)), tree_leaves(params)[0].device)
     timings: dict = {}
     (loss0, _), grads = value_and_grad(make_loss_fn(model), params, batch,
                                        timings)
@@ -1756,7 +1826,8 @@ def phase_train(torch, ssd_ops, fa_ops, train):
     # Fresh moments (zeroed in place: a second set would not fit beside the
     # first) and a small constant lr, so 4 Adam steps on one batch stay in
     # the regime where the loss must descend; at launch.train's default
-    # lr 3e-4 the 2.5B-parameter model overshoots in its first steps.
+    # lr 3e-4 a model of billions of parameters overshoots in its first
+    # steps.
     for t in (*tree_leaves(opt_state.m), *tree_leaves(opt_state.v)):
         t.zero_()
     opt_state = opt_state._replace(count=torch.zeros_like(opt_state.count))
@@ -1766,8 +1837,8 @@ def phase_train(torch, ssd_ops, fa_ops, train):
     for i in range(4):
         if i == 2:   # one step under the profiler: where the device time goes
             (params, opt_state, m), profiled = device_profile(
-                torch, "train step", lambda: step_fn(params, opt_state,
-                                                     batch), step_ms)
+                torch, f"{name} train step", lambda: step_fn(
+                    params, opt_state, batch), step_ms)
         else:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1775,12 +1846,279 @@ def phase_train(torch, ssd_ops, fa_ops, train):
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3
         rep.append(float(m["loss"]))
-    print(f"[c] repeated batch, 4 steps at lr {REPEAT_LR:g}, warmup 0, "
-          f"fresh moments: losses "
-          f"{[round(x, 4) for x in rep]}")
+    print(f"[c] {name} repeated batch, 4 steps at lr {REPEAT_LR:g}, warmup "
+          f"0, fresh moments: losses {[round(x, 4) for x in rep]}")
     if not (np.isfinite(rep).all() and rep[-1] < rep[0]):
         raise SystemExit("the repeated batch's loss did not fall")
+    run = {"records": res["records"], "losses": res["losses"],
+           "peak_bytes": res["peak_bytes"]}
+    return counts, steps, run, profiled
+
+
+def phase_train(torch, ssd_ops, fa_ops, train):
+    """Full-width zamba2-2.7b through `launch.train.main` (train_full_width).
+    Returns the launches of the run and per forward: ((ssd, per forward),
+    (flash, per forward), ssd backward, the profiled step's summary)."""
+    counts, steps, _, profiled = train_full_width(
+        torch, train, TRAIN_ARGV, "zamba2-2.7b", (54, 2560, 32000),
+        2_501_316_000,
+        {"mamba2_ssd forward (3 kernels each)": (ssd_ops.ssd, "launches"),
+         "mamba2_ssd backward (4 kernels each)": (ssd_ops.ssd,
+                                                  "bwd_launches"),
+         "flash_attention": (fa_ops.flash_attention, "launches")},
+        {"mamba2_ssd forward (3 kernels each)": 54,
+         "mamba2_ssd backward (4 kernels each)": 54, "flash_attention": 9})
+    n_ssd, n_bwd, n_fa = counts.values()
     return (n_ssd, n_ssd // steps), (n_fa, n_fa // steps), n_bwd, profiled
+
+
+def phase_wkv_grads(torch, wkv_ops, wkv_ref):
+    """The WKV op at rwkv6's training shape (WTRAIN), fp32, in two decays,
+    through grad_check: its y and final state under autograd (the kernel's)
+    against `wkv6_chunked`'s (WKV_TOL), and its gradients (the recompute
+    of `wkv6_chunked`) against autograd through `wkv6_chunked` on the card
+    (GRAD_TOL), the final state unused as in training; the plain fp32
+    autograd against fp64, printed; the op's forward ms, the plain
+    version's and the bound, and the backward's ms (the recompute).
+    Returns the WKV row's keys for them."""
+    b, s, h, hd, q = WTRAIN
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for decay in ("sweep", "slow"):
+        n = lambda: torch.randn((b, s, h, hd), generator=gen,  # noqa: E731
+                                device="cuda")
+        r, k, v = n() * 0.5, n() * 0.5, n()
+        logw = -torch.exp(n() * 0.5 - 1.0 if decay == "sweep"
+                          else n() * 0.1 - 6.0)
+        u = torch.randn((h, hd), generator=gen, device="cuda") * 0.1
+        g = n()
+        ins = [r, k, v, logw, u]
+        err, bwd_ms = grad_check(
+            torch, f"wkv6 {WTRAIN[:4]} Q={q} {decay} decay",
+            lambda *a: wkv_ops.wkv6(*a, chunk=q),
+            lambda *a: wkv_ref.wkv6_chunked(*a, chunk=q), ins, g, WKV_TOL)
+        a32 = [t.clone().requires_grad_() for t in ins]
+        a64 = [t.double().requires_grad_() for t in ins]
+        g32 = torch.autograd.grad(
+            wkv_ref.wkv6_chunked(*a32, chunk=q)[0], a32, g)
+        zero64 = torch.zeros((b, h, hd, hd), dtype=torch.float64,
+                             device="cuda")
+        g64 = torch.autograd.grad(wkv_ref.wkv6_chunked(
+            *a64, chunk=q, initial_state=zero64)[0], a64, g.double())
+        fp64_err = max(float((x.double() - y).abs().max())
+                       / max(1.0, float(y.abs().max()))
+                       for x, y in zip(g32, g64))
+        print(f"[b] wkv6 {decay} decay: plain fp32 autograd vs fp64, "
+              f"max|diff|/max(1, max|fp64|) over the inputs = "
+              f"{fp64_err:.3e} (printed, not held)")
+        del a32, a64, g32, g64, zero64
+        if decay == "sweep":
+            ms = cuda_ms(lambda: wkv_ops.wkv6(*ins, chunk=q), 10)
+            plain_ms = cuda_ms(lambda: wkv_ref.wkv6_chunked(*ins, chunk=q),
+                               3)
+            bound_ms, bound_by, *_ = wkv_bound(b, s, h, hd, q, False)
+            print(f"[b] wkv6 training shape {WTRAIN[:4]} Q={q}: kernel_ms="
+                  f"{ms:.3f} plain_ms={plain_ms:.3f} bound_ms="
+                  f"{bound_ms:.4f} ({bound_by}) backward_ms={bwd_ms:.2f} "
+                  f"(the recompute)")
+            out = {"bwd_ms": bwd_ms, "bwd_max_abs_err": err,
+                   "bwd_fp64_err": fp64_err,
+                   "train_shape": {"shape": list(WTRAIN[:4]), "chunk": q,
+                                   "ms": ms, "plain_ms": plain_ms,
+                                   "bound_ms": bound_ms,
+                                   "bound_by": bound_by, "library_ms": None}}
+        else:
+            out["bwd_fp64_err_slow"] = fp64_err
+        del ins, r, k, v, logw, u, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_grads_gemma2(torch, fa_ops, fa_ref):
+    """Flash at gemma2's training shape (GTRAIN: q (2, 1024, 16, 256), k/v
+    4 heads, softcap CAP, the local layers' window 4096): the gradients
+    through the op against autograd through its plain version, fp32
+    (GRAD_TOL); in bf16, the type training runs, the kernel against the
+    plain version (one bf16 rounding, BF16_ATOL), its ms, the plain
+    version's, the bound, torch.compile(flex_attention)'s ms and the
+    backward's ms (the recompute).  Returns the gemma2 row's keys."""
+    from torch.nn.attention.flex_attention import flex_attention
+    b, s, hq, g, hd, window = GTRAIN
+    kw = dict(window=window, logit_softcap=CAP, scale=SCALE, q_block=512,
+              kv_block=512)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn((b, s, hq, hd), generator=gen, device="cuda")
+    k, v = (torch.randn((b, s, g, hd), generator=gen, device="cuda")
+            for _ in range(2))
+    gq = torch.randn((b, s, hq, hd), generator=gen, device="cuda")
+    err, _ = grad_check(
+        torch, f"flash_attention fp32 q{(b, s, hq, hd)} kv{(b, s, g, hd)} "
+        f"window={window} softcap={CAP}",
+        lambda *a: fa_ops.flash_attention(*a, **kw),
+        lambda *a: fa_ref.flash_attention_blockwise(*a, **kw), [q, k, v], gq,
+        FP32_TOL)
+    qkv = [t.bfloat16() for t in (q, k, v)]
+    out = fa_ops.flash_attention(*qkv, **kw)
+    plain32 = fa_ref.flash_attention_blockwise(*(t.float() for t in qkv),
+                                               **kw)
+    excess = bf16_excess(out, plain32)
+    ms = cuda_ms(lambda: fa_ops.flash_attention(*qkv, **kw), 10)
+    plain_ms = cuda_ms(lambda: fa_ref.flash_attention_blockwise(*qkv, **kw),
+                       3)
+    bound_ms, bound_by, _ = attention_bound(b, s, hq, g, hd, window, 2,
+                                            H100_BF16_FLOPS)
+    flex = torch.compile(flex_attention)
+    flex_yardstick(torch, *qkv, window, CAP, SCALE, flex)   # compiles
+    flex_out, flex_ms = flex_yardstick(torch, *qkv, window, CAP, SCALE, flex)
+    flex_err = float((flex_out.float() - plain32).abs().max())
+    a = [t.requires_grad_() for t in qkv]
+    out = fa_ops.flash_attention(*a, **kw)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, a, gq.bfloat16(), retain_graph=True), 3)
+    print(f"[b] flash_attention bf16 gemma2 training shape q{(b, s, hq, hd)}"
+          f": beyond one bf16 rounding of the fp32 result {excess:.3e} (tol "
+          f"{BF16_ATOL:.0e}) kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}) flex_ms={flex_ms:.3f} "
+          f"(max_abs_err vs plain fp32 {flex_err:.3e}) backward_ms="
+          f"{bwd_ms:.2f} (recompute of the blockwise version, q/kv blocks "
+          f"512) {'ok' if excess <= BF16_ATOL else 'FAIL'}")
+    if excess > BF16_ATOL or not bool(torch.isfinite(out).all()):
+        raise SystemExit(f"flash_attention at gemma2's training shape "
+                         f"disagrees with its plain version: {excess}")
+    del q, k, v, gq, qkv, a, out, plain32, flex_out
+    torch.cuda.empty_cache()
+    return {"train_bwd_ms": bwd_ms,
+            "train_shape": {"shape": [b, s, hq, g, hd], "window": window,
+                            "grad_max_rel_err": err, "bf16_excess": excess,
+                            "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": flex_ms,
+                            "library": "torch.compile(flex_attention)"}}
+
+
+def phase_train_gemma2(torch, fa_ops, train):
+    """Full-width gemma2-2b, 4 steps (train_full_width), then 2 steps of
+    the same run with --remat full: 52 flash op calls a step (the forward
+    and its rerun), step 1's loss and grad norm equal to the first run's
+    (REMAT_LOSS_TOL, REMAT_NORM_TOL) and a lower peak memory.  Returns the
+    gemma2 row's keys and the profiled step's summary."""
+    counter = {"flash_attention": (fa_ops.flash_attention, "launches")}
+    counts, steps, run, profiled = train_full_width(
+        torch, train, GEMMA_TRAIN_ARGV, "gemma2-2b", (26, 2304, 256000),
+        2_859_708_672, counter, {"flash_attention": 26})
+    gc.collect()
+    torch.cuda.empty_cache()
+    fa_ops.flash_attention.launches = 0
+    remat = train.main(GEMMA_TRAIN_ARGV + ["--steps", "2", "--remat",
+                                           "full"])
+    n_remat = fa_ops.flash_attention.launches
+    a, b = run["records"][0], remat["records"][0]
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(a["loss"])
+    norm_rel = abs(a["grad_norm"] - b["grad_norm"]) / a["grad_norm"]
+    print(f"[c] gemma2-2b --remat full, 2 steps: flash op calls "
+          f"{n_remat / 2:g} a step (want 52: the forward and its rerun); "
+          f"step 1 loss {b['loss']:.6f} vs {a['loss']:.6f} without remat "
+          f"(rel {loss_rel:.2e}, tol {REMAT_LOSS_TOL:.0e}), grad norm "
+          f"{b['grad_norm']:.6f} vs {a['grad_norm']:.6f} (rel {norm_rel:.2e},"
+          f" tol {REMAT_NORM_TOL:.0e}); peak max_memory_allocated_GB "
+          f"{remat['peak_bytes'] / 1e9:.2f} vs {run['peak_bytes'] / 1e9:.2f} "
+          f"without remat; step_ms " + ", ".join(
+              f"{r['step_ms']:.1f}" for r in remat["records"]))
+    if n_remat != 52 * 2:
+        raise SystemExit(f"flash op calls under remat {n_remat}, want 104")
+    if loss_rel > REMAT_LOSS_TOL or norm_rel > REMAT_NORM_TOL:
+        raise SystemExit("remat changed step 1's loss or grad norm")
+    if not remat["peak_bytes"] < run["peak_bytes"]:
+        raise SystemExit("remat did not lower the peak memory")
+    keys = {"train_launches": counts["flash_attention"],
+            "train_launches_per_forward": counts["flash_attention"] // steps,
+            "remat_launches": n_remat,
+            "train_peak_GB": run["peak_bytes"] / 1e9,
+            "remat_peak_GB": remat["peak_bytes"] / 1e9}
+    del remat
+    return keys, profiled
+
+
+def phase_train_rwkv6(torch, wkv_ops, train):
+    """Full-width rwkv6-1.6b, 4 steps (train_full_width): 24 WKV op calls
+    (72 kernel launches) a step.  Returns the WKV row's keys and the
+    profiled step's summary."""
+    counts, steps, run, profiled = train_full_width(
+        torch, train, RWKV_TRAIN_ARGV, "rwkv6-1.6b", (24, 2048, 65536),
+        1_599_873_024, {"wkv6 (3 kernels each)": (wkv_ops.wkv6, "launches")},
+        {"wkv6 (3 kernels each)": 24})
+    n = counts["wkv6 (3 kernels each)"]
+    return {"train_launches": n, "train_launches_per_forward": n // steps,
+            "train_peak_GB": run["peak_bytes"] / 1e9}, profiled
+
+
+def phase_ckpt(torch, train):
+    """Reduced gemma2-2b on the card, 4 steps saving every 2 into a
+    temporary directory under build/, then --resume --steps 6: the run
+    says it resumed from step 4, the params and moments it restored onto
+    the card equal step 4's arrays.npz bit for bit, restore wrote them into
+    the tensors the run initialised (in place) and grew the allocated
+    device memory by no more than the largest leaf, and the resumed losses
+    are finite."""
+    from repro_torch.checkpoint import ckpt
+    restored = []
+    real_restore = ckpt.restore
+
+    def spy(directory, step, template, **kw):
+        items = list(ckpt._items(template))
+        ptrs = [t.data_ptr() for _, t in items]
+        largest = max(t.numel() * t.element_size() for _, t in items)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tree = real_restore(directory, step, template, **kw)
+        torch.cuda.synchronize()
+        items = list(ckpt._items(tree))
+        restored.append({   # the train step then updates the tree in place
+            "leaves": [(k, t.device.type, t.detach().cpu().clone())
+                       for k, t in items],
+            "in_place": tree is template
+            and [t.data_ptr() for _, t in items] == ptrs,
+            "grown": torch.cuda.max_memory_allocated() - before,
+            "largest": largest})
+        return tree
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        argv = ["--arch", "gemma2-2b", "--reduced", "--global-batch", "2",
+                "--seq", "64", "--ckpt-dir", d, "--ckpt-every", "2",
+                "--device", "cuda"]
+        train.main(argv + ["--steps", "4"])
+        out = io.StringIO()
+        with mock.patch.object(ckpt, "restore", spy), \
+                contextlib.redirect_stdout(out):
+            res = train.main(argv + ["--steps", "6", "--resume"])
+        print(out.getvalue(), end="")
+        got = restored[0]
+        with np.load(Path(d) / "step_00000004" / "arrays.npz") as data:
+            files = sorted(data.files)
+            diff = [k for k, dev, t in got["leaves"]
+                    if dev != "cuda" or t.numpy().tobytes()
+                    != data[k].tobytes()]
+        n_saved = sorted(p.name for p in Path(d).glob("step_*"))
+    said = "[train] resumed from step 4" in out.getvalue()
+    n = len(got["leaves"])
+    print(f"[c] checkpoint on the card: resumed={said}; {n} leaves restored "
+          f"onto the card, {n - len(diff)} equal to step 4's arrays.npz bit "
+          f"for bit; in place: {got['in_place']}; allocated device memory "
+          f"grew by {got['grown']} B during the restore (largest leaf "
+          f"{got['largest']} B); resumed losses "
+          f"{[round(x, 4) for x in res['losses']]}; steps kept {n_saved}")
+    if not said or res["start_step"] != 4 or len(res["losses"]) != 2:
+        raise SystemExit("the run did not resume from step 4")
+    if diff or sorted(k for k, _, _ in got["leaves"]) != files:
+        raise SystemExit(f"restored leaves differ from the checkpoint: "
+                         f"{diff}")
+    if not got["in_place"] or got["grown"] > got["largest"]:
+        raise SystemExit("restore did not write into the run's tensors in "
+                         "place, or allocated more than one leaf on the card")
+    if not np.isfinite(res["losses"]).all():
+        raise SystemExit("non-finite loss after the resume")
 
 
 def device_profile(torch, what, fn, ref_ms, top=10):
@@ -1900,12 +2238,47 @@ def run(where: dict) -> int:
     gc.collect()               # the served model and its caches go first
     torch.cuda.empty_cache()
     where["phase"] = "(c) zamba2 one-group train step"
-    phase_train_step(torch, ssd_ops, fa_ops, fa_ref, attention)
+    # one group of depth: 6 Mamba2 layers and the shared block
+    phase_train_step(
+        torch, "zamba2-2.7b", 6,
+        [(ssd_ops, "ssd", ssd_ops.ssd_plain),
+         (attention, "flash_attention", fa_ref.flash_attention_blockwise)],
+        {"ssd forward (3 kernels each)": (ssd_ops.ssd, "launches"),
+         "ssd backward (4 kernels each)": (ssd_ops.ssd, "bwd_launches"),
+         "flash_attention": (fa_ops.flash_attention, "launches")},
+        {"ssd forward (3 kernels each)": 6,
+         "ssd backward (4 kernels each)": 6, "flash_attention": 1})
     where["phase"] = "(c) zamba2-2.7b training"
     (ssd_row["launches"], ssd_row["launches_per_forward"]), \
         (zrow["launches"], zrow["launches_per_forward"]), \
         ssd_row["bwd_launches"], ssd_row["train_step_profile"] = phase_train(
             torch, ssd_ops, fa_ops, train)
+    gc.collect()               # the zamba2 model and its moments go first
+    torch.cuda.empty_cache()
+    where["phase"] = "(b) wkv6 gradients"
+    wkv_row.update(phase_wkv_grads(torch, wkv_ops, wkv_ref))
+    where["phase"] = "(b) flash_attention gradients at gemma2's shape"
+    row.update(phase_grads_gemma2(torch, fa_ops, fa_ref))
+    where["phase"] = "(c) gemma2 two-layer train step"
+    phase_train_step(
+        torch, "gemma2-2b", 2,
+        [(attention, "flash_attention", fa_ref.flash_attention_blockwise)],
+        {"flash_attention": (fa_ops.flash_attention, "launches")},
+        {"flash_attention": 2})
+    where["phase"] = "(c) rwkv6 two-layer train step"
+    phase_train_step(
+        torch, "rwkv6-1.6b", 2, [(rwkv, "wkv6", wkv_ref.wkv6_chunked)],
+        {"wkv6 (3 kernels each)": (wkv_ops.wkv6, "launches")},
+        {"wkv6 (3 kernels each)": 2})
+    where["phase"] = "(c) gemma2-2b training"
+    keys, row["train_step_profile"] = phase_train_gemma2(torch, fa_ops, train)
+    row.update(keys)
+    where["phase"] = "(c) rwkv6-1.6b training"
+    keys, wkv_row["train_step_profile"] = phase_train_rwkv6(torch, wkv_ops,
+                                                            train)
+    wkv_row.update(keys)
+    where["phase"] = "(c) checkpoint on the card"
+    phase_ckpt(torch, train)
     where["phase"] = "(d) results"
     print(f"[d] total {time.perf_counter() - t_start:.1f}s")
     print(card_line())

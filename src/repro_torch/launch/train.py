@@ -5,13 +5,20 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
         --reduced --steps 3 --global-batch 2 --seq 32 --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
+        --no-reduced --steps 4 --global-batch 2 --seq 1024 --remat full \
+        --ckpt-dir ckpts --ckpt-every 2 [--resume]
+
 The flags and `build` of the JAX package's `launch/train.py`; runs on the
 card unless --device cpu.
 Weights are random, made from --seed on the device; batches come from the
 synthetic pipeline.  Each step prints loss, grad norm, step ms (forward,
 backward, optimizer) and tokens/s; the run ends with the peak device
-memory.  Checkpointing (--ckpt-dir, --resume) and --remat are not ported
-yet and raise.
+memory.  --remat none|dots|full checkpoints the transformer's blocks
+(`models.common.maybe_remat`).  --ckpt-dir saves {"params", "opt"} every
+--ckpt-every steps and at the last, in the JAX package's format
+(`checkpoint.ckpt`), so either framework resumes the other's run;
+--resume restores the latest step there and trains up to --steps.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.models.common import Options, param_count
@@ -42,7 +50,8 @@ def build(args):
         cfg = cfg.replace(d_model=args.d_model,
                           d_ff=args.d_ff or 4 * args.d_model,
                           head_dim=max(32, args.d_model // cfg.n_heads))
-    opts = Options(q_block=min(512, args.seq), kv_block=min(512, args.seq))
+    opts = Options(q_block=min(512, args.seq), kv_block=min(512, args.seq),
+                   remat=args.remat)
     model = build_model(cfg, opts)
     rc = RunConfig(remat=args.remat, microbatches=args.microbatches,
                    lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
@@ -80,14 +89,9 @@ def to_device(batch: dict, device) -> dict:
 
 def main(argv=None):
     """Train; returns a dict with the model, params, optimizer state, run
-    config, per-step records and losses, for callers that check them."""
+    config, per-step records and losses and the step it started from (0,
+    or the step --resume restored), for callers that check them."""
     args = parse_args(argv)
-    if args.ckpt_dir or args.resume:
-        raise NotImplementedError("checkpointing is not ported yet "
-                                  "(ROADMAP Queue 1, checkpoint/ckpt.py)")
-    if args.remat != "none":
-        raise NotImplementedError("--remat is not ported yet (ROADMAP "
-                                  "Queue 1, maybe_remat)")
     device = torch.device(args.device)
     cfg, model, rc = build(args)
     gen = torch.Generator(device=device).manual_seed(rc.seed)
@@ -96,6 +100,24 @@ def main(argv=None):
     print(f"[train] arch={cfg.name} params={param_count(params):,} "
           f"on {device}")
 
+    start_step = 0
+    ckpter = None
+    if args.ckpt_dir:
+        ckpter = ckpt.AsyncCheckpointer(args.ckpt_dir)
+        if args.resume:
+            last = ckpt.latest_step(args.ckpt_dir)
+            if last is not None:
+                tree = ckpt.restore(args.ckpt_dir, last,
+                                    {"params": params, "opt": opt_state})
+                params, opt_state = tree["params"], tree["opt"]
+                del tree
+                start_step = last
+                print(f"[train] resumed from step {last}")
+
+    # A fresh pipeline after a resume, as the JAX package's driver makes:
+    # the resumed run is fed the pipeline's first batches again, not those
+    # after the saved step (ROADMAP Queue 3), so the two frameworks'
+    # resumed runs see the same data.
     pipe = Pipeline(cfg.vocab_size, args.seq, args.global_batch, seed=rc.seed)
     step_fn = make_train_step(model, rc)
     if args.metrics_out:
@@ -105,7 +127,10 @@ def main(argv=None):
     with (open(args.metrics_out, "a") if args.metrics_out
           else contextlib.nullcontext()) as logf:
         params, opt_state, records, losses = _train(
-            args, step_fn, pipe, params, opt_state, device, logf)
+            args, step_fn, pipe, params, opt_state, device, logf,
+            start_step, ckpter)
+    if ckpter:
+        ckpter.wait()
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
     if peak is not None:
@@ -117,16 +142,18 @@ def main(argv=None):
     print(f"[train] done: first {losses[0]:.4f} -> last {losses[-1]:.4f}")
     return {"model": model, "params": params, "opt_state": opt_state,
             "rc": rc, "records": records, "losses": losses,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "start_step": start_step}
 
 
-def _train(args, step_fn, pipe, params, opt_state, device, logf):
-    """The step loop.  Returns (params, opt_state, records, losses)."""
+def _train(args, step_fn, pipe, params, opt_state, device, logf,
+           start_step, ckpter):
+    """The step loop from `start_step`, saving through `ckpter` (or None).
+    Returns (params, opt_state, records, losses)."""
     tokens_per_step = args.global_batch * args.seq
     records, losses = [], []
     t_start = time.perf_counter()
-    for i, batch in enumerate(pipe.batches(args.steps)):
-        step = i + 1
+    for i, batch in enumerate(pipe.batches(args.steps - start_step)):
+        step = start_step + i + 1
         tb = to_device(batch, device)
         timings: dict = {}
         t0 = time.perf_counter()
@@ -150,6 +177,9 @@ def _train(args, step_fn, pipe, params, opt_state, device, logf):
               f"{rec['grad_norm']:.3f} step_ms {rec['step_ms']:.1f} (fwd "
               f"{rec['fwd_ms']:.1f} bwd {rec['bwd_ms']:.1f} opt "
               f"{rec['opt_ms']:.1f}) tokens/s {rec['tokens_per_s']:.0f}")
+        if ckpter and (step % args.ckpt_every == 0 or step == args.steps):
+            ckpter.save(step, {"params": params, "opt": opt_state},
+                        {"loss": loss})
     return params, opt_state, records, losses
 
 

@@ -6,11 +6,13 @@ a leading ``(L, ...)`` dim, as in the JAX package, and the model loops over it.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 
 # ---------------------------------------------------------------------------
 # Initializers (fp32 params, as the JAX package keeps them)
@@ -176,13 +178,46 @@ class Options:
     """Runtime knobs threaded through model apply.
 
     q_block / kv_block size the blocks of the plain blockwise attention, the
-    path tensors on the CPU take; the CUDA kernel tiles on its own."""
+    path tensors on the CPU take; the CUDA kernel tiles on its own.  remat
+    is `maybe_remat`'s policy for the transformer's training blocks."""
 
-    def __init__(self, *, q_block: int = 1024, kv_block: int = 1024):
+    def __init__(self, *, q_block: int = 1024, kv_block: int = 1024,
+                 remat: str = "none"):
         self.q_block = q_block
         self.kv_block = kv_block
+        self.remat = remat
 
     def replace(self, **kw):
-        cur = dict(q_block=self.q_block, kv_block=self.kv_block)
+        cur = dict(q_block=self.q_block, kv_block=self.kv_block,
+                   remat=self.remat)
         cur.update(kw)
         return Options(**cur)
+
+
+# the matmuls whose outputs "dots" keeps, as JAX's checkpoint_dots keeps
+# its dot_generals' outputs
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(fn, remat: str):
+    """fn, or fn under activation checkpointing, as the JAX package's
+    `maybe_remat`: "none" keeps every activation; "full" keeps only the
+    inputs and reruns fn in the backward; "dots" keeps the matmul outputs
+    and reruns the rest.  A kernel op is not an aten matmul, so "dots"
+    reruns it, and its launch count counts the rerun too."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat {remat!r}: want none, dots or full")

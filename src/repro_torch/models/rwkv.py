@@ -6,7 +6,8 @@ chunk the decayed products exp(cum_excl[t,d] - cumw[j,d]) are <= 1 for
 j < t, across chunks a (hd_k x hd_v) fp32 state is carried per head.
 Decode is the O(1) recurrence.  Norms are LayerNorm (true to RWKV),
 channel-mix uses squared ReLU.  Layers are stacked on a leading (L, ...) dim,
-as in the JAX package, and run by a Python loop over it.
+as in the JAX package, and run by a Python loop over their `unstack`ed
+views.
 
 The dtypes are the JAX model's: projections in the compute dtype; r, k, v,
 the log-decay, u and the group norm in fp32.
@@ -18,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan.ops import wkv6
 from repro_torch.models.common import (dense_init, embed_init, layer_norm,
-                                       layer_params, ones_init, zeros_init)
+                                       ones_init, unstack, zeros_init)
 
 
 def dims(cfg):
@@ -187,8 +188,11 @@ def init_lm(gen, cfg, device="cuda"):
     }
 
 
-def _block_params(params, i: int):
-    return layer_params({k: params[k] for k in ("ln1", "ln2", "tm", "cm")}, i)
+def _blocks(params, cfg) -> list:
+    """Per-layer views of the stacked block params (`unstack`: one gradient
+    stack per leaf in training, not a zero-filled one per layer)."""
+    return unstack({k: params[k] for k in ("ln1", "ln2", "tm", "cm")},
+                   cfg.n_layers)
 
 
 def forward(params, cfg, tokens, *, opts=None, mode: str = "train",
@@ -200,8 +204,7 @@ def forward(params, cfg, tokens, *, opts=None, mode: str = "train",
     x = params["embed"][tokens].to(dtype)
     x = layer_norm(x, params["ln0"]["s"], params["ln0"]["b"])
     states = {"tm_x": [], "S": [], "cm_x": []}
-    for i in range(cfg.n_layers):
-        lp = _block_params(params, i)
+    for lp in _blocks(params, cfg):
         h = layer_norm(x, lp["ln1"]["s"], lp["ln1"]["b"])
         a, (tm_x, S_fin) = time_mix(lp["tm"], h, cfg)
         x = x + a
@@ -236,8 +239,7 @@ def decode_step(params, cfg, tokens, positions, state, *, opts=None,
     x = params["embed"][tokens][:, None].to(dtype)
     x = layer_norm(x, params["ln0"]["s"], params["ln0"]["b"])
     new = {"tm_x": [], "S": [], "cm_x": []}
-    for i in range(cfg.n_layers):
-        lp = _block_params(params, i)
+    for i, lp in enumerate(_blocks(params, cfg)):
         h = layer_norm(x, lp["ln1"]["s"], lp["ln1"]["b"])
         a, (tm_x, S1) = time_mix_decode(lp["tm"], h, cfg,
                                         (state["tm_x"][i], state["S"][i]))

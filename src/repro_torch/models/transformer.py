@@ -1,8 +1,11 @@
 """Decoder-only transformer LM, dense family (gemma2-2b and kin).
 
 Layers are stacked on a leading (L, ...) dim, as in the JAX package, and run
-by a Python loop over that dim.  The MoE and MLA branches of the JAX file are
-not ported yet and raise.
+by a Python loop over their `unstack`ed views.  In training each block runs
+under `maybe_remat(opts.remat)`, as the JAX scan body does; the JAX package
+applies remat in the transformer only, so the rwkv and hybrid families
+accept the option and ignore it there too.  The MoE and MLA branches of the
+JAX file are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -12,8 +15,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (Options, activation, dense_init,
-                                       embed_init, layer_params, ones_init,
-                                       rms_norm, softcap)
+                                       embed_init, layer_params, maybe_remat,
+                                       ones_init, rms_norm, softcap, unstack)
 from repro_torch.models.rope import apply_rope, rope_angles
 
 
@@ -115,6 +118,12 @@ def apply_block(bp, x, cfg, sin, cos, *, opts: Options, window=None,
     return x + f_out, (k, v)
 
 
+def _train_block(bp, x, sin, cos, *, cfg, opts: Options, window):
+    """apply_block in training: the residual stream alone, so that remat
+    keeps nothing of the block but its inputs."""
+    return apply_block(bp, x, cfg, sin, cos, opts=opts, window=window)[0]
+
+
 # ---------------------------------------------------------------------------
 # Full LM
 # ---------------------------------------------------------------------------
@@ -175,9 +184,13 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
     L = cfg.n_layers
     windows = _layer_windows(cfg, L, S)
     ks, vs = [], []
-    for i in range(L):
-        x, (k, v) = apply_block(layer_params(params["blocks"], i), x, cfg,
-                                sin, cos, opts=opts, window=windows[i])
+    block = maybe_remat(_train_block, opts.remat)
+    for i, bp in enumerate(unstack(params["blocks"], L)):
+        if mode == "train":
+            x = block(bp, x, sin, cos, cfg=cfg, opts=opts, window=windows[i])
+            continue
+        x, (k, v) = apply_block(bp, x, cfg, sin, cos, opts=opts,
+                                window=windows[i])
         if mode == "prefill" and cache is None:
             ks.append(k)
             vs.append(v)

@@ -33,6 +33,12 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_the_checkpoint_module_is_covered():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"src/repro_torch/checkpoint/__init__.py",
+            "src/repro_torch/checkpoint/ckpt.py"} <= names
+
+
 def test_entry_points_default_to_cuda():
     from repro_torch.launch import metg, serve, train
     from repro_torch.models import mamba2, model, rwkv, transformer, zamba

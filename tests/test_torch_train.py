@@ -219,14 +219,6 @@ def test_train_main_runs_reduced_on_cpu(capsys):
     assert "[train] step 3 loss" in out and "tokens/s" in out
 
 
-@pytest.mark.parametrize("argv", [["--remat", "full"],
-                                  ["--ckpt-dir", "ckpts"], ["--resume"]])
-def test_train_main_refuses_what_is_not_ported(argv):
-    with pytest.raises(NotImplementedError):
-        train.main(["--arch", "zamba2-2.7b", "--reduced", "--device", "cpu",
-                    *argv])
-
-
 def test_train_flags_and_build_match_jax():
     from repro.launch import train as jax_train
     args = train.parse_args(["--arch", "zamba2-2.7b", "--reduced",

@@ -109,18 +109,32 @@ def test_cuda_launcher_refuses_a_ragged_sequence():
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_refuses_to_drop_a_gradient():
-    """No backward yet: while autograd records through an input the kernel
-    raises instead of returning a y with no gradient; without a graph it
-    runs."""
+@pytest.mark.parametrize("with_state", [False, True])
+def test_cuda_op_gradient_matches_plain_autograd(with_state):
+    """Under autograd the op runs the kernel forward and the recompute of
+    `wkv6_chunked` backward: its y and final state equal the kernel's, its
+    gradients (y and the state both used) autograd's through the plain
+    version; one op call counted.  Without a graph it counts one too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    r, k, v, logw, u = (torch.from_numpy(a).cuda()
-                        for a in _inputs(1, 64, 2, 32, seed=0))
+    ins, s0 = _card_inputs(2, 128, 4, 64, 32, with_state)
+    ins = list(ins) + ([s0] if with_state else [])
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
     before = ops.wkv6.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.wkv6(r.requires_grad_(), k, v, logw, u, chunk=16)
-    assert ops.wkv6.launches == before
-    with torch.no_grad():
-        ops.wkv6(r, k, v, logw, u, chunk=16)
+    y, s = ops.wkv6(*a[:5], chunk=32,
+                    initial_state=a[5] if with_state else None)
     assert ops.wkv6.launches == before + 1
+    yk, sk = kernel.wkv6_cuda(*ins[:5], chunk=32,
+                              initial_state=s0 if with_state else None)
+    assert torch.equal(y.detach(), yk) and torch.equal(s.detach(), sk)
+    yp, sp = ref.wkv6_chunked(*b[:5], chunk=32,
+                              initial_state=b[5] if with_state else None)
+    gy = torch.randn_like(yp)
+    ga = torch.autograd.grad((y * gy).sum() + s.sum(), a)
+    gb = torch.autograd.grad((yp * gy).sum() + sp.sum(), b)
+    for x, z in zip(ga, gb):
+        assert _close(x, z)
+    with torch.no_grad():
+        ops.wkv6(*ins[:5], chunk=32)
+    assert ops.wkv6.launches == before + 2
