@@ -32,7 +32,11 @@ Phases; any failure exits non-zero:
       launchers' `route` / `plan` state; the gemma2 row's library call is
       torch.compile(flex_attention) with its softcap and band, the zamba2
       row's SDPA, at its training shape and at its serving shape (4, 4200,
-      32, 80) in bf16; then the SSD backward kernels (three chunk-parallel
+      32, 80) in bf16, and the batch-1 shapes the served batches now run
+      (flash (1, 4200, 16/4, 256) beside torch.compile(flex_attention) and
+      (1, 4200, 32, 80) beside SDPA, the WKV at (1, 4224, 32, 64), the SSD
+      at (1, 4224, 80, 64) with its final state: "serve_b1" in the JSON
+      rows); then the SSD backward kernels (three chunk-parallel
       stages and the sum over head groups, the products in 3xTF32 on the
       tensor cores) against autograd through the plain version and against
       the plain backward `ssd_chunked_bwd` (fp32 at the main shape in three
@@ -46,16 +50,31 @@ Phases; any failure exits non-zero:
   (c) the main paths, each with the launch counts set to 0 just before and
       read just after: the paper's dwork scheduler running the METG ladder
       of A^T B tasks (launch.metg: n = 256 ... 4096, backlogs of up to
-      20,000 tasks and a gather task each, through Client.run_loop and
-      OverlapClient), with every task completed without error and one
-      kernel launch per task besides the launches made without the
-      scheduler; serve 4 requests of 4200-token prompts through
-      full-width gemma2-2b (26 layers) and through full-width rwkv6-1.6b (24
-      layers), random weights from a seed; every kernel of the path must
-      have launched once per layer and prefill batch, and the kernel path's
-      prefill must agree with the plain path's.  Then the same traffic
+      20,000 tasks and a gather task each, through Client.run_loop,
+      OverlapClient and the futures front door `repro_torch.client.Client`),
+      with every task completed without error and one kernel launch per
+      task besides the launches made without the scheduler; the front
+      door's schedulers on the card: 2,000 A^T B tasks at n = 256 and 1024
+      through `Client` as dwork, pmake and mpi_list (rank blocks through
+      `map`), dwork on a ShardedHub of 4, dwork on two threads, and dwork
+      with a transient fault on every first attempt, retries and a journal
+      (every future ok, one C in 64 against the plain version, one launch a
+      task run, completed == created with 0 errors, `Engine.recover` finds
+      nothing to redo; ms a task, efficiency, empirical overhead and its
+      crosscheck printed); serve 4 requests of 4200-token prompts through
+      `launch.serve`, which answers them through `Client.serve`'s
+      METG-batching frontend at one worker (four batches of 1), for
+      full-width gemma2-2b (26 layers) and full-width rwkv6-1.6b (24
+      layers), random weights from a seed; every request ok, the batches
+      the frontend formed, the backend's completed == created == batches
+      with 0 errors and 0 requeues, the trace's latency p50/p95/p99; every
+      kernel of the path must have launched once per layer and prefill
+      batch, the kernel path's prefill must agree with the plain path's,
+      and the served first tokens are the prefill's argmax in the batches
+      they were served in.  Then the same traffic
       through full-width zamba2-2.7b (54 Mamba2 layers, the shared block 9
-      times): 54 SSD op calls and 9 flash launches per prefill batch and
+      times), through the front door as above: 54 SSD op calls and 9 flash
+      launches per prefill batch and
       none in decode; the kernel path's prefill against the plain path's in
       bf16 (printed) and fp32 (held: logits, every layer's SSM state and
       conv ring, the K/V caches), the kernel path's prefills timed; in
@@ -105,7 +124,8 @@ Phases; any failure exits non-zero:
       its backward's bwd_* keys: ms, stage ms, both bounds, routes,
       registers and spills; the SSD row and the zamba2 flash row with
       zamba2 serving's op calls, serve_launches, and their serving shape's
-      figures, serve_shape; the flash row with the served figures and the
+      figures, serve_shape; every serving row's batch-1 figures, serve_b1;
+      the A^T B row's front-door summary, front_door; the flash row with the served figures and the
       two profiles, serve; the gemma2 flash row with its training run's
       train_launches, train_launches_per_forward, remat_launches,
       train_shape, train_bwd_ms and train_step_profile; the WKV row with
@@ -149,7 +169,7 @@ H100_BYTES_S = 3.35e12       # HBM3 rate, same sheet
 # 1.98 GHz maximum boost clock (H100 SXM data sheet)
 H100_EXP_S = 16 * 132 * 1.98e9
 ARGV = ["--no-reduced", "--requests", "4", "--prompt-len", "4200",
-        "--max-new", "16", "--device", "cuda"]
+        "--max-new", "16", "--device", "cuda", "--workers", "1"]
 B, S, HQ, G, HD = 4, 4200, 16, 4, 256      # gemma2-2b prefill attention
 SCALE, CAP = HD ** -0.5, 50.0              # 1/sqrt(query_pre_attn_scalar)
 FP32_TOL = 1e-4       # fp32 output vs plain version: summation order only
@@ -230,6 +250,9 @@ MATMUL_LADDER = [(n, n, n) for n in (256, 512, 1024, 2048, 4096)]
 # half a bf16 ulp of the plain version's fp32 result plus that fp32 bound
 # (bf16_excess); at the sweep's shapes also the sweep's 0.25 absolute.
 MATMUL_SWEEP_ATOL = {"float32": 1e-4, "bfloat16": 0.25}
+# (c) the front door's schedulers: fp32 A^T B tasks a size, the sizes, and
+# mpi_list's rank blocks (one `Client.map` element a rank)
+FRONT_DOOR_TASKS, FRONT_DOOR_SIZES, FRONT_DOOR_RANKS = 2000, (256, 1024), 16
 
 
 def card_line() -> str:
@@ -387,7 +410,9 @@ def phase_wkv(torch, wkv_ops, wkv_ref, wkv_kernel, regs):
              ("small", (1, 64, 2, 64, 32), "sweep", False),
              ("initial state", (2, 256, 4, 64, 64), "sweep", True),
              ("training", WTRAIN, "sweep", False),
-             ("training slow decay", WTRAIN, "slow", False)]
+             ("training slow decay", WTRAIN, "slow", False),
+             # a served batch through the front door: one prompt
+             ("serve batch 1", (1, WS, WH, WHD, WQ), "sweep", False)]
     for name, (b, s, h, hd, q), decay, with_state in cases:
         n = lambda: torch.randn((b, s, h, hd), generator=gen,  # noqa: E731
                                 device="cuda")
@@ -411,10 +436,11 @@ def phase_wkv(torch, wkv_ops, wkv_ref, wkv_kernel, regs):
                           bool(torch.isfinite(out).all()))
         ok = all(e[2] for e in errs.values())
         is_main = (b, s, h, hd, q) == main
+        is_b1 = name == "serve batch 1"
         ms = cuda_ms(lambda: wkv_ops.wkv6(*args, chunk=q, initial_state=s0),
-                     5 if is_main else 20)
+                     5 if is_main or is_b1 else 20)
         plain_ms = cuda_ms(lambda: wkv_ref.wkv6_chunked(
-            *args, chunk=q, initial_state=s0), 1 if is_main else 5)
+            *args, chunk=q, initial_state=s0), 1 if is_main or is_b1 else 5)
         bound_ms, bound_by, exps, flops, nbytes = wkv_bound(
             b, s, h, hd, q, with_state)
         print(f"[b] wkv6 {name}: (B,S,H,hd)={(b, s, h, hd)} Q={q}: "
@@ -437,6 +463,11 @@ def phase_wkv(torch, wkv_ops, wkv_ref, wkv_kernel, regs):
                    "library_ms": None}
             row.update(wkv_stages(torch, wkv_ops, wkv_ref, wkv_kernel, regs,
                                   args, q, s0, y, st))
+        if is_b1:
+            row["serve_b1"] = {"shape": [b, s, h, hd, q],
+                               "max_abs_err": errs["y"][0], "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "library_ms": None}
         del args, r, k, v, logw, y, st, py, ps
         torch.cuda.empty_cache()
     return row
@@ -565,7 +596,9 @@ def phase_ssd(torch, ssd_ops, ssd_ref, ssd_kernel, regs):
     cases = [("main", SSD_MAIN, "sweep", False),
              ("main slow decay", SSD_MAIN, "slow", False),
              ("main fast decay", SSD_MAIN, "fast", False),
-             ("zamba2 serve", SSD_SERVE, "sweep", False)]
+             ("zamba2 serve", SSD_SERVE, "sweep", False),
+             # a served batch through the front door: one prompt
+             ("zamba2 serve batch 1", (1,) + SSD_SERVE[1:], "sweep", False)]
     cases += [("JAX sweep", (b, s, h, hd, n, q), "sweep", False)
               for b, s, h, hd, n in [(2, 128, 8, 16, 16), (1, 64, 4, 32, 8)]
               for q in (16, 32)]
@@ -595,7 +628,8 @@ def phase_ssd(torch, ssd_ops, ssd_ref, ssd_kernel, regs):
         ok = (max(e64 + held32) <= SSD_TOL
               and all(bool(torch.isfinite(t).all()) for t in (y, st)))
         is_main = (b, s, h, hd, n, q) == SSD_MAIN
-        is_serve = (b, s, h, hd, n, q) == SSD_SERVE
+        is_b1 = name == "zamba2 serve batch 1"
+        is_serve = (b, s, h, hd, n, q) == SSD_SERVE or is_b1
         big = is_main or is_serve
         with torch.no_grad():
             ms = cuda_ms(lambda: ssd_ops.ssd(*args, chunk=q,
@@ -633,11 +667,11 @@ def phase_ssd(torch, ssd_ops, ssd_ref, ssd_kernel, regs):
         if is_serve:
             stages = stage_ms(torch, ssd_kernel.FWD_KERNELS,
                               lambda: ssd_kernel.ssd_cuda(*args, chunk=q))
-            print("[b] mamba2_ssd zamba2 serve: kernels (torch.profiler) "
+            print(f"[b] mamba2_ssd {name}: kernels (torch.profiler) "
                   + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
                              else f"{k} {v}" for k, v in stages.items())
                   + " ms")
-            row["serve_shape"] = {
+            row["serve_b1" if is_b1 else "serve_shape"] = {
                 "shape": [b, s, h, hd, n, q],
                 "max_abs_err": float((y - plain[0]).abs().max()),
                 "fwd_max_rel_err_fp64": max(e64), "ms": ms,
@@ -1054,27 +1088,166 @@ def phase_metg(torch, mm_ops, metg):
     launches = mm_ops.tiled_matmul.launches
     want, tasks = 0, 0
     for r in res["rows"]:
-        for run in (r["loop"], r["overlap"]):
+        runs = (r["loop"], r["overlap"], r["front_door"])
+        for run in runs:
             st = run["stats"]
             if st["errors"] or st["completed"] != st["created"] \
                     or st["created"] != r["tasks"] + 1 or not run["gathered"]:
                 raise SystemExit(f"dwork {run['client']} at n={r['n']}: {st}")
             tasks += run["matmul_tasks"]
-        if r["launched"] != r["direct_launches"] + r["loop"]["matmul_tasks"] \
-                + r["overlap"]["matmul_tasks"]:
+        if r["launched"] != r["direct_launches"] + sum(
+                run["matmul_tasks"] for run in runs):
             raise SystemExit(f"launch accounting at n={r['n']}: {r}")
         if r["checked"] == 0 or r["worst_err_over_tol"] > 1.0:
             raise SystemExit(f"sampled checks at n={r['n']}: {r['checked']} "
                              f"checked, worst/tol {r['worst_err_over_tol']}")
         want += r["launched"]
     print(f"[c] dwork METG ladder {[r['n'] for r in res['rows']]} in "
-          f"{wall:.1f}s: {tasks} tasks run through the kernel, every server "
+          f"{wall:.1f}s (run_loop, OverlapClient and the futures front "
+          f"door): {tasks} tasks run through the kernel, every server "
           f"completed == created with 0 errors and its gather done; "
           f"tiled_matmul launches={launches} (want {want}: the tasks plus "
           f"{want - tasks} launches without the scheduler)")
     if launches != want:
         raise SystemExit(f"tiled_matmul launched {launches} times, want {want}")
     return launches
+
+
+def front_door_configs(jdir):
+    """name -> (scheduler, Client keywords, kernel launches a task): the
+    three schedulers inproc, dwork on a ShardedHub of 4, dwork on two
+    threads, and dwork with a transient fault on every task's first attempt,
+    retries and a journal (README.md, "Durability and retries")."""
+    from repro_torch.core.engine import FaultPlan, RetryPolicy
+    return {
+        "dwork": ("dwork", {}, 1),
+        "pmake": ("pmake", {}, 1),
+        "mpi_list": ("mpi_list", {}, 1),
+        "dwork shards=4": ("dwork", {"shards": 4}, 1),
+        "dwork thread x2": ("dwork", {"transport": "thread", "workers": 2},
+                            1),
+        "dwork retry+journal": ("dwork", {
+            "faults": FaultPlan(seed=1).fail_first_k(1),
+            "retry": RetryPolicy(max_attempts=3),
+            "journal_dir": str(jdir)}, 2),
+    }
+
+
+def phase_front_door(torch, mm_ops, metg):
+    """A^T B tasks on the card through `repro_torch.client.Client` for each
+    of `front_door_configs`, FRONT_DOOR_TASKS a size: every future resolves
+    ok, one C in 64 lies within `launch.metg.tolerance` of the plain
+    version, `tiled_matmul` launched once per task run (twice a task in the
+    retry run: its failed first attempt ran the kernel too), the backend
+    completed every task it created with 0 errors, and `Engine.recover`
+    finds nothing to redo in the retry run's journal.  Prints, and does not
+    hold, the wall time per task, the efficiency against the kernel's time,
+    the empirical per-task overhead and its crosscheck against the port's
+    METGModel.  Returns a summary for the JSON line."""
+    from repro_torch.client import Client
+    from repro_torch.core.engine import Engine, Journal, crosscheck
+    from repro_torch.core.metg import METGModel
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    jroot = Path(tempfile.mkdtemp(prefix="front_door_"))
+    summary = {}
+    try:
+        for n in FRONT_DOOR_SIZES:
+            tasks = metg.MatmulTasks([tuple(
+                torch.randn((n, n), generator=gen, device="cuda")
+                for _ in "ab") for _ in range(metg.PAIRS)])
+            kernel_s, _ = metg.kernel_time(tasks)
+            pairs = len(tasks.c)
+            for name, (sched, kw, per_task) in front_door_configs(
+                    jroot / f"wal{n}").items():
+                checked0 = tasks.checked
+                mm_ops.tiled_matmul.launches = 0
+                gc.collect()
+                gc.disable()
+                try:
+                    t0 = time.perf_counter()
+                    with Client(scheduler=sched, **kw) as c:
+                        if sched == "mpi_list":
+                            def block(rank):
+                                return all([tasks(
+                                    f"mm:{n}:{i}", {"pair": i % pairs})
+                                    for i in range(rank, FRONT_DOOR_TASKS,
+                                                   FRONT_DOOR_RANKS)])
+                            futs = c.map(block, range(FRONT_DOOR_RANKS))
+                        else:
+                            futs = [c.submit(tasks, f"mm:{n}:{i}",
+                                             {"pair": i % pairs})
+                                    for i in range(FRONT_DOOR_TASKS)]
+                        values = c.gather(futs, timeout=600.0)
+                        wall = time.perf_counter() - t0
+                        ov = c.report()
+                        steal_n = c.engine.steal_n
+                        shards = c.engine.shards
+                    rep = c.close()
+                finally:
+                    gc.enable()
+                launches = mm_ops.tiled_matmul.launches
+                st = rep.backend_stats
+                per = st.get("shards", [st])
+                created = sum(x["created"] for x in per)
+                errors = sum(x["errors"] for x in per)
+                want = FRONT_DOOR_TASKS * per_task
+                per_task_s = wall / FRONT_DOOR_TASKS
+                if sched == "pmake":
+                    law = METGModel.from_measured(
+                        launch_s=ov.rpc_per_task_s).pmake_metg(ov.workers)
+                else:
+                    law = METGModel.from_measured(
+                        rtt_s=ov.rpc_per_task_s).dwork_metg(
+                            ov.workers, steal_n=steal_n, shards=shards)
+                chk = crosscheck(sched, ov.per_task_overhead_s, law)
+                summ = ov.summary()
+                print(f"[c] front door n={n} {name}: {len(futs)} futures, "
+                      f"{FRONT_DOOR_TASKS} tasks in {wall:.3f}s, "
+                      f"{per_task_s * 1e3:.4f} ms a task (kernel "
+                      f"{kernel_s * 1e3:.4f}, efficiency "
+                      f"{kernel_s / per_task_s:.3f}); empirical overhead "
+                      f"{summ['per_task_overhead_us']} us a task, rpc "
+                      f"{summ['rpc_per_task_us']} us, crosscheck same_order="
+                      f"{chk['same_order']} (ratio {chk['ratio']:.3g}); "
+                      f"tiled_matmul launches={launches} (want {want}); "
+                      f"completed={st['completed']} created={created} "
+                      f"errors={errors}; sampled C checked "
+                      f"{tasks.checked - checked0}, worst/tol "
+                      f"{tasks.worst:.3e}")
+                if not all(v is True for v in values) or tasks.failures:
+                    raise SystemExit(f"front door {name} at n={n}: a task "
+                                     f"failed its check: {tasks.failures[:3]}")
+                if launches != want:
+                    raise SystemExit(f"front door {name} at n={n}: "
+                                     f"tiled_matmul launched {launches} "
+                                     f"times, want {want}")
+                if st["completed"] != created or errors \
+                        or created != len(futs):
+                    raise SystemExit(f"front door {name} at n={n}: {st}")
+                if tasks.checked == checked0:
+                    raise SystemExit(f"front door {name} at n={n}: no C "
+                                     f"was checked")
+                if "journal_dir" in kw:
+                    jdir = kw["journal_dir"]
+                    pending = Journal.replay(jdir).pending()
+                    redo = sorted(Engine.recover(jdir).run(
+                        lambda name, meta: True).completed)
+                    print(f"[c] front door n={n} {name}: Engine.recover "
+                          f"finds {len(redo)} tasks to redo, the journal "
+                          f"{len(pending)} pending")
+                    if pending or redo:
+                        raise SystemExit(f"front door {name} at n={n}: "
+                                         f"recover would redo {redo[:3]}")
+                summary[f"{name} n={n}"] = {
+                    "ms_per_task": per_task_s * 1e3,
+                    "efficiency": kernel_s / per_task_s,
+                    "overhead_us": summ["per_task_overhead_us"],
+                    "launches": launches, "same_order": chk["same_order"]}
+            del tasks
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(jroot, ignore_errors=True)
+    return summary
 
 
 def grad_check(torch, name, kernel_fn, plain_fn, ins, g, out_tol):
@@ -1171,12 +1344,15 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
     flex = torch.compile(flex_attention)
     flex_compile_s = None
     gen = torch.Generator(device="cuda").manual_seed(0)
-    row = zrow = zsrow = None
+    row = zrow = zsrow = row_b1 = zsrow_b1 = None
     cases = [(dt, B, S, HQ, G, HD, w, CAP) for dt in ("bfloat16", "float32")
              for w in (4096, S + 1)]
     cases += [(dt, ZB, ZS, ZH, ZH, ZHD, None, 0.0)
               for dt in ("bfloat16", "float32")]
     cases += [("bfloat16", ZSB, ZSS, ZH, ZH, ZHD, None, 0.0)]
+    # the served batches through the front door: one prompt each
+    cases += [("bfloat16", 1, S, HQ, G, HD, S + 1, CAP),
+              ("bfloat16", 1, ZSS, ZH, ZH, ZHD, None, 0.0)]
     cases += [(dt, 2, 203, 8, 2, hd, 50, CAP) for dt in ("bfloat16", "float32")
               for hd in (32, 80, 256)]
     for dt, b, s, hq, g, hd, window, cap in cases:
@@ -1208,7 +1384,9 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
         ok = ok and bool(torch.isfinite(out).all())
         main_shape = (b, s, hq, g, hd) == (B, S, HQ, G, HD)
         serve_shape = (b, s, hq, g, hd) == (ZSB, ZSS, ZH, ZH, ZHD)
-        big = main_shape or serve_shape
+        main_b1 = (b, s, hq, g, hd) == (1, S, HQ, G, HD)
+        serve_b1 = (b, s, hq, g, hd) == (1, ZSS, ZH, ZH, ZHD)
+        big = main_shape or serve_shape or main_b1 or serve_b1
         ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw),
                      5 if big else 20)
         plain_ms = cuda_ms(lambda: fa_ref.flash_attention_blockwise(
@@ -1224,8 +1402,8 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
         if not ok:
             raise SystemExit(f"flash_attention disagrees with its plain "
                              f"version: {dt} window={window} {check}")
-        if main_shape and dt == "bfloat16":
-            if flex_compile_s is None:     # the first call compiles
+        if (main_shape or main_b1) and dt == "bfloat16":
+            if flex_compile_s is None or main_b1:   # a new shape compiles
                 t0 = time.perf_counter()
                 flex_yardstick(torch, q, k, v, window, cap, SCALE, flex)
                 flex_compile_s = time.perf_counter() - t0
@@ -1263,8 +1441,15 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
             print(f"[b] causal only (softcap 0, no window), bf16 main shape: "
                   f"kernel_ms={ms_causal:.3f} sdpa_ms={sdpa_ms:.3f} "
                   f"max_abs_err vs sdpa={sdpa_err:.3e}")
+        if main_b1:
+            row_b1 = {"shape": [b, s, hq, g, hd], "max_abs_err": err,
+                      "bf16_excess": excess, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": flex_ms,
+                      "library": "torch.compile(flex_attention)",
+                      "tiling": rt.describe()}
         zamba_shape = (b, s, hq, g, hd) == (ZB, ZS, ZH, ZH, ZHD)
-        if (zamba_shape or serve_shape) and dt == "bfloat16":
+        if (zamba_shape or serve_shape or serve_b1) and dt == "bfloat16":
             # SDPA computes exactly this function: causal, no window, no
             # softcap, one K/V head per query head
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1273,18 +1458,24 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
                 is_causal=True, scale=hd ** -0.5)
             sdpa_err = float((sdpa().transpose(1, 2).float() - out.float())
                              .abs().max())
-            sdpa_ms = cuda_ms(sdpa, 5 if serve_shape else 20)
-            print(f"[b] zamba2 {'serve' if serve_shape else 'train'} shape: "
+            sdpa_ms = cuda_ms(sdpa, 5 if serve_shape or serve_b1 else 20)
+            what = ("serve" if serve_shape else "serve batch 1" if serve_b1
+                    else "train")
+            print(f"[b] zamba2 {what} shape: "
                   f"sdpa_ms={sdpa_ms:.4f} max_abs_err vs sdpa="
                   f"{sdpa_err:.3e}")
             del qt, kt, vt, sdpa
-        if serve_shape:
-            zsrow = {"shape": [b, s, hq, g, hd], "max_abs_err": err,
-                     "bf16_excess": excess, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": sdpa_ms,
-                     "library": "scaled_dot_product_attention",
-                     "tiling": rt.describe()}
+        if serve_shape or serve_b1:
+            sub = {"shape": [b, s, hq, g, hd], "max_abs_err": err,
+                   "bf16_excess": excess, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": sdpa_ms,
+                   "library": "scaled_dot_product_attention",
+                   "tiling": rt.describe()}
+            if serve_shape:
+                zsrow = sub
+            else:
+                zsrow_b1 = sub
         if zamba_shape and dt == "bfloat16":
             zrow = {"name": "flash_attention", "path": "zamba2-2.7b train",
                     "route": "cuda",
@@ -1298,7 +1489,44 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
         del q, k, v, out, plain, plain32
         torch.cuda.empty_cache()
     zrow["serve_shape"] = zsrow
+    zrow["serve_b1"] = zsrow_b1
+    row["serve_b1"] = row_b1
     return row, zrow
+
+
+def front_door_checks(res, name: str) -> list:
+    """What every serve through the front door holds: `launch.serve` raised
+    unless every request was answered ok; the batches are the ones the
+    frontend formed (they cover every request, in order); the backend ran
+    each batch once: completed == created == batches, no errors and no
+    requeue (a requeue would run a batch twice).  Prints the batches, the
+    backend's stats and the trace's latency p50/p95/p99; returns those."""
+    nb, st = len(res["batches"]), res["backend_stats"]
+    pct = res["latency_pct_ms"]
+    print(f"[c] {name} through Client.serve: batches the frontend formed "
+          f"{res['batches']}; backend {st}; latency ms from the trace "
+          f"p50={pct[0]:.1f} p95={pct[1]:.1f} p99={pct[2]:.1f}")
+    if sum(res["batches"]) != len(res["replies"]) \
+            or st["completed"] != st["created"] or st["created"] != nb \
+            or st["errors"] or st["requeued"]:
+        raise SystemExit(f"{name}: the front door ran {st} for batches "
+                         f"{res['batches']}")
+    return pct
+
+
+def served_logits(torch, res, vocab):
+    """The kernel path's bf16 last-position prefill logits of the served
+    prompts in the batches the frontend formed them into: the composition
+    each reply's first token came from."""
+    model, params, out, i = res["model"], res["params"], [], 0
+    with torch.inference_mode():
+        for n in res["batches"]:
+            toks = torch.as_tensor(np.stack(res["prompts"][i:i + n]),
+                                   device="cuda").long()
+            out.append(model.forward(params, {"tokens": toks},
+                                     mode="prefill")[0][:, :vocab].float())
+            i += n
+    return torch.cat(out)
 
 
 def phase_serve(torch, fa_ops, attention, fa_ref, serve):
@@ -1323,6 +1551,7 @@ def phase_serve(torch, fa_ops, attention, fa_ref, serve):
           f"(want {cfg.n_layers} layers x {len(res['batches'])} batches)")
     if launches != want:
         raise SystemExit(f"kernel launched {launches} times, want {want}")
+    front_door_checks(res, "gemma2-2b")
     if len(res["replies"]) != 4:
         raise SystemExit("not every request was answered")
     for row in res["replies"]:
@@ -1348,8 +1577,12 @@ def phase_serve(torch, fa_ops, attention, fa_ref, serve):
     margin = top[:, 0] - top[:, 1]
     sure = margin > LOGIT_TOL
     same = (a.argmax(-1) == b.argmax(-1)) | ~sure
+    # the served first tokens: the argmax of the prefill in the batches
+    # they were served in, where its top-2 margin exceeds LOGIT_TOL
+    a_served = served_logits(torch, res, V)
     served = torch.as_tensor([r[0] for r in res["replies"]], device="cuda")
-    same_served = (served == a.argmax(-1)) | ~sure
+    same_served = (served == a_served.argmax(-1)) \
+        | (top2_margin(a_served) <= LOGIT_TOL)
     print(f"[c] prefill last-position logits, kernel vs plain path: "
           f"max_abs_err={err:.4f} (tol {LOGIT_TOL}); |logit|max="
           f"{float(b.abs().max()):.3f}; top-2 margins="
@@ -1382,7 +1615,7 @@ def phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref, serve):
     model, params = res["model"], res["params"]
     cfg = model.cfg
     assert (cfg.n_layers, cfg.d_model, cfg.vocab_size) == (24, 2048, 65536)
-    p50, p95, p99 = np.percentile(res["latency_ms"], [50, 95, 99])
+    p50, p95, p99 = front_door_checks(res, "rwkv6-1.6b")
     print(f"[c] rwkv6-1.6b served {len(res['replies'])} requests in "
           f"{wall:.1f}s (weights included); prefill_ms="
           f"{res['prefill_s'] * 1e3:.1f} decode_ms_per_token="
@@ -1453,8 +1686,9 @@ def phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref, serve):
               f"{float(b.abs().max()):.3f}; top-2 margins="
               f"{[round(float(m), 4) for m in top2_margin(b)]}; S per layer "
               f"max|diff|/max(1, max|S|): {[float(f'{x:.3e}') for x in rel]}")
-    # the served first tokens are the bf16 kernel path's argmax
-    a = results[torch.bfloat16][0]
+    # the served first tokens are the bf16 kernel path's argmax, in the
+    # batches they were served in
+    a = served_logits(torch, res, V)
     served = torch.as_tensor([r[0] for r in res["replies"]], device="cuda")
     if not bool(((served == a.argmax(-1)) | (top2_margin(a) <= LOGIT_TOL))
                 .all()):
@@ -1527,7 +1761,7 @@ def phase_serve_zamba(torch, ssd_ops, fa_ops, attention, fa_ref, serve):
         raise SystemExit(f"not zamba2-2.7b at full width: {cfg}")
     n_app = cfg.n_layers // cfg.attn_every
     nb = len(res["batches"])
-    p50, p95, p99 = np.percentile(res["latency_ms"], [50, 95, 99])
+    p50, p95, p99 = front_door_checks(res, "zamba2-2.7b")
     figures = {"prefill_ms": res["prefill_s"] * 1e3,
                "decode_ms_per_token": res["decode_s"] * 1e3
                / res["decode_steps"],
@@ -1594,10 +1828,11 @@ def phase_serve_zamba(torch, ssd_ops, fa_ops, attention, fa_ref, serve):
               f"{float(b.abs().max()):.3f}; top-2 margins="
               f"{[round(float(m), 4) for m in top2_margin(b)]}; "
               f"max|diff|/max(1, max|ref|): {zamba_cache_line(rel)}")
-    # the served first tokens are the bf16 kernel path's argmax: the same
-    # function on the same inputs through the same kernels, so every token,
-    # not only those whose top-2 margin exceeds LOGIT_TOL
-    a = results[torch.bfloat16][0]
+    # the served first tokens are the bf16 kernel path's argmax in the
+    # batches they were served in: the same function on the same inputs
+    # through the same kernels, so every token, not only those whose top-2
+    # margin exceeds LOGIT_TOL
+    a = served_logits(torch, res, V)
     served = torch.as_tensor([r[0] for r in res["replies"]], device="cuda")
     equal = int((served == a.argmax(-1)).sum())
     print(f"[c] zamba2 served first tokens equal to the bf16 kernel-path "
@@ -2218,6 +2453,8 @@ def run(where: dict) -> int:
     mm_row = phase_matmul(torch, mm_ops, mm_ref, mm_kernel, metg)
     where["phase"] = "(c) dwork METG ladder"
     mm_row["launches"] = phase_metg(torch, mm_ops, metg)
+    where["phase"] = "(c) the front door's schedulers on the card"
+    mm_row["front_door"] = phase_front_door(torch, mm_ops, metg)
     for r, lib in ((row, "flash_attention"), (zrow, "flash_attention"),
                    (mm_row, "tiled_matmul")):
         r["sass_hgmma"] = builds[lib]

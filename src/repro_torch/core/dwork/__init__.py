@@ -6,8 +6,10 @@ plus `Steal n` batching.  The server keeps exactly two tables — join
 counters + successors, and task metadata — and a double-ended ready queue
 (FIFO for steals, LIFO for re-inserted tasks).  Wire format and on-disk
 state are the JAX package's, so either side's clients, servers and saved
-files work with the other's.  The forwarding tree (`Forwarder`), the
-sharded hub and `run_pool` (the engine) are not ported yet.
+files work with the other's.  `ShardedHub` (the paper's §6 sharded
+servers) fronts several TaskServers; the unified engine and the futures
+client drive it (`repro_torch.core.engine`, `repro_torch.client`).  The
+forwarding tree (`Forwarder`) and `run_pool` are not ported yet.
 """
 from repro_torch.core.dwork.api import (Complete, CompleteSteal, Create, Exit,
                                         ExitResp, NotFound, Steal, TaskMsg,
@@ -16,7 +18,9 @@ from repro_torch.core.dwork.server import TaskServer
 from repro_torch.core.dwork.client import (Client, InProcTransport, TCPServer,
                                            TCPTransport)
 from repro_torch.core.dwork.overlap import OverlapClient
+from repro_torch.core.dwork.sharded import ShardedHub
 
 __all__ = ["Create", "Steal", "Complete", "CompleteSteal", "Transfer",
            "Exit", "TaskMsg", "NotFound", "ExitResp", "TaskServer", "Client",
-           "InProcTransport", "TCPServer", "TCPTransport", "OverlapClient"]
+           "InProcTransport", "TCPServer", "TCPTransport", "OverlapClient",
+           "ShardedHub"]

@@ -122,7 +122,7 @@ class Stats:
 
 
 # ------------------------------------------------- proc-transport verbs
-# (the JAX package's engine `comm`, not ported yet): spoken between a
+# (the engine's proc transport, not ported yet): spoken between a
 # worker PROCESS and the engine's front door, never by the TaskServer
 # itself — the front door
 # strips them (and the extended CompleteSteal `done` entries, which may

@@ -1,6 +1,5 @@
 """dhub: the dwork task server (paper §2.2 + Fig. 2 pseudocode), the port's
-copy of the JAX package's `repro.core.dwork.server` without the sharded
-hub's hooks (`ShardedHub` is not ported yet).
+copy of the JAX package's `repro.core.dwork.server`.
 
 State (exactly two tables + derived runtime info, per the paper):
   joins:  task -> [join_counter, successor list]
@@ -51,6 +50,10 @@ class TaskServer:
         # _all_done() O(1) — a resident engine probes it on every empty
         # steal, and a full joins-table scan there is O(history)
         self._n_terminal = 0
+        # when set (by ShardedHub) _poison appends newly-poisoned names
+        # here, so cross-shard propagation is an incremental worklist
+        # instead of an O(error-history) rescan per failure
+        self._new_errors: Optional[list] = None
 
     # ------------------------------------------------------------------ API
     def handle(self, msg):
@@ -252,6 +255,8 @@ class TaskServer:
                 # would inflate _n_terminal past the live table
                 continue
             self.errors.add(cur)
+            if self._new_errors is not None:
+                self._new_errors.append(cur)
             self.counters["errors"] += 1
             if cur not in self.completed:
                 self._n_terminal += 1
@@ -278,9 +283,9 @@ class TaskServer:
         """Bounded-state hook for long-lived resident services: drop the
         history-table entries (joins/meta/completed/errors) of tasks that
         reached a terminal state, returning the pruned names (callers
-        holding per-name side tables delete exactly those keys).  Names in
-        `keep` are retained (the engine passes deps of submissions still in
-        its mailbox).
+        holding per-name side tables — the sharded hub's home map —
+        delete exactly those keys).  Names in `keep` are retained (the
+        engine passes deps of submissions still in its mailbox).
 
         Contract: only call when no FUTURE Create will name a pruned task
         as a dependency — a pruned completed task would be re-declared as
@@ -294,10 +299,15 @@ class TaskServer:
             held: set = set()
             for ts in self.assigned.values():
                 held |= ts
+            # names whose cross-shard poison is still in the propagation
+            # worklist must survive: pruning an errored __notify__ before
+            # _propagate_poison reads its meta would orphan the
+            # dependent's held proxy forever
+            pending_poison = set(self._new_errors or ())
             pruned: list = []
             for t in list(self.completed) + list(self.errors):
                 if t in ready_set or t in held or t in self.requeued_tasks \
-                        or t in keep:
+                        or t in keep or t in pending_poison:
                     continue
                 if self.joins.pop(t, None) is None:
                     continue                  # already pruned (both sets)

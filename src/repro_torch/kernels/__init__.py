@@ -15,3 +15,14 @@ and in each:
               from the inputs
   ref.py    — the plain PyTorch version
 """
+import threading
+
+_launch_lock = threading.Lock()
+
+
+def count_launch(fn, attr: str = "launches"):
+    """Add one to the wrapper's launch count `fn.<attr>` under a lock: tasks
+    on the engine's thread pool launch from several threads at once, and a
+    bare `+= 1` there can lose counts."""
+    with _launch_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)

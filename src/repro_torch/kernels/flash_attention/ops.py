@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import functools
 
+from repro_torch.kernels import count_launch
 from repro_torch.kernels._recompute import recompute
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import (flash_attention_blockwise,
@@ -34,7 +35,7 @@ def flash_attention(q, k, v, *, window=None, logit_softcap: float = 0.0,
         functools.partial(flash_attention_cuda, window=window,
                           logit_softcap=logit_softcap, scale=scale),
         functools.partial(flash_attention_blockwise, **kw), q, k, v)
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import count_launch
 from repro_torch.kernels.mamba2_ssd import ref
 from repro_torch.kernels.mamba2_ssd.kernel import ssd_bwd_cuda, ssd_cuda
 
@@ -38,7 +39,7 @@ class _SSD(torch.autograd.Function):
         if xdt.device.type == "cpu":
             return ssd_plain(xdt, dA, B_, C_, chunk=chunk)
         y, _ = ssd_cuda(xdt, dA, B_, C_, chunk=chunk)
-        ssd.launches += 1
+        count_launch(ssd)
         return y
 
     @staticmethod
@@ -48,7 +49,7 @@ class _SSD(torch.autograd.Function):
             grads = ref.ssd_chunked_bwd(*ins, dY, chunk=ctx.chunk)
         else:
             grads = ssd_bwd_cuda(*ins, dY, chunk=ctx.chunk)
-            ssd.bwd_launches += 1
+            count_launch(ssd, "bwd_launches")
         return (*(g if need else None
                   for g, need in zip(grads, ctx.needs_input_grad)), None)
 
@@ -80,7 +81,7 @@ def ssd(xdt, dA, B_, C_, *, chunk: int = 64, initial_state=None,
                          return_state=return_state)
     y, state = ssd_cuda(xdt, dA, B_, C_, chunk=chunk,
                         initial_state=initial_state)
-    ssd.launches += 1
+    count_launch(ssd)
     return (y, state) if return_state else y
 
 

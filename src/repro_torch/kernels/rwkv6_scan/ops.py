@@ -13,6 +13,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import count_launch
 from repro_torch.kernels._recompute import recompute
 from repro_torch.kernels.rwkv6_scan.kernel import wkv6_cuda
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked, wkv6_sequential
@@ -37,7 +38,7 @@ def wkv6(r, k, v, logw, u, *, chunk: int, initial_state=None):
     else:
         out = wkv6_cuda(r, k, v, logw, u, chunk=chunk,
                         initial_state=initial_state)
-    wkv6.launches += 1
+    count_launch(wkv6)
     return out
 
 

@@ -19,17 +19,24 @@ from --seed on the device (4 pairs, one C buffer each):
   (d) once, the no-op round trip in-proc and over TCP on loopback;
   (e) the wall time per task of the same launch and synchronise in a plain
       loop, without the scheduler: (e) - (a) is the host's cost of a task
-      on the card, (b) - (e) the scheduler's.
+      on the card, (b) - (e) the scheduler's;
+  (f) the wall time per task through the futures front door,
+      `repro_torch.client.Client(scheduler="dwork", workers=1)`: each task
+      `submit`ted, then the gather task submitted with every future as its
+      arguments (the `client` path of `benchmarks/client_overhead.py`, with
+      an A^T B on the card for its no-op), and the session's empirical
+      per-task overhead from `report().summary()`.
 
 Each size's backlog is the tasks (a) says take --seconds of card time,
 capped at --max-tasks, created in one `create_bulk`, plus one `gather:n`
 task that depends on all of them and checks every pair's C.  Every task
 synchronises the device before it returns (a dwork Complete means done),
 and one task in every 64 holds its C against the plain version.  The run
-prints one line per size with the measured efficiency (a)/(b) and (a)/(c)
-beside `metg.efficiency(t, rtt)`, then where the measured efficiency crosses
-0.5 beside `METGModel.from_measured(rtt_s=...).dwork_metg(1)`.  It raises if
-a server records a failed task or completes fewer tasks than were created.
+prints one line per size with the measured efficiency (a)/(b), (a)/(c) and
+(a)/(f) beside `metg.efficiency(t, rtt)`, then where the measured efficiency
+crosses 0.5 beside `METGModel.from_measured(rtt_s=...).dwork_metg(1)`.  It
+raises if a server records a failed task or completes fewer tasks than were
+created, or if a future of (f) resolves with an error.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ import time
 
 import torch
 
+from repro_torch.client import Client as FuturesClient
 from repro_torch.core.dwork import (Client, InProcTransport, OverlapClient,
                                     TaskServer, TCPServer, TCPTransport)
 from repro_torch.core.metg import METGModel, efficiency, same_order
@@ -58,6 +66,7 @@ TIMING_S = 0.25        # card time spent on (a) per size
 # would otherwise block the host.
 HOST_LAUNCH_S, MAX_QUEUED, SLEEP_HZ, SLEEP_TRIES = 100e-6, 400, 2e9, 4
 BARE_TASKS = 2000      # tasks of (e), at most
+FRONT_DOOR_WAIT_S = 600.0   # the longest (f) waits for its gather task
 # fp32 C against the plain version: only the order of the sums differs.  The
 # roundings of a reordered sum of K terms, each at most max|a| * max|b|, add
 # up as a random walk, so each element is held to
@@ -267,6 +276,47 @@ def run_backlog(client_cls, tasks: MatmulTasks, n: int, count: int) -> dict:
             "per_task_s": wall / done, "stats": stats, "gathered": gathered}
 
 
+def run_front_door(tasks: MatmulTasks, n: int, count: int) -> dict:
+    """(f): `count` matmul tasks submitted to a futures `Client` (dwork, one
+    inproc worker, the engine resident), then a gather task whose arguments
+    are all their futures and which checks every pair's C.  Raises unless
+    every future resolved without error to a passed check and the backend
+    completed every task it created."""
+    ran = tasks.ran
+    pairs = len(tasks.c)
+
+    def gather(*oks):
+        return all(oks) and tasks(f"gather:{n}", {})
+
+    gc.disable()
+    try:
+        client = FuturesClient(scheduler="dwork", workers=1)
+        try:
+            t0 = time.perf_counter()
+            futs = [client.submit(tasks, f"mm:{n}:{i}", {"pair": i % pairs},
+                                  key=f"mm:{n}:{i}") for i in range(count)]
+            futs.append(client.submit(gather, *futs, key=f"gather:{n}"))
+            futs[-1].exception(FRONT_DOOR_WAIT_S)
+            wall = time.perf_counter() - t0
+        finally:
+            report = client.close()
+    finally:
+        gc.enable()
+    errors = [f.exception(0) for f in futs]
+    stats = report.backend_stats
+    if any(e is not None for e in errors) \
+            or not all(f.result(0) for f in futs) or stats["errors"] \
+            or stats["completed"] != stats["created"]:
+        bad = next((e for e in errors if e is not None), None)
+        raise RuntimeError(
+            f"front door at n={n}: {stats}, first error {bad!r}; first "
+            f"failures: {tasks.failures[:3]}")
+    return {"client": "front_door", "tasks": len(futs),
+            "matmul_tasks": tasks.ran - ran, "wall_s": wall,
+            "per_task_s": wall / len(futs), "stats": stats,
+            "gathered": True, "overhead": report.overhead().summary()}
+
+
 def crossing(rows: list, key: str):
     """Where the measured efficiency `key` crosses 0.5 on the ladder,
     interpolated linearly in log n, with the task time there interpolated
@@ -327,37 +377,47 @@ def main(argv=None) -> dict:
         direct = tasks.launched            # (a) and (e): no scheduler
         loop = run_backlog(Client, tasks, n, count)
         overlap = run_backlog(OverlapClient, tasks, n, count)
+        front = run_front_door(tasks, n, count)
         model_eff = efficiency(kernel_s, metg_s)
         row = {"n": n, "tasks": count, "kernel_s": kernel_s,
                "launch_host_s": launch_host_s, "bare_per_task_s": bare_s,
                "direct_launches": direct, "launched": tasks.launched,
-               "loop": loop, "overlap": overlap,
+               "loop": loop, "overlap": overlap, "front_door": front,
                "eff_loop": kernel_s / loop["per_task_s"],
                "eff_overlap": kernel_s / overlap["per_task_s"],
+               "eff_front_door": kernel_s / front["per_task_s"],
                "model_eff": model_eff, "checked": tasks.checked,
                "worst_err_over_tol": tasks.worst}
         row["same_order_loop"] = same_order(row["eff_loop"], model_eff)
         row["same_order_overlap"] = same_order(row["eff_overlap"], model_eff)
+        row["same_order_front_door"] = same_order(row["eff_front_door"],
+                                                  model_eff)
         rows.append(row)
         print(f"[metg] n={n} tasks={count}+1 kernel_ms={kernel_s * 1e3:.4f} "
               f"launch_host_ms={launch_host_s * 1e3:.4f} "
               f"no_scheduler_ms_per_task={bare_s * 1e3:.4f} "
               f"run_loop_ms_per_task={loop['per_task_s'] * 1e3:.4f} "
               f"overlap_ms_per_task={overlap['per_task_s'] * 1e3:.4f} "
+              f"front_door_ms_per_task={front['per_task_s'] * 1e3:.4f} "
               f"efficiency run_loop={row['eff_loop']:.3f} overlap="
-              f"{row['eff_overlap']:.3f} model={model_eff:.3f} same_order="
-              f"{row['same_order_loop']}/{row['same_order_overlap']} "
+              f"{row['eff_overlap']:.3f} front_door="
+              f"{row['eff_front_door']:.3f} model={model_eff:.3f} same_order="
+              f"{row['same_order_loop']}/{row['same_order_overlap']}/"
+              f"{row['same_order_front_door']} front_door_overhead_us="
+              f"{front['overhead']['per_task_overhead_us']} "
               f"checked={tasks.checked} worst max|C - plain|/tol="
               f"{tasks.worst:.3e}", flush=True)
         del tasks
         if device.type == "cuda":
             torch.cuda.empty_cache()
 
-    cross = {k: crossing(rows, k) for k in ("eff_loop", "eff_overlap")}
-    print(f"[metg] efficiency 0.5: run_loop "
-          f"{_fmt_crossing(cross['eff_loop'], rows, 'eff_loop')}; overlap "
-          f"{_fmt_crossing(cross['eff_overlap'], rows, 'eff_overlap')}; "
-          f"model dwork_metg(1) = {metg_s * 1e3:.4f} ms", flush=True)
+    labels = {"eff_loop": "run_loop", "eff_overlap": "overlap",
+              "eff_front_door": "front_door"}
+    cross = {k: crossing(rows, k) for k in labels}
+    print("[metg] efficiency 0.5: " + "; ".join(
+        f"{label} {_fmt_crossing(cross[k], rows, k)}"
+        for k, label in labels.items())
+        + f"; model dwork_metg(1) = {metg_s * 1e3:.4f} ms", flush=True)
     return {"device": where, "rtt": rtt, "rows": rows, "crossing": cross,
             "model_metg_s": metg_s}
 

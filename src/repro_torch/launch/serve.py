@@ -1,5 +1,6 @@
-"""Serving entry point: seeded generation requests answered in arrival order, in
-batches of up to --requests, through prefill + greedy decode.
+"""Continuous-serving driver: seeded generation requests through the futures
+client's resident engine and METG-batching frontend, each batch a prefill
+and greedy decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \
         --requests 4 --prompt-len 4200 --max-new 16
@@ -8,11 +9,18 @@ batches of up to --requests, through prefill + greedy decode.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --no-reduced --requests 4 --prompt-len 4200 --max-new 16
 
+The session rides the same front door as the JAX package's driver
+(`repro_torch.client.Client`): `client.serve(execute_batch)` attaches a
+bounded-admission `Frontend` that coalesces requests into engine tasks
+sized by the METG model for the live worker count, or by the --max-wait-ms
+deadline, and the resident engine runs each batch on its worker.  Per-request
+p50/p95/p99 latency comes from the trace.  Any request that fails or times
+out stops the driver.
+
 Runs on the card unless --device cpu.  Weights are random, made from --seed
 on the device, and cast to bf16 once at load, except the leaves the model
 reads in fp32 (norms; rwkv's decay and bonus params; the Mamba2 layers'
 A_log, dt_bias and D_skip).
-Per-request latency runs from submit to reply.
 """
 from __future__ import annotations
 
@@ -22,7 +30,9 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.client import Client
 from repro_torch.configs import get_config
+from repro_torch.core.engine import BATCH_FORMED
 from repro_torch.models.common import Options
 from repro_torch.models.model import build_model
 from repro_torch.runtime.serve_step import greedy_generate, serving_params
@@ -37,6 +47,9 @@ def parse_args(argv=None):
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--workers", type=int, default=1)
+    ap.add_argument("--max-wait-ms", type=float, default=20.0,
+                    help="frontend deadline before a partial batch ships")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -44,7 +57,8 @@ def parse_args(argv=None):
 
 def main(argv=None):
     """Serve the requests; returns a dict with the model, its params, the
-    prompts, the replies and the timings, for callers that check them."""
+    prompts, the replies, the batches the frontend formed, the timings and
+    the backend's stats, for callers that check them."""
     args = parse_args(argv)
     if args.requests < 1 or args.prompt_len < 1 or args.max_new < 1:
         raise SystemExit("--requests, --prompt-len and --max-new must be >= 1")
@@ -55,47 +69,66 @@ def main(argv=None):
     model = build_model(cfg, Options(q_block=64, kv_block=64))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = serving_params(model, model.init(gen, device))
+    totals = {"prefill_s": 0.0, "decode_s": 0.0}
 
-    rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(2, cfg.vocab_size, size=args.prompt_len)
-               .astype(np.int32) for _ in range(args.requests)]
-    t0 = time.perf_counter()
-    submitted = [t0] * len(prompts)          # every request arrives at t0
-    replies, latency, batches = [None] * len(prompts), [0.0] * len(prompts), []
-    pending = list(range(len(prompts)))
-    prefill_s = decode_s = 0.0
-    while pending:
-        idx, pending = pending[:args.requests], pending[args.requests:]
-        toks = torch.from_numpy(np.stack([prompts[i] for i in idx])).to(device)
+    def execute_batch(prompts):
+        """One engine task: prefill + greedy decode of the batch, on the
+        engine's worker thread."""
+        toks = torch.from_numpy(np.stack(prompts)).to(device)
         timings: dict = {}
         out = greedy_generate(model, params, {"tokens": toks}, args.max_new,
                               args.prompt_len + args.max_new + 1, timings)
         out = out.cpu().numpy()
-        done_t = time.perf_counter()
-        if out.shape != (len(idx), args.max_new):
+        if out.shape != (len(prompts), args.max_new):
             raise RuntimeError(f"batch answered with shape {out.shape}")
         if out.min() < 0 or out.max() >= cfg.vocab_size:
             raise RuntimeError("token outside [0, vocab_size)")
-        for i, row in zip(idx, out):
-            replies[i] = row
-            latency[i] = done_t - submitted[i]
-        batches.append(len(idx))
-        prefill_s += timings["prefill_s"]
-        decode_s += timings["decode_s"]
+        totals["prefill_s"] += timings["prefill_s"]
+        totals["decode_s"] += timings["decode_s"]
+        return list(out)
 
-    lat_ms = np.asarray(latency) * 1e3
-    p50, p95, p99 = np.percentile(lat_ms, [50, 95, 99])
+    client = Client(scheduler="dwork", workers=args.workers,
+                    lease_timeout=120.0)
+    try:
+        frontend = client.serve(execute_batch,
+                                max_queue=max(args.requests, 16),
+                                max_batch=max(args.requests, 1),
+                                max_wait_s=args.max_wait_ms * 1e-3,
+                                per_request_s0=0.05)
+        print(f"[serve] METG batch target for {args.workers} worker(s): "
+              f"{frontend.target_batch()}")
+        rng = np.random.default_rng(args.seed)
+        prompts = [rng.integers(2, cfg.vocab_size, size=args.prompt_len)
+                   .astype(np.int32) for _ in range(args.requests)]
+        t0 = time.perf_counter()
+        reqs = [frontend.submit(p) for p in prompts]
+        for r in reqs:
+            if not r.wait(600.0):
+                raise RuntimeError(f"request {r.name} never completed")
+            if not r.ok:
+                raise RuntimeError(f"request {r.name} failed: {r.error}")
+    finally:
+        report = client.close()
+    wall = time.perf_counter() - t0
+    lat = report.trace.latency_report()
+    batches = [e.extra["size"] for e in report.trace.of(BATCH_FORMED)]
     decode_tokens = (args.max_new - 1) * len(batches)
-    print(f"[serve] all {len(replies)} requests served in "
-          f"{time.perf_counter() - t0:.1f}s; batches={len(batches)} "
-          f"mean_batch={np.mean(batches):.1f}")
-    print(f"[serve] latency ms: p50={p50:.1f} p95={p95:.1f} p99={p99:.1f}")
-    print(f"[serve] prefill ms={prefill_s * 1e3:.1f} decode ms/token="
-          f"{decode_s * 1e3 / max(decode_tokens, 1):.2f} on {device}")
+    print(f"[serve] all {len(reqs)} requests served in {wall:.1f}s; "
+          f"batches={lat.n_batches} mean_batch={lat.mean_batch:.1f}")
+    print(f"[serve] latency ms: p50={lat.p50_s * 1e3:.1f} "
+          f"p95={lat.p95_s * 1e3:.1f} p99={lat.p99_s * 1e3:.1f}")
+    print(f"[serve] prefill ms={totals['prefill_s'] * 1e3:.1f} decode "
+          f"ms/token={totals['decode_s'] * 1e3 / max(decode_tokens, 1):.2f} "
+          f"on {device}")
+    print(f"[serve] server stats: {report.backend_stats}")
     return {"model": model, "params": params, "prompts": prompts,
-            "replies": replies, "latency_ms": lat_ms.tolist(),
-            "batches": batches, "prefill_s": prefill_s, "decode_s": decode_s,
-            "decode_steps": decode_tokens}
+            "replies": [r.value for r in reqs],
+            "latency_ms": [r.latency_s * 1e3 for r in reqs],
+            "batches": batches, "prefill_s": totals["prefill_s"],
+            "decode_s": totals["decode_s"], "decode_steps": decode_tokens,
+            "latency_pct_ms": [lat.p50_s * 1e3, lat.p95_s * 1e3,
+                               lat.p99_s * 1e3],
+            "backend_stats": report.backend_stats}
 
 
 if __name__ == "__main__":

@@ -39,11 +39,27 @@ def test_the_checkpoint_module_is_covered():
             "src/repro_torch/checkpoint/ckpt.py"} <= names
 
 
+def test_the_front_door_modules_are_covered():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    port = "src/repro_torch/"
+    assert {port + m for m in (
+        "client/__init__.py", "client/client.py", "client/futures.py",
+        "core/dwork/sharded.py", "core/engine/__init__.py",
+        "core/engine/backends.py", "core/engine/executor.py",
+        "core/engine/faults.py", "core/engine/journal.py",
+        "core/engine/model.py", "core/engine/tracing.py",
+        "core/engine/comm/__init__.py", "core/engine/comm/core.py",
+        "core/engine/comm/serialize.py", "core/serving/__init__.py",
+        "core/serving/frontend.py")} <= names
+
+
 def test_entry_points_default_to_cuda():
     from repro_torch.launch import metg, serve, train
     from repro_torch.models import mamba2, model, rwkv, transformer, zamba
     from repro_torch.runtime import serve_step, train_step  # noqa: F401
     assert serve.parse_args([]).device == "cuda"
+    assert serve.parse_args([]).workers == 1
+    assert serve.parse_args([]).max_wait_ms == 20.0
     assert serve.parse_args([]).reduced is True
     assert serve.parse_args(["--no-reduced"]).reduced is False
     assert train.parse_args([]).device == "cuda"

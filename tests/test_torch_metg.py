@@ -241,17 +241,22 @@ def test_metg_main_runs_on_the_cpu(capsys):
     assert [r["n"] for r in res["rows"]] == [16, 32]
     for r in res["rows"]:
         assert r["tasks"] == 1                      # --seconds: one task
-        for run in (r["loop"], r["overlap"]):
+        for run in (r["loop"], r["overlap"], r["front_door"]):
             assert run["stats"]["completed"] == run["stats"]["created"] == 2
             assert run["stats"]["errors"] == 0 and run["gathered"]
         assert r["launched"] == r["direct_launches"] \
-            + r["loop"]["matmul_tasks"] + r["overlap"]["matmul_tasks"]
+            + r["loop"]["matmul_tasks"] + r["overlap"]["matmul_tasks"] \
+            + r["front_door"]["matmul_tasks"]
+        assert r["front_door"]["matmul_tasks"] == r["tasks"]
+        assert r["front_door"]["overhead"]["n_tasks"] == 2
+        assert 0 < r["eff_front_door"]
         assert r["model_eff"] == metg.efficiency(r["kernel_s"],
                                                   res["model_metg_s"])
         assert 0 < r["eff_loop"] and 0 < r["eff_overlap"]
         assert r["bare_per_task_s"] > 0 and r["launch_host_s"] > 0
     lines = [ln for ln in out.splitlines() if ln.startswith("[metg] n=")]
     assert len(lines) == 2 and "efficiency run_loop=" in lines[0]
+    assert "front_door=" in lines[0] and "front_door_overhead_us=" in lines[0]
     assert "[metg] efficiency 0.5:" in out
 
 

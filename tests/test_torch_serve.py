@@ -1,4 +1,14 @@
-"""The port's serve entry point on the CPU at reduced size, and the param bridge."""
+"""The port's serve entry point on the CPU at reduced size, and the param bridge.
+
+The driver serves through the futures client's METG-batching frontend, as
+the JAX package's does: the batches it forms are held equal to those the
+JAX driver forms for the same flags, and each reply to a direct
+`greedy_generate` of its prompt alone."""
+import contextlib
+import io
+import re
+from unittest import mock
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -6,20 +16,64 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
+import jax.numpy as jnp  # noqa: E402
+
 from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.launch import serve as jax_serve  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.runtime.serve_step import greedy_generate  # noqa: E402
+
+
+def jax_driver_batches(argv):
+    """(batches, mean_batch) that the JAX package's `repro.launch.serve`
+    prints for these flags.  Its generation is replaced by zeros: the
+    frontend's batching never looks at the replies."""
+    def zeros(model, params, batch, max_new, cache_len):
+        return jnp.zeros((batch["tokens"].shape[0], max_new), jnp.int32)
+
+    out = io.StringIO()
+    with mock.patch.object(jax_serve, "greedy_generate", zeros), \
+            contextlib.redirect_stdout(out):
+        jax_serve.main(argv)
+    m = re.search(r"batches=(\d+) mean_batch=([\d.]+)", out.getvalue())
+    return int(m[1]), float(m[2])
+
+
+def check_front_door(res, argv):
+    """The port's driver formed the batches JAX's forms for the same flags,
+    its backend ran each once, and each reply is what a direct
+    `greedy_generate` of that prompt alone gives."""
+    n = len(res["prompts"])
+    assert res["batches"] == [1] * n             # METG target 1 at 1 worker
+    jax_argv = [a for a in argv if a != "cpu" and a != "--device"]
+    i = jax_argv.index("--seed") if "--seed" in jax_argv else None
+    if i is not None:
+        del jax_argv[i:i + 2]
+    assert jax_driver_batches(jax_argv) == (len(res["batches"]),
+                                            sum(res["batches"]) / n)
+    st = res["backend_stats"]
+    assert st["completed"] == st["created"] == len(res["batches"])
+    assert st["errors"] == 0 and st["requeued"] == 0
+    max_new = res["replies"][0].shape[0]
+    for p, reply in zip(res["prompts"], res["replies"]):
+        direct = greedy_generate(res["model"], res["params"],
+                                 {"tokens": torch.from_numpy(p[None])},
+                                 max_new, len(p) + max_new + 1)
+        assert np.array_equal(direct[0].numpy(), reply)
 
 
 def test_serve_answers_every_request(capsys):
-    res = serve.main(["--device", "cpu", "--requests", "3", "--prompt-len",
-                      "16", "--max-new", "4"])
+    argv = ["--device", "cpu", "--requests", "3", "--prompt-len", "16",
+            "--max-new", "4"]
+    res = serve.main(argv)
     out = capsys.readouterr().out
     assert "[serve] all 3 requests served" in out
     assert "[serve] latency ms: p50=" in out and "p99=" in out
+    assert "[serve] METG batch target for 1 worker(s): 1" in out
     cfg = res["model"].cfg
-    assert res["batches"] == [3]
+    check_front_door(res, argv)
     assert len(res["replies"]) == 3
     for row in res["replies"]:
         assert row.shape == (4,)

@@ -35,6 +35,7 @@ from repro.models.model import build_model as jax_build_model  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from test_torch_serve import check_front_door  # noqa: E402
 from repro_torch.models import mamba2, zamba  # noqa: E402
 from repro_torch.models.common import Options  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -341,7 +342,8 @@ def test_serve_answers_every_request(capsys):
     res = serve.main(argv)
     assert "[serve] all 3 requests served" in capsys.readouterr().out
     cfg = res["model"].cfg
-    assert cfg.family == "hybrid" and res["batches"] == [3]
+    assert cfg.family == "hybrid"
+    check_front_door(res, argv)
     for row in res["replies"]:
         assert row.shape == (4,)
         assert row.min() >= 0 and row.max() < cfg.vocab_size
