@@ -61,7 +61,28 @@ Phases; any failure exits non-zero:
       (every future ok, one C in 64 against the plain version, one launch a
       task run, completed == created with 0 errors, `Engine.recover` finds
       nothing to redo; ms a task, efficiency, empirical overhead and its
-      crosscheck printed); serve 4 requests of 4200-token prompts through
+      crosscheck printed); the paper's other two schedulers: pmake's
+      `launch.campaign` with its defaults (reduced gemma2-2b, 2 shards of 6
+      steps, 2 nodes; 3 tasks done, 0 errors, a report of 2 shards of 6
+      steps, one flash op call per layer and step in each shard's log)
+      and its rerun (no task run, no log rewritten), then a campaign of the
+      same shape at full width (gemma2-2b, 2 steps at batch 2 x 1024 a
+      shard) through `PMake(..., total_nodes=1)`: 26 flash op calls a step
+      in each shard's log, finite losses, 0 errors, the shards one after the
+      other, each task's wall from `PMake.log` beside the train's own step
+      ms; mpi-list's engine-backed `Context(16, engine_workers=4)` mapping
+      2,000 fp32 A^T B elements at n = 1024, with and without seeded
+      stragglers (one launch an element, one C in 64 against the plain
+      version, `straggler_crosscheck()` and the mean sync gap printed);
+      the DFM bridge `mesh_ops` on a seeded fp32 DFM of 2^26 rows and a
+      pytree, against numpy (map, sum, reduce, scan, group into 7 buckets
+      exactly against a stable argsort; each operation's ms); the
+      `ElasticPool` crash drill (256 A^T B shards, a worker crashing after
+      3: all complete, at least one requeued, one launch a shard run,
+      `remesh` at the live counts) and `run_pool` over a TaskServer of
+      2,000 A^T B tasks (completed == created, 0 errors, one launch a
+      task); `launch.metg`'s table of all three schedulers' METG (printed
+      by the ladder's run) held to the paper's ordering; serve 4 requests of 4200-token prompts through
       `launch.serve`, which answers them through `Client.serve`'s
       METG-batching frontend at one worker (four batches of 1), for
       full-width gemma2-2b (26 layers) and full-width rwkv6-1.6b (24
@@ -125,7 +146,10 @@ Phases; any failure exits non-zero:
       registers and spills; the SSD row and the zamba2 flash row with
       zamba2 serving's op calls, serve_launches, and their serving shape's
       figures, serve_shape; every serving row's batch-1 figures, serve_b1;
-      the A^T B row's front-door summary, front_door; the flash row with the served figures and the
+      the A^T B row's front-door summary, front_door, and the other
+      schedulers' runs: mpi_list, mesh_ops_ms, elastic, run_pool,
+      metg_schedulers; the gemma2 flash row's pmake campaigns, campaign;
+      the flash row with the served figures and the
       two profiles, serve; the gemma2 flash row with its training run's
       train_launches, train_launches_per_forward, remat_launches,
       train_shape, train_bwd_ms and train_step_profile; the WKV row with
@@ -139,11 +163,15 @@ check or any exception, with the phase it happened in.
 """
 from __future__ import annotations
 
+import ast
 import contextlib
 import functools
 import gc
 import io
 import json
+import math
+import os
+import re
 import shutil
 import subprocess
 import sys
@@ -253,6 +281,39 @@ MATMUL_SWEEP_ATOL = {"float32": 1e-4, "bfloat16": 0.25}
 # (c) the front door's schedulers: fp32 A^T B tasks a size, the sizes, and
 # mpi_list's rank blocks (one `Client.map` element a rank)
 FRONT_DOOR_TASKS, FRONT_DOOR_SIZES, FRONT_DOOR_RANKS = 2000, (256, 1024), 16
+# (c) pmake: a campaign of launch.campaign's shape at full width, its train
+# tasks gemma2-2b at batch 2 x 1024 (one card holds one: 61 GB at its peak)
+FULL_CAMPAIGN_STEPS, CAMPAIGN_TIMEOUT_S = 2, 600
+FULL_CAMPAIGN_RULES = """
+train:
+  resources: {{time: 10, nrs: 1, cpu: 1}}
+  out:
+    metrics: "shard_{{n}}.jsonl"
+  setup: export PYTHONPATH={src}
+  script: |
+    {python} -m repro_torch.launch.train --arch gemma2-2b --no-reduced \\
+      --steps {steps} --global-batch 2 --seq 1024 --seed {{n}} \\
+      --metrics-out shard_{{n}}.jsonl --device {device}
+summarize:
+  resources: {{time: 1, nrs: 1, cpu: 1}}
+  inp:
+    loop:
+  out:
+    report: "report.json"
+  setup: export PYTHONPATH={src}
+  script: |
+    {python} -m repro_torch.launch.campaign --summarize-dir . --shards {shards}
+"""
+# (c) mpi-list, the elastic pool and run_pool: fp32 A^T B at n = MPI_N; the
+# Context's ranks, engine workers, elements and injected straggler sigma (s)
+MPI_N, MPI_RANKS, MPI_WORKERS = 1024, 16, 4
+MPI_ELEMENTS, MPI_SIGMA = 2000, 1e-3
+ELASTIC_SHARDS, RUN_POOL_TASKS = 256, 2000
+# (c) the DFM bridge: rows of the fp32 DFM (256 MiB) and of the pytree.  Its
+# fp32 sums are held within MESH_SUM_CHAIN roundings of sum |x|: torch's
+# reduction on the card adds at most that many terms in a row (it splits
+# 2^26 terms over far more threads), and the rest in a tree.
+MESH_ROWS, MESH_TREE_ROWS, MESH_SUM_CHAIN = 1 << 26, 1 << 20, 2048
 
 
 def card_line() -> str:
@@ -1078,7 +1139,8 @@ def phase_metg(torch, mm_ops, metg):
     """The paper's dwork scheduler at the full METG ladder and backlog
     (launch.metg.main with its defaults); returns the kernel's launches over
     the run, which must be one per task run plus the launches made without
-    the scheduler (warm-up, timing, the plain loop)."""
+    the scheduler (warm-up, timing, the plain loop), and the run's table of
+    all three schedulers' METG."""
     gc.collect()
     torch.cuda.empty_cache()
     mm_ops.tiled_matmul.launches = 0
@@ -1110,7 +1172,7 @@ def phase_metg(torch, mm_ops, metg):
           f"{want - tasks} launches without the scheduler)")
     if launches != want:
         raise SystemExit(f"tiled_matmul launched {launches} times, want {want}")
-    return launches
+    return launches, res["schedulers"]
 
 
 def front_door_configs(jdir):
@@ -1249,6 +1311,449 @@ def phase_front_door(torch, mm_ops, metg):
         shutil.rmtree(jroot, ignore_errors=True)
     return summary
 
+
+# --------------------------------------------- the paper's other schedulers
+
+def _train_log(path: Path) -> dict:
+    """A train task's log: its steps' losses and step ms and the kernel op
+    calls of its last line."""
+    text = path.read_text()
+    steps = [(float(m.group(1)), float(m.group(2))) for m in re.finditer(
+        r"\[train\] step \d+ loss (\S+) .*?step_ms (\S+)", text)]
+    ops = re.search(r"\[train\] kernel op calls flash=(\d+) wkv=(\d+) "
+                    r"ssd=(\d+)", text)
+    if ops is None:
+        raise SystemExit(f"{path.name} has no kernel op calls line:\n"
+                         f"{text[-2000:]}")
+    return {"losses": [s[0] for s in steps],
+            "step_ms": [s[1] for s in steps],
+            "flash": int(ops.group(1)), "wkv": int(ops.group(2)),
+            "ssd": int(ops.group(3))}
+
+
+def _no_wall(stats: dict) -> dict:
+    return {k: v for k, v in stats.items() if k != "wall_s"}
+
+
+def _campaign_cli(workdir: Path, dev: str) -> dict:
+    """`python -m repro_torch.launch.campaign --workdir workdir --device
+    dev`, its other flags at their defaults, from the checkout's src;
+    returns its `[campaign]` stats."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.campaign", "--workdir",
+         str(workdir), "--device", dev], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=CAMPAIGN_TIMEOUT_S)
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("[campaign] ")), None)
+    if proc.returncode != 0 or line is None:
+        logs = "".join(f"\n--- {p.name}\n{p.read_text()[-1500:]}"
+                       for p in sorted(workdir.glob("*.log")))
+        raise SystemExit(f"the campaign exited {proc.returncode}:\n"
+                         f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}{logs}")
+    return ast.literal_eval(line[len("[campaign] "):])
+
+
+def phase_campaign(torch, card, dev="cuda"):
+    """pmake on the card.  First `launch.campaign` with the reference's
+    defaults (reduced gemma2-2b, 2 shards of 6 steps at batch 4 x seq 64, 2
+    nodes): 3 tasks done, 0 errors, a report of 2 shards of 6 steps with
+    finite losses, each shard's flash op calls one per layer and step; run
+    again, it runs nothing and rewrites no log.  Then a campaign of the same
+    shape at full width (FULL_CAMPAIGN_RULES: gemma2-2b, 2 steps at batch 2
+    x 1024 a shard, 2 shards and a summarize task) through `PMake(...,
+    total_nodes=1)`, which runs the shards one after the other, as one card
+    holds one such run: 26 flash op calls a step in each shard's log,
+    finite losses, 0 errors, no two tasks at once.  Prints each task's wall
+    from `PMake.log`, the train's own step ms and the difference, and any
+    kernel library the subprocesses built.  Returns a summary for the JSON
+    line."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pmake import PMake
+    from repro_torch.kernels import _build
+    from repro_torch.launch import campaign
+    reduced_layers = get_config("gemma2-2b").reduced().n_layers
+    libs_before = set(_build.BUILD_DIR.glob("*.so"))
+    root = Path(tempfile.mkdtemp(prefix="campaign_"))
+    summary = {}
+    try:
+        ref = root / "reference"
+        t0 = time.perf_counter()
+        first = stats = _campaign_cli(ref, dev)
+        wall = time.perf_counter() - t0
+        report = json.loads((ref / "report.json").read_text())
+        logs = {n: _train_log(ref / f"train.{n}.log") for n in range(2)}
+        print(f"[c] pmake campaign (launch.campaign, its defaults: reduced "
+              f"gemma2-2b, 2 shards x 6 steps, batch 4 x 64, 2 nodes) on "
+              f"{card}: {stats} in {wall:.1f}s; report " + ", ".join(
+                  f"shard {r['shard']}: {r['steps']} steps, loss "
+                  f"{r['first_loss']:.4f} -> {r['last_loss']:.4f}"
+                  for r in report["shards"]) + "; flash op calls "
+              + ", ".join(f"shard {n}: {lg['flash']} ({lg['flash'] / 6:g} a "
+                          f"step, want {reduced_layers})"
+                          for n, lg in logs.items()))
+        if stats["errors"] or stats["done"] != 3 or stats["tasks"] != 3:
+            raise SystemExit(f"reference campaign: {stats}")
+        if [r["steps"] for r in report["shards"]] != [6, 6] or not all(
+                math.isfinite(r[k]) for r in report["shards"]
+                for k in ("first_loss", "last_loss")):
+            raise SystemExit(f"reference campaign report: {report}")
+        if any(lg["flash"] != 6 * reduced_layers or len(lg["losses"]) != 6
+               for lg in logs.values()):
+            raise SystemExit(f"reference campaign shards: {logs}")
+        mtimes = {p.name: p.stat().st_mtime_ns for p in ref.glob("*.log")}
+        again = _campaign_cli(ref, dev)
+        rewritten = [p.name for p in ref.glob("*.log")
+                     if mtimes.get(p.name) != p.stat().st_mtime_ns]
+        print(f"[c] pmake campaign rerun (file-sync restart): {again}; "
+              f"logs rewritten: {rewritten}")
+        if again["tasks"] != 0 or again["errors"] or rewritten \
+                or len(mtimes) != 3:
+            raise SystemExit(f"the restart ran tasks: {again}, rewrote "
+                             f"{rewritten}")
+
+        full = root / "full_width"
+        full.mkdir()
+        rules = campaign.with_summary_inputs(FULL_CAMPAIGN_RULES.format(
+            python=sys.executable, src=ROOT / "src", steps=FULL_CAMPAIGN_STEPS,
+            shards=2, device=dev), 2)
+        targets = campaign.TARGETS_TMPL.format(shards=2)
+        (full / "rules.yaml").write_text(rules)
+        (full / "targets.yaml").write_text(targets)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        pm = PMake(rules, targets, root=str(full), total_nodes=1)
+        print(f"[c] full-width pmake campaign: {len(pm.tasks)} tasks, EFT "
+              f"priorities " + ", ".join(
+                  f"{k} {t.priority:.4f}" for k, t in sorted(
+                      pm.tasks.items(), key=lambda kv: -kv[1].priority))
+              + f"; this process holds memory_reserved="
+              f"{reserved / 1e9:.3f} GB of the card")
+        stats = pm.run()
+        spans = {}
+        for e in pm.log:
+            spans.setdefault(e["task"], {})[e["event"]] = e["t"]
+        order = sorted(spans.items(), key=lambda kv: kv[1]["start"])
+        overlap = [(a, b) for (a, sa), (b, sb) in zip(order, order[1:])
+                   if sb["start"] < sa["done"]]
+        rows = {}
+        for n in range(2):
+            lg = _train_log(full / f"train.{n}.log")
+            recs = [json.loads(ln) for ln in (full / f"shard_{n}.jsonl")
+                    .read_text().splitlines() if ln]
+            sp = spans[f"train.{n}@."]
+            task_s = sp["done"] - sp["start"]
+            steps_s = sum(r["step_ms"] for r in recs) / 1e3
+            rows[n] = {"task_s": task_s, "steps_s": steps_s,
+                       "launch_s": task_s - steps_s, "flash": lg["flash"],
+                       "losses": lg["losses"],
+                       "step_ms": [r["step_ms"] for r in recs]}
+            print(f"[c] full-width campaign shard {n} (gemma2-2b, "
+                  f"{FULL_CAMPAIGN_STEPS} steps at batch 2 x 1024) on "
+                  f"{card}: task wall {task_s:.3f}s (PMake.log), the "
+                  f"train's own steps {steps_s:.3f}s (step_ms "
+                  f"{', '.join(f'{x:.1f}' for x in rows[n]['step_ms'])}), "
+                  f"difference {task_s - steps_s:.3f}s (the task's launch: "
+                  f"sh, Python, imports, the model's init); flash op calls "
+                  f"{lg['flash']} ({lg['flash'] / FULL_CAMPAIGN_STEPS:g} a "
+                  f"step, want 26); losses {lg['losses']}")
+        sp = spans.get("summarize@.", {})
+        print(f"[c] full-width campaign: {stats}; summarize task wall "
+              f"{sp.get('done', math.nan) - sp.get('start', math.nan):.3f}s;"
+              f" tasks at once: {'none' if not overlap else overlap}")
+        if stats["errors"] or stats["done"] != 3 or overlap:
+            raise SystemExit(f"full-width campaign: {stats}, overlaps "
+                             f"{overlap}")
+        for n, r in rows.items():
+            if r["flash"] != 26 * FULL_CAMPAIGN_STEPS or len(r["losses"]) \
+                    != FULL_CAMPAIGN_STEPS or not np.isfinite(
+                        r["losses"]).all():
+                raise SystemExit(f"full-width campaign shard {n}: {r}")
+        summary = {"reference": {"wall_s": wall, "stats": _no_wall(first),
+                                 "restart": _no_wall(again),
+                                 "flash_per_step": reduced_layers},
+                   "full_width": {n: {k: r[k] for k in (
+                       "task_s", "steps_s", "launch_s", "flash")}
+                       for n, r in rows.items()},
+                   "launches_per_step": 26}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    built = sorted(p.name for p in set(_build.BUILD_DIR.glob("*.so"))
+                   - libs_before)
+    print(f"[c] kernel libraries the campaigns' subprocesses built: "
+          f"{built or 'none (they loaded the builds of phase (a))'}")
+    return summary
+
+
+def _matmul_tasks(torch, metg, n, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return metg.MatmulTasks([tuple(
+        torch.randn((n, n), generator=gen, device=dev) for _ in "ab")
+        for _ in range(metg.PAIRS)])
+
+
+def phase_mpi_list(torch, mm_ops, metg, card, dev="cuda"):
+    """The engine-backed mpi-list `Context` on the card: 16 ranks on 4
+    engine workers map MPI_ELEMENTS elements, each one fp32 A^T B at
+    n = MPI_N (`launch.metg.MatmulTasks`: one C in 64 held against the
+    plain version at `launch.metg.tolerance`); then the same with seeded
+    straggler jitter, whose `straggler_crosscheck()` and mean sync gap are
+    printed.  Holds one `tiled_matmul` launch an element, every element's
+    check, and the collected list in order.  Returns a summary for the
+    JSON line."""
+    from repro_torch.core.mpi_list import Context
+    tasks = _matmul_tasks(torch, metg, MPI_N, 6, dev)
+    kernel_s, _ = metg.kernel_time(tasks)
+    pairs = len(tasks.c)
+    out = {}
+    for label, kw in (("no jitter", {}),
+                      ("stragglers", {"straggler_sigma": MPI_SIGMA,
+                                      "seed": 1})):
+        C = Context(MPI_RANKS, engine_workers=MPI_WORKERS, **kw)
+        checked0 = tasks.checked
+        gc.collect()
+        gc.disable()
+        mm_ops.tiled_matmul.launches = 0
+        try:
+            t0 = time.perf_counter()
+            res = C.iterates(MPI_ELEMENTS).map(
+                lambda i: (i, tasks(f"mm:{i}", {"pair": i % pairs})))
+            wall = time.perf_counter() - t0
+        finally:
+            gc.enable()
+        launches = mm_ops.tiled_matmul.launches
+        got = res.collect()
+        res.check_partition_law()
+        gap_ms = sum(C.gaps) / len(C.gaps) * 1e3
+        line = (f"[c] mpi-list Context({MPI_RANKS}, engine_workers="
+                f"{MPI_WORKERS}) {label} on {card}: iterates({MPI_ELEMENTS})"
+                f".map(one A^T B at n={MPI_N}) in {wall:.3f}s, "
+                f"{wall / MPI_ELEMENTS * 1e3:.4f} ms an element (kernel "
+                f"{kernel_s * 1e3:.4f}, efficiency "
+                f"{kernel_s * MPI_ELEMENTS / wall:.3f}); tiled_matmul "
+                f"launches={launches} (want {MPI_ELEMENTS}); C checked "
+                f"{tasks.checked - checked0}, worst/tol {tasks.worst:.3e}; "
+                f"supersteps {C.step}, mean sync gap {gap_ms:.4f} ms, "
+                f"per-rank ms min/max "
+                f"{min(C.rank_times[0]) * 1e3:.3f}/"
+                f"{max(C.rank_times[0]) * 1e3:.3f}")
+        summ = {"wall_s": wall, "ms_per_element": wall / MPI_ELEMENTS * 1e3,
+                "launches": launches, "mean_gap_ms": gap_ms}
+        if kw:
+            chk = C.straggler_crosscheck()
+            line += (f"; injected sigma {MPI_SIGMA * 1e3:g} ms, virtual gap "
+                     f"{C.virtual_gaps[0] * 1e3:.4f} ms; straggler_crosscheck"
+                     f" {chk}")
+            summ["crosscheck"] = chk
+        print(line)
+        if launches != MPI_ELEMENTS or tasks.failures \
+                or got != [(i, True) for i in range(MPI_ELEMENTS)]:
+            raise SystemExit(f"mpi-list {label}: {launches} launches, "
+                             f"failures {tasks.failures[:3]}")
+        if tasks.checked - checked0 < MPI_ELEMENTS // metg.CHECK_EVERY:
+            raise SystemExit(f"mpi-list {label}: too few C checked")
+        out[label] = summ
+    return out
+
+
+def phase_mesh_ops(torch, card, dev="cuda"):
+    """The DFM bridge (`core.mpi_list.mesh_ops`) on the card: a seeded fp32
+    DFM of MESH_ROWS rows and a pytree {"x": (2^20, 64) fp32, "y": (2^20,)
+    int32}, held against numpy: map exactly (the same fp32 operations) or,
+    for x*x+1, within 3 roundings of the fp64 value; sum and the pairwise
+    reduce of the fp32 rows against the fp64 sum (MESH_SUM_CHAIN terms
+    accumulated in a row at most, the reduce's depth 2 log2 N), integers
+    exactly; the add scan against torch.cumsum in fp64 within
+    ceil(log2 N) roundings of the running sum of |x| (the doubling scan's
+    depth); group into 7 buckets exactly against np.argsort(kind="stable").
+    Prints each operation's ms (CUDA events)."""
+    from repro_torch.core.mpi_list import mesh_ops as mo
+    u = 2.0 ** -24
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n = MESH_ROWS
+    x = torch.randn(n, generator=gen, device=dev)
+    dest = torch.randint(0, 7, (n,), generator=gen, device=dev)
+    xh = x.cpu().numpy().astype(np.float64)
+    ms, held = {}, []
+    ms["iterates"] = cuda_ms(lambda: mo.iterates(dev, n), 3)
+    it = mo.iterates(dev, n)
+    held.append(("iterates", it.dtype == torch.int32 and bool(
+        (it == torch.arange(n, device=dev)).all())))
+    del it
+    f = lambda v: v * v + 1.0  # noqa: E731
+    ms["map"] = cuda_ms(lambda: mo.dfm_map(dev, f, x), 3)
+    m = mo.dfm_map(dev, f, x)
+    mh = xh * xh + 1.0
+    held.append(("map", bool(np.all(np.abs(m.cpu().numpy() - mh)
+                                    <= 3 * u * mh))))
+    mabs = float(np.abs(mh).sum())
+    ms["sum"] = cuda_ms(lambda: mo.dfm_sum(dev, m), 3)
+    s = float(mo.dfm_sum(dev, m))
+    sum_err = abs(s - float(mh.sum()))
+    held.append(("sum", sum_err <= MESH_SUM_CHAIN * u * mabs))
+    add = lambda a, b: a + b  # noqa: E731
+    ms["reduce"] = cuda_ms(lambda: mo.dfm_reduce(dev, add, m), 1)
+    r = float(mo.dfm_reduce(dev, add, m))
+    red_err = abs(r - float(mh.sum()))
+    depth = 2 * math.ceil(math.log2(n))
+    held.append(("reduce", red_err <= depth * u * mabs))
+    del m
+    ms["scan"] = cuda_ms(lambda: mo.dfm_scan(dev, add, x), 1)
+    sc = mo.dfm_scan(dev, add, x)
+    xd = x.double()
+    ref = torch.cumsum(xd, 0)
+    lim = math.ceil(math.log2(n)) * u * torch.cumsum(xd.abs(), 0)
+    scan_err = float(((sc.double() - ref).abs() / lim).max())
+    held.append(("scan", scan_err <= 1.0))
+    del sc, xd, ref, lim
+    ms["group"] = cuda_ms(lambda: mo.group(dev, dest, x), 3)
+    g = mo.group(dev, dest, x).cpu().numpy()
+    order = np.argsort(dest.to(torch.int8).cpu().numpy(), kind="stable")
+    held.append(("group", bool(np.array_equal(g, x.cpu().numpy()[order]))))
+    del g, order
+    ms["repartition"] = cuda_ms(lambda: mo.repartition(dev, x), 3)
+    held.append(("repartition", mo.repartition(dev, x).data_ptr()
+                 == x.data_ptr()))
+
+    rows = MESH_TREE_ROWS
+    tree = {"x": torch.randn((rows, 64), generator=gen, device=dev),
+            "y": torch.randint(0, 100, (rows,), generator=gen,
+                               device=dev, dtype=torch.int32)}
+    th = {k: v.cpu().numpy() for k, v in tree.items()}
+    tf = lambda t: {"x": t["x"] * 2.0 + 1.0, "y": t["y"] * 3}  # noqa: E731
+    ms["map tree"] = cuda_ms(lambda: mo.dfm_map(dev, tf, tree), 3)
+    tm = mo.collect(mo.dfm_map(dev, tf, tree))
+    held.append(("map tree", np.array_equal(tm["x"], th["x"] * np.float32(2)
+                                            + np.float32(1))
+                 and np.array_equal(tm["y"], th["y"] * 3)))
+    ts = mo.collect(mo.dfm_sum(dev, tree))
+    xs = th["x"].astype(np.float64)
+    held.append(("sum tree", int(ts["y"]) == int(th["y"].astype(np.int64)
+                                                 .sum())
+                 and bool(np.all(np.abs(ts["x"] - xs.sum(0)) <=
+                                 MESH_SUM_CHAIN * u * np.abs(xs).sum(0)))))
+    tsc = mo.collect(mo.dfm_scan(dev, add, tree))
+    held.append(("scan tree", np.array_equal(
+        tsc["y"], np.cumsum(th["y"].astype(np.int64)).astype(np.int32))
+        and bool(np.all(np.abs(tsc["x"] - np.cumsum(xs, 0)) <=
+                        math.ceil(math.log2(rows)) * u
+                        * np.cumsum(np.abs(xs), 0)))))
+    tdest = tree["y"] % 7
+    ms["group tree"] = cuda_ms(lambda: mo.group(dev, tdest, tree), 3)
+    tg = mo.collect(mo.group(dev, tdest, tree))
+    torder = np.argsort(th["y"] % 7, kind="stable")
+    held.append(("group tree", all(np.array_equal(tg[k], th[k][torder])
+                                   for k in th)))
+    print(f"[c] mpi-list DFM bridge (mesh_ops) on {card}: {n} fp32 rows "
+          f"({n * 4 / 2**20:.0f} MiB) and a pytree x {rows} x 64 fp32, y "
+          f"{rows} int32; ms " + ", ".join(f"{k} {v:.3f}"
+                                           for k, v in ms.items())
+          + f"; sum |err| {sum_err:.3e} (limit "
+          f"{MESH_SUM_CHAIN * u * mabs:.3e}), reduce |err| {red_err:.3e} "
+          f"(limit {depth * u * mabs:.3e}), scan max err/limit "
+          f"{scan_err:.3e}; held: " + ", ".join(
+              f"{k} {'ok' if ok else 'FAILED'}" for k, ok in held))
+    bad = [k for k, ok in held if not ok]
+    if bad:
+        raise SystemExit(f"mesh_ops disagrees with numpy: {bad}")
+    return ms
+
+
+def phase_elastic(torch, mm_ops, metg, card, dev="cuda"):
+    """The elastic pool and `run_pool` on the card, every task one fp32
+    A^T B at n = MPI_N.  `ElasticPool`: ELASTIC_SHARDS shards, two workers,
+    one crashing after 3 tasks; all shards complete, at least one is
+    requeued, every future resolves ok, `tiled_matmul` launches once per
+    shard run (a requeued shard runs again), and `remesh` sees the live
+    worker counts (1, 2, then 1 after `lose_worker`).  `run_pool`: a
+    `TaskServer` holding RUN_POOL_TASKS tasks at one worker; completed ==
+    created with 0 errors, one launch a task.  Returns both summaries."""
+    from repro_torch.core.dwork import InProcTransport, TaskServer, run_pool
+    from repro_torch.core.dwork import Client as DworkClient
+    from repro_torch.runtime.elastic import ElasticPool
+    tasks = _matmul_tasks(torch, metg, MPI_N, 8, dev)
+    kernel_s, _ = metg.kernel_time(tasks)
+    pairs = len(tasks.c)
+    calls = []
+    mm_ops.tiled_matmul.launches = 0
+    t0 = time.perf_counter()
+    with ElasticPool(lease_timeout=60.0, remesh=calls.append,
+                     per_task_s=kernel_s) as pool:
+        futs = [pool.submit(f"shard{i}", meta={"pair": i % pairs})
+                for i in range(ELASTIC_SHARDS)]
+        pool.start_worker("w_crash", tasks, fail_after=3)
+        pool.start_worker("w_ok", tasks)
+        stats = pool.join(timeout=600.0)
+        wall = time.perf_counter() - t0
+        ok = [f.exception(60.0) is None and f.result(0) is None
+              for f in futs]
+        ran = len(pool.completed)
+        by_worker = {w: sum(1 for x, _ in pool.completed if x == w)
+                     for w in ("w_crash", "w_ok")}
+        steal_n = pool.engine.steal_n
+        pool.lose_worker("w_crash")
+    launches = mm_ops.tiled_matmul.launches
+    elastic = {"completed": stats["completed"], "requeued":
+               stats["requeued"], "launches": launches, "shards_run": ran,
+               "remesh": calls, "wall_s": wall, "steal_n": steal_n}
+    print(f"[c] ElasticPool on {card}: {ELASTIC_SHARDS} A^T B shards at "
+          f"n={MPI_N}, workers w_crash (fail_after=3) and w_ok, steal_n "
+          f"{steal_n}: {stats}; shards run {ran} {by_worker}, tiled_matmul "
+          f"launches={launches}; futures ok {sum(ok)}/{len(ok)}; remesh "
+          f"calls {calls}; {wall:.3f}s")
+    if stats["completed"] != ELASTIC_SHARDS or stats["requeued"] < 1 \
+            or stats["errors"] or not all(ok) or launches != ran \
+            or calls != [1, 2, 1] or tasks.failures:
+        raise SystemExit(f"elastic pool: {elastic}, failures "
+                         f"{tasks.failures[:3]}")
+
+    srv = TaskServer()
+    srv.create_bulk([(f"mm:{i}", (), {"pair": i % pairs})
+                     for i in range(RUN_POOL_TASKS)])
+    mm_ops.tiled_matmul.launches = 0
+    gc.collect()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        rep = run_pool(srv, tasks, workers=1)
+        wall = time.perf_counter() - t0
+    finally:
+        gc.enable()
+    launches = mm_ops.tiled_matmul.launches
+    st = srv.stats()
+    ov = rep.overhead().summary()
+    print(f"[c] run_pool on {card}: a TaskServer of {RUN_POOL_TASKS} A^T B "
+          f"tasks at n={MPI_N}, workers=1: {st}; {wall:.3f}s, "
+          f"{wall / RUN_POOL_TASKS * 1e3:.4f} ms a task (kernel "
+          f"{kernel_s * 1e3:.4f}, efficiency "
+          f"{kernel_s * RUN_POOL_TASKS / wall:.3f}), empirical overhead "
+          f"{ov['per_task_overhead_us']} us a task; tiled_matmul "
+          f"launches={launches} (want {RUN_POOL_TASKS})")
+    if st["completed"] != st["created"] or st["created"] != RUN_POOL_TASKS \
+            or st["errors"] or launches != RUN_POOL_TASKS or tasks.failures \
+            or len(rep.completed) != RUN_POOL_TASKS:
+        raise SystemExit(f"run_pool: {st}, launches {launches}, failures "
+                         f"{tasks.failures[:3]}")
+    return elastic, {"completed": st["completed"], "launches": launches,
+                     "ms_per_task": wall / RUN_POOL_TASKS * 1e3,
+                     "overhead_us": ov["per_task_overhead_us"]}
+
+
+def phase_metg_table(table: dict, card) -> dict:
+    """`launch.metg`'s table of all three schedulers, printed by the ladder's
+    run in `phase_metg` from the dwork round trip, the popen launch and the
+    mpi-list sigma measured on this machine: held to the paper's ordering
+    at 864 ranks and dwork's linear scaling, every METG positive."""
+    checks = table["checks"]
+    print(f"[c] METG, all three schedulers on {card} (the [metg] ranks= "
+          f"lines above): {json.dumps(checks)}")
+    bad = [row["ranks"] for row in table["rows"]
+           if not all(v > 0 for v in row["metg_s"].values())]
+    if not checks["ordering_mpilist<dwork<pmake"] \
+            or not checks["dwork_scales_linearly"] or bad:
+        raise SystemExit(f"METG table: {checks}, non-positive at {bad}")
+    return checks
 
 def grad_check(torch, name, kernel_fn, plain_fn, ins, g, out_tol):
     """The kernel op's outputs under autograd (a tensor, or a tuple whose
@@ -2452,9 +2957,22 @@ def run(where: dict) -> int:
     where["phase"] = "(b) tiled_matmul"
     mm_row = phase_matmul(torch, mm_ops, mm_ref, mm_kernel, metg)
     where["phase"] = "(c) dwork METG ladder"
-    mm_row["launches"] = phase_metg(torch, mm_ops, metg)
+    mm_row["launches"], metg_table = phase_metg(torch, mm_ops, metg)
     where["phase"] = "(c) the front door's schedulers on the card"
     mm_row["front_door"] = phase_front_door(torch, mm_ops, metg)
+    where["phase"] = "(c) pmake campaigns"
+    row["campaign"] = phase_campaign(torch, card)
+    where["phase"] = "(c) mpi-list on the card"
+    mm_row["mpi_list"] = phase_mpi_list(torch, mm_ops, metg, card)
+    where["phase"] = "(c) mpi-list DFM bridge"
+    mm_row["mesh_ops_ms"] = phase_mesh_ops(torch, card)
+    where["phase"] = "(c) elastic pool and run_pool"
+    mm_row["elastic"], mm_row["run_pool"] = phase_elastic(torch, mm_ops,
+                                                          metg, card)
+    where["phase"] = "(c) METG, all three schedulers"
+    mm_row["metg_schedulers"] = phase_metg_table(metg_table, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     for r, lib in ((row, "flash_attention"), (zrow, "flash_attention"),
                    (mm_row, "tiled_matmul")):
         r["sass_hgmma"] = builds[lib]

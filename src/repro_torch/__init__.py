@@ -9,12 +9,16 @@ Layers (module names mirror the JAX package):
   repro_torch.kernels  — hand-written CUDA kernels for Hopper (sm_90a), each
                          beside its plain PyTorch version
   repro_torch.optim    — AdamW
-  repro_torch.data     — synthetic corpus, packing, batches
-  repro_torch.runtime  — prefill / decode / greedy generation; train step
-  repro_torch.core     — the paper's dwork scheduler, the unified engine,
-                         the serving frontend and the METG model
+  repro_torch.data     — synthetic corpus, packing (an mpi-list program),
+                         batches
+  repro_torch.runtime  — prefill / decode / greedy generation; train step;
+                         the elastic worker pool
+  repro_torch.core     — the paper's three schedulers (pmake, dwork,
+                         mpi-list), the unified engine, the serving
+                         frontend and the METG model
   repro_torch.client   — the futures front door (`Client`) over the engine
-  repro_torch.launch   — serve, train and METG entry points
+  repro_torch.launch   — serve, train, METG and pmake-campaign entry
+                         points
   repro_torch.bridge   — numpy <-> torch param trees, for parity tests
 
 Entry points run on "cuda" unless the caller passes device="cpu".

@@ -48,12 +48,14 @@ Long-lived sessions stay bounded with the opt-in knobs:
 the values), and `prune_every=N` drops terminal entries from the
 engine + server history tables every N resolved futures.
 
-The JAX package's legacy front doors — `dwork.pool.run_pool`,
-`pmake.PMake.run`, `mpi_list.Context(engine_workers=...)` — are thin
-shims over the batch mode of this client (`Client(resident=False)` +
-`run()`); the port has not taken them over yet (ROADMAP.md Queue 1 items
-4e and 4h).  The "tree" and "proc" transports and `stats_server()` raise
-`NotImplementedError` until their modules are ported.
+The legacy front doors — `repro_torch.core.dwork.run_pool`,
+`repro_torch.core.pmake.PMake.run`,
+`repro_torch.core.mpi_list.Context(engine_workers=...)` — and
+`repro_torch.runtime.elastic.ElasticPool` are thin shims over this client
+(batch mode, `Client(resident=False)` + `run()`, for the first three).
+The "tree" and "proc" transports and `stats_server()` raise
+`NotImplementedError` until their modules (the forwarding tree, the
+worker processes, `core/obs`) are ported.
 """
 from repro_torch.client.client import SCHEDULERS, Client
 from repro_torch.client.futures import (CancelledError, DependencyFailed,

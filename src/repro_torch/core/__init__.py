@@ -1,13 +1,16 @@
-"""repro_torch.core — the port's copy of the paper's schedulers, so far:
+"""repro_torch.core — the port's copy of the paper's schedulers:
 
-  dwork    client/server bag-of-tasks with dependencies, and the sharded
-           hub                                           (paper §2.2, §6)
-  engine   the unified worker pool all three schedulers run on: inproc
-           and thread transports, faults, leases, journal, tracing
-  serving  the METG-batching request frontend over a resident engine
-  metg     minimum-effective-task-granularity scaling laws (§3-§6)
+  pmake     file-based make-like workflow scheduler, EFT priorities
+                                                          (paper §2.1)
+  dwork     client/server bag-of-tasks with dependencies, the sharded
+            hub and `run_pool`                            (paper §2.2, §6)
+  mpi_list  bulk-synchronous distributed lists (DFM), engine-backed
+            rank maps, and the DFM bridge on a torch device (paper §2.3)
+  engine    the unified worker pool all three schedulers run on: inproc
+            and thread transports, faults, leases, journal, tracing
+  serving   the METG-batching request frontend over a resident engine
+  metg      minimum-effective-task-granularity scaling laws (§3-§6)
 
-The futures front door over the engine is `repro_torch.client`.  pmake,
-mpi-list, the forwarding tree, worker processes and core/obs are not
-ported yet.
+The futures front door over the engine is `repro_torch.client`.  The
+forwarding tree, worker processes and core/obs are not ported yet.
 """

@@ -29,12 +29,12 @@ makes that claim *measurable* in one place instead of three ad-hoc loops:
                  (optionally rpc-sampled), cross-checked against the
                  analytic laws in core/metg.py
 
-Not ported yet: the "tree" transport (the forwarding tree, ROADMAP.md Queue 1 item
-4d) and the "proc" transport (`comm/proc.py`, `comm/worker.py`, item 4g)
-raise `NotImplementedError`; the scheduler adapters `run_pool`,
-`PMake.run` and the engine-backed mpi-list `Context` (items 4e, 4h) and
-`core/obs` (item 4f) come later.  Everything below is the reference's
-guidance, tree and proc included.
+Not ported yet: the "tree" transport (the forwarding tree, ROADMAP.md
+Queue 1 item 4d) and the "proc" transport (`comm/proc.py`,
+`comm/worker.py`, item 4g) raise `NotImplementedError`, and `core/obs`
+(item 4f) comes later.  The scheduler adapters `run_pool`, `PMake.run`
+and the engine-backed mpi-list `Context` are ported.  Everything below is
+the reference's guidance, tree and proc included.
 
 Tuning `transport=` / `steal_n` against the METG laws (core/metg.py):
 

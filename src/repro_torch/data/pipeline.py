@@ -1,15 +1,17 @@
 """Data pipeline: synthetic corpus -> tokenize -> pack -> global batches.
 
-Deterministic per (seed, epoch); each call of `batches()` yields {tokens,
-labels} numpy arrays, labels = next token.  The JAX package packs through
-its mpi-list `Context` (scatter -> flatMap(doc + [EOS]) -> collect), which
-keeps document order; the port has no copy of the scheduler half, so it
-packs with the same concatenation, in the same order, directly.  The
-batches are the JAX pipeline's, array for array.
+Built on mpi-list (`repro_torch.core.mpi_list`), as the JAX package's is:
+documents are a DFM, tokenize is `flatMap`, and the flat token list is cut
+into fixed-length sequences — the paper's §2.3 tool as the framework's
+input pipeline.  Deterministic per (seed, epoch); each call of `batches()`
+yields {tokens, labels} numpy arrays, labels = next token.  The batches
+are the JAX pipeline's, array for array.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from repro_torch.core.mpi_list import Context
 
 
 class SyntheticCorpus:
@@ -32,18 +34,21 @@ class SyntheticCorpus:
         return out
 
 
-def pack_documents(docs: list, seq_len: int) -> np.ndarray:
-    """Each document followed by the EOS/BOS separator 1, concatenated in
-    order and cut into (n_seq, seq_len) rows."""
-    flat = np.concatenate([np.append(d, 1) for d in docs]).astype(np.int32)
+def pack_documents(ctx: Context, docs: list, seq_len: int) -> np.ndarray:
+    """mpi-list pipeline: scatter docs -> flatMap(tokens + EOS) ->
+    collect, cut into (n_seq, seq_len) rows."""
+    dfm = ctx.scatter(docs)
+    tokens = dfm.flatMap(lambda d: list(d) + [1])       # EOS/BOS separator
+    flat = np.asarray(tokens.collect(), dtype=np.int32)
     n_seq = len(flat) // seq_len
     return flat[: n_seq * seq_len].reshape(n_seq, seq_len)
 
 
 class Pipeline:
     def __init__(self, vocab_size: int, seq_len: int, global_batch: int, *,
-                 seed: int = 0):
+                 seed: int = 0, n_ranks: int = 4):
         self.corpus = SyntheticCorpus(vocab_size, seed=seed)
+        self.ctx = Context(n_ranks)
         self.seq_len = seq_len
         self.global_batch = global_batch
         self._buf = np.zeros((0, seq_len + 1), np.int32)
@@ -52,7 +57,7 @@ class Pipeline:
     def _refill(self):
         need_tokens = self.global_batch * (self.seq_len + 1) * 2
         n_docs = max(8, need_tokens // self.corpus.mean_len)
-        packed = pack_documents(self.corpus.docs(n_docs, self._epoch),
+        packed = pack_documents(self.ctx, self.corpus.docs(n_docs, self._epoch),
                                 self.seq_len + 1)
         self._epoch += 1
         self._buf = np.concatenate([self._buf, packed], axis=0)

@@ -37,23 +37,38 @@ prints one line per size with the measured efficiency (a)/(b), (a)/(c) and
 crosses 0.5 beside `METGModel.from_measured(rtt_s=...).dwork_metg(1)`.  It
 raises if a server records a failed task or completes fewer tasks than were
 created, or if a future of (f) resolves with an error.
+
+Then the other two halves of `benchmarks/metg.py` (`run`, `:78-115`): the
+METG of all three schedulers at the paper's rank counts RANKS, from the
+paper's Summit constants and from this machine's measured ones (the dwork
+round trips above, `measure_pmake_launch`'s popen launch of a no-op shell
+task, `measure_mpilist_sigma`'s per-rank jitter of a trivial map through the
+port's mpi-list `Context`), with the efficiency at each of TASK_SIZES and the
+reference's checks: one `[metg] ranks=` line per rank count, then `[metg]
+checks`.
 """
 from __future__ import annotations
 
 import argparse
 import gc
+import json
 import math
+import subprocess
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.client import Client as FuturesClient
 from repro_torch.core.dwork import (Client, InProcTransport, OverlapClient,
                                     TaskServer, TCPServer, TCPTransport)
 from repro_torch.core.metg import METGModel, efficiency, same_order
+from repro_torch.core.mpi_list import Context
 from repro_torch.kernels.tiled_matmul.ops import tiled_matmul, tiled_matmul_ref
 
 SIZES = (256, 512, 1024, 2048, 4096)
+RANKS = (6, 60, 864, 6912)                          # benchmarks/metg.py's
+TASK_SIZES = (1e-4, 1e-3, 1e-2, 1e-1, 1.0, 10.0)
 PAIRS = 4
 CHECK_EVERY = 64
 TIMING_S = 0.25        # card time spent on (a) per size
@@ -121,6 +136,90 @@ def measure_dwork_rtt(n: int = 2000) -> dict:
         tcp.shutdown()
         tcp.server_close()
     return out
+
+
+def measure_pmake_launch(n: int = 15) -> float:
+    """popen launch cost of a no-op shell task (jsrun analog;
+    `benchmarks/metg.py:54`)."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        subprocess.run(["sh", "-c", "true"], check=True)
+    return (time.perf_counter() - t0) / n
+
+
+def measure_mpilist_sigma(procs: int = 16, n_tasks: int = 2000) -> float:
+    """Per-rank runtime jitter (straggler sigma) of a trivial map over the
+    mpi-list `Context`'s rank blocks (`benchmarks/metg.py:62`)."""
+    C = Context(procs)
+    times = []
+    dfm = C.iterates(n_tasks)
+    for _ in range(5):
+        t_ranks = []
+        for blk in dfm.parts:
+            t0 = time.perf_counter()
+            _ = [x * x for x in blk]
+            t_ranks.append(time.perf_counter() - t0)
+        times.append(np.std(t_ranks))
+    return float(np.mean(times))
+
+
+def run(rtt: dict = None, quick: bool = True) -> dict:
+    """`benchmarks/metg.py`'s `run`: each scheduler's METG at RANKS from the
+    paper's constants and the measured ones, the efficiency at TASK_SIZES,
+    and the checks.  `rtt` takes `measure_dwork_rtt`'s result when the
+    caller has one."""
+    model = METGModel.from_paper()
+    meas = rtt or measure_dwork_rtt(400 if quick else 2000)
+    launch = measure_pmake_launch(8 if quick else 30)
+    sigma = measure_mpilist_sigma(8, 500 if quick else 4000)
+
+    rows = []
+    for ranks in RANKS:
+        metg = {
+            "pmake_paper": model.pmake_metg(ranks),
+            "pmake_measured": launch * (1 + math.log(ranks) / 10),
+            "dwork_paper": model.dwork_metg(ranks),
+            "dwork_measured_inproc": meas["inproc_rtt_s"] * ranks,
+            "dwork_measured_tcp": meas["tcp_rtt_s"] * ranks,
+            "mpilist_paper": model.mpilist_metg(ranks),
+            "mpilist_measured": sigma * math.sqrt(2 * math.log(ranks)),
+        }
+        effs = {f"eff@{t:g}s": {k: round(efficiency(t, v), 3)
+                                for k, v in metg.items()}
+                for t in TASK_SIZES}
+        rows.append({"ranks": ranks, "metg_s": metg, **effs})
+
+    # paper §4 headline: ordering + magnitudes at 864 ranks
+    r864 = rows[2]["metg_s"]
+    checks = {
+        "ordering_mpilist<dwork<pmake":
+            r864["mpilist_paper"] < r864["dwork_paper"] < r864["pmake_paper"],
+        "dwork_scales_linearly":
+            abs(rows[3]["metg_s"]["dwork_paper"]
+                / r864["dwork_paper"] - 6912 / 864) < 1e-6,
+        "paper_864_dwork_ms": round(r864["dwork_paper"] * 1e3, 1),
+        "paper_864_pmake_s": round(r864["pmake_paper"], 2),
+        "measured_dwork_rtt_us": round(meas["inproc_rtt_s"] * 1e6, 1),
+        "measured_tcp_rtt_us": round(meas["tcp_rtt_s"] * 1e6, 1),
+        "measured_pmake_launch_s": round(launch, 4),
+        "measured_mpilist_sigma_s": round(sigma, 6),
+    }
+    return {"rows": rows, "checks": checks}
+
+
+def print_table(table: dict):
+    """One `[metg] ranks=` line per rank count: each scheduler's METG in ms,
+    the paper's and the measured, and the efficiency at each task size."""
+    for row in table["rows"]:
+        m = row["metg_s"]
+        effs = " ".join(
+            f"eff@{t:g}s=" + "/".join(
+                f"{row[f'eff@{t:g}s'][k]:.3f}" for k in m)
+            for t in TASK_SIZES)
+        print(f"[metg] ranks={row['ranks']} METG ms: " + " ".join(
+            f"{k}={v * 1e3:.6g}" for k, v in m.items())
+            + f"; {effs} (in the order of the METG columns)", flush=True)
+    print(f"[metg] checks {json.dumps(table['checks'])}", flush=True)
 
 
 class MatmulTasks:
@@ -418,8 +517,10 @@ def main(argv=None) -> dict:
         f"{label} {_fmt_crossing(cross[k], rows, k)}"
         for k, label in labels.items())
         + f"; model dwork_metg(1) = {metg_s * 1e3:.4f} ms", flush=True)
+    table = run(rtt, quick=False)
+    print_table(table)
     return {"device": where, "rtt": rtt, "rows": rows, "crossing": cross,
-            "model_metg_s": metg_s}
+            "model_metg_s": metg_s, "schedulers": table}
 
 
 if __name__ == "__main__":

@@ -14,7 +14,9 @@ card unless --device cpu.
 Weights are random, made from --seed on the device; batches come from the
 synthetic pipeline.  Each step prints loss, grad norm, step ms (forward,
 backward, optimizer) and tokens/s; the run ends with the peak device
-memory.  --remat none|dots|full checkpoints the transformer's blocks
+memory and the kernel ops' calls (`[train] kernel op calls flash=...
+wkv=... ssd=...`, the ops' `.launches` counters).  --remat
+none|dots|full checkpoints the transformer's blocks
 (`models.common.maybe_remat`).  --ckpt-dir saves {"params", "opt"} every
 --ckpt-every steps and at the last, in the JAX package's format
 (`checkpoint.ckpt`), so either framework resumes the other's run;
@@ -34,6 +36,9 @@ import torch
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data.pipeline import Pipeline
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.mamba2_ssd.ops import ssd
+from repro_torch.kernels.rwkv6_scan.ops import wkv6
 from repro_torch.models.common import Options, param_count
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import init_opt
@@ -135,6 +140,9 @@ def main(argv=None):
             if device.type == "cuda" else None)
     if peak is not None:
         print(f"[train] peak device memory {peak / 1e9:.2f} GB")
+    # the ops' launch counters (process-wide; 0 on the CPU's plain path)
+    print(f"[train] kernel op calls flash={flash_attention.launches} "
+          f"wkv={wkv6.launches} ssd={ssd.launches}")
     assert np.isfinite(losses).all(), "NaN/inf loss"
     if len(losses) > 10:
         assert np.mean(losses[-5:]) < np.mean(losses[:5]), \

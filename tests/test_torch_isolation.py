@@ -1,6 +1,7 @@
 """The port stands alone: no file of src/repro_torch/ nor chip_smoke.py
-imports jax or anything of the JAX package, and its entry points default to
-the card."""
+imports jax or anything of the JAX package, nor yaml (the card's machine may
+not have it: pmake reads its files with its own reader), and its entry
+points default to the card."""
 import ast
 import inspect
 from pathlib import Path
@@ -33,6 +34,12 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_yaml_import(path):
+    assert "yaml" not in set(_imported_roots(path)), f"{path} imports yaml"
+
+
 def test_the_checkpoint_module_is_covered():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"src/repro_torch/checkpoint/__init__.py",
@@ -53,8 +60,20 @@ def test_the_front_door_modules_are_covered():
         "core/serving/frontend.py")} <= names
 
 
+def test_the_scheduler_modules_are_covered():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    port = "src/repro_torch/"
+    assert {port + m for m in (
+        "core/pmake/__init__.py", "core/pmake/rules.py",
+        "core/pmake/graph.py", "core/pmake/scheduler.py",
+        "core/mpi_list/__init__.py", "core/mpi_list/context.py",
+        "core/mpi_list/mesh_ops.py", "core/dwork/pool.py",
+        "runtime/elastic.py", "launch/campaign.py",
+        "data/pipeline.py")} <= names
+
+
 def test_entry_points_default_to_cuda():
-    from repro_torch.launch import metg, serve, train
+    from repro_torch.launch import campaign, metg, serve, train
     from repro_torch.models import mamba2, model, rwkv, transformer, zamba
     from repro_torch.runtime import serve_step, train_step  # noqa: F401
     assert serve.parse_args([]).device == "cuda"
@@ -65,6 +84,7 @@ def test_entry_points_default_to_cuda():
     assert train.parse_args([]).device == "cuda"
     assert train.parse_args(["--no-reduced"]).reduced is False
     assert metg.parse_args([]).device == "cuda"
+    assert campaign.parse_args([]).device == "cuda"
     for fn in (model.Model.init, model.Model.init_cache, transformer.init_lm,
                transformer.init_cache, rwkv.init_lm, rwkv.init_state,
                zamba.init_lm, zamba.init_cache, mamba2.init_mamba,

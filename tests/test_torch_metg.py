@@ -266,3 +266,68 @@ def test_metg_main_defaults_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             launch_metg.main([])
+
+
+# ------------------------------------------- all three schedulers' table
+
+PAPER_KEYS = ("pmake_paper", "dwork_paper", "mpilist_paper")
+MEASURED_KEYS = ("pmake_measured", "dwork_measured_inproc",
+                 "dwork_measured_tcp", "mpilist_measured")
+
+
+def test_scheduler_table_paper_columns_equal_the_benchmark():
+    """`launch.metg.run` against `benchmarks/metg.py`'s `run`: the same rank
+    counts and task sizes, equal paper METGs, efficiencies and paper checks;
+    every measured METG positive."""
+    ours, theirs = launch_metg.run(quick=True), _bench.run(quick=True)
+    assert launch_metg.RANKS == RANKS and launch_metg.TASK_SIZES == TASK_SIZES
+    assert [r["ranks"] for r in ours["rows"]] == \
+        [r["ranks"] for r in theirs["rows"]] == list(RANKS)
+    for row, ref in zip(ours["rows"], theirs["rows"]):
+        assert sorted(row) == sorted(ref)
+        assert sorted(row["metg_s"]) == sorted(ref["metg_s"]) == \
+            sorted(PAPER_KEYS + MEASURED_KEYS)
+        for k in PAPER_KEYS:
+            assert row["metg_s"][k] == ref["metg_s"][k]
+            for t in TASK_SIZES:
+                assert row[f"eff@{t:g}s"][k] == ref[f"eff@{t:g}s"][k]
+        for k in MEASURED_KEYS:
+            assert row["metg_s"][k] > 0
+            for t in TASK_SIZES:
+                assert 0 <= row[f"eff@{t:g}s"][k] <= 1
+    assert sorted(ours["checks"]) == sorted(theirs["checks"])
+    for k in ("ordering_mpilist<dwork<pmake", "dwork_scales_linearly",
+              "paper_864_dwork_ms", "paper_864_pmake_s"):
+        assert ours["checks"][k] == theirs["checks"][k]
+    assert ours["checks"]["ordering_mpilist<dwork<pmake"] is True
+    assert ours["checks"]["measured_pmake_launch_s"] > 0
+
+
+def test_scheduler_table_takes_the_ladder_rtt():
+    rtt = {"inproc_rtt_s": 2e-6, "tcp_rtt_s": 5e-5}
+    table = launch_metg.run(rtt, quick=True)
+    for row in table["rows"]:
+        assert row["metg_s"]["dwork_measured_inproc"] == 2e-6 * row["ranks"]
+        assert row["metg_s"]["dwork_measured_tcp"] == 5e-5 * row["ranks"]
+    assert table["checks"]["measured_dwork_rtt_us"] == 2.0
+
+
+def test_metg_main_prints_the_three_scheduler_table(capsys):
+    res = launch_metg.main(["--device", "cpu", "--sizes", "16",
+                            "--max-tasks", "10", "--seconds", "1e-9"])
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("[metg] ranks=")]
+    assert [ln.split()[1] for ln in lines] == [f"ranks={r}" for r in RANKS]
+    for ln in lines:
+        for k in PAPER_KEYS + MEASURED_KEYS:
+            assert f"{k}=" in ln
+    assert "[metg] checks {" in out
+    table = res["schedulers"]
+    assert table["checks"]["measured_dwork_rtt_us"] == \
+        round(res["rtt"]["inproc_rtt_s"] * 1e6, 1)
+    assert out.index("[metg] efficiency 0.5:") < out.index("[metg] ranks=")
+
+
+def test_measure_pmake_launch_and_mpilist_sigma():
+    assert launch_metg.measure_pmake_launch(2) > 0
+    assert launch_metg.measure_mpilist_sigma(4, 64) >= 0
