@@ -56,12 +56,16 @@ Phases; any failure exits non-zero:
       task besides the launches made without the scheduler; the front
       door's schedulers on the card: 2,000 A^T B tasks at n = 256 and 1024
       through `Client` as dwork, pmake and mpi_list (rank blocks through
-      `map`), dwork on a ShardedHub of 4, dwork on two threads, and dwork
-      with a transient fault on every first attempt, retries and a journal
+      `map`), dwork on a ShardedHub of 4, dwork on two threads, dwork
+      with a transient fault on every first attempt, retries and a journal,
+      and dwork behind the forwarding tree (`transport="tree"`, 8 workers,
+      4 a leaf), alone and composed with a ShardedHub of 4
       (every future ok, one C in 64 against the plain version, one launch a
       task run, completed == created with 0 errors, `Engine.recover` finds
-      nothing to redo; ms a task, efficiency, empirical overhead and its
-      crosscheck printed); the paper's other two schedulers: pmake's
+      nothing to redo, the tree's stats and hop ops present; ms a task,
+      efficiency, empirical overhead and its crosscheck printed, and the
+      mean us of each `hop:L1` / `hop:L1:s<j>` op); the paper's other two
+      schedulers: pmake's
       `launch.campaign` with its defaults (reduced gemma2-2b, 2 shards of 6
       steps, 2 nodes; 3 tasks done, 0 errors, a report of 2 shards of 6
       steps, one flash op call per layer and step in each shard's log)
@@ -92,7 +96,17 @@ Phases; any failure exits non-zero:
       kernel of the path must have launched once per layer and prefill
       batch, the kernel path's prefill must agree with the plain path's,
       and the served first tokens are the prefill's argmax in the batches
-      they were served in.  Then the same traffic
+      they were served in.  The gemma2-2b serve runs with its observability
+      on (`--stats-port P --trace-out build/chip_trace/gemma2.trace.json`):
+      a thread scrapes /health, /stats and /metrics at least 3 times while
+      it serves (every scrape ok, /metrics Prometheus text whose
+      repro_tasks_completed_total never decreases, /stats with the
+      reference's engine keys), the Chrome trace loads with one task span
+      a batch and one request span a request, and the critical path of the
+      returned trace (the batches chained in the order the worker ran
+      them) names every batch, its attribution summing to its makespan
+      within 5 %; the makespan and its compute and scheduler shares are
+      printed beside the p99.  Then the same traffic
       through full-width zamba2-2.7b (54 Mamba2 layers, the shared block 9
       times), through the front door as above: 54 SSD op calls and 9 flash
       launches per prefill batch and
@@ -148,7 +162,9 @@ Phases; any failure exits non-zero:
       figures, serve_shape; every serving row's batch-1 figures, serve_b1;
       the A^T B row's front-door summary, front_door, and the other
       schedulers' runs: mpi_list, mesh_ops_ms, elastic, run_pool,
-      metg_schedulers; the gemma2 flash row's pmake campaigns, campaign;
+      metg_schedulers (the tree rows' mean us a hop, hop_us, in
+      front_door); the gemma2 flash row's pmake campaigns, campaign, and
+      its served run's observability, serve_obs;
       the flash row with the served figures and the
       two profiles, serve; the gemma2 flash row with its training run's
       train_launches, train_launches_per_forward, remat_launches,
@@ -1178,8 +1194,10 @@ def phase_metg(torch, mm_ops, metg):
 def front_door_configs(jdir):
     """name -> (scheduler, Client keywords, kernel launches a task): the
     three schedulers inproc, dwork on a ShardedHub of 4, dwork on two
-    threads, and dwork with a transient fault on every task's first attempt,
-    retries and a journal (README.md, "Durability and retries")."""
+    threads, dwork with a transient fault on every task's first attempt,
+    retries and a journal (README.md, "Durability and retries"), and dwork
+    behind the forwarding tree (8 workers, 4 a leaf), alone and composed
+    with a ShardedHub of 4 (README.md's `transport="tree", shards=4`)."""
     from repro_torch.core.engine import FaultPlan, RetryPolicy
     return {
         "dwork": ("dwork", {}, 1),
@@ -1192,6 +1210,10 @@ def front_door_configs(jdir):
             "faults": FaultPlan(seed=1).fail_first_k(1),
             "retry": RetryPolicy(max_attempts=3),
             "journal_dir": str(jdir)}, 2),
+        "dwork tree": ("dwork", {"transport": "tree", "workers": 8,
+                                 "tree_fanout": 4}, 1),
+        "dwork tree shards=4": ("dwork", {"transport": "tree", "workers": 8,
+                                          "tree_fanout": 4, "shards": 4}, 1),
     }
 
 
@@ -1202,10 +1224,13 @@ def phase_front_door(torch, mm_ops, metg):
     version, `tiled_matmul` launched once per task run (twice a task in the
     retry run: its failed first attempt ran the kernel too), the backend
     completed every task it created with 0 errors, and `Engine.recover`
-    finds nothing to redo in the retry run's journal.  Prints, and does not
-    hold, the wall time per task, the efficiency against the kernel's time,
-    the empirical per-task overhead and its crosscheck against the port's
-    METGModel.  Returns a summary for the JSON line."""
+    finds nothing to redo in the retry run's journal, and the tree runs'
+    backend stats carry their "tree" section and their trace its hop ops.
+    Prints, and does not hold, the wall time per task, the efficiency
+    against the kernel's time, the empirical per-task overhead and its
+    crosscheck against the port's METGModel, and in the tree runs the mean
+    us of each `hop:L1` / `hop:L1:s<j>` op from `rpc_by_op`.  Returns a
+    summary for the JSON line."""
     from repro_torch.client import Client
     from repro_torch.core.engine import Engine, Journal, crosscheck
     from repro_torch.core.metg import METGModel
@@ -1289,6 +1314,18 @@ def phase_front_door(torch, mm_ops, metg):
                 if tasks.checked == checked0:
                     raise SystemExit(f"front door {name} at n={n}: no C "
                                      f"was checked")
+                hop_us = None
+                if kw.get("transport") == "tree":
+                    hops = {op: v for op, v in sorted(ov.rpc_by_op.items())
+                            if op.startswith("hop:")}
+                    hop_us = {op: t / c * 1e6 for op, (c, t) in hops.items()}
+                    print(f"[c] front door n={n} {name}: tree "
+                          f"{st.get('tree')}; mean us a hop "
+                          + ", ".join(f"{op} {us:.1f} (n={hops[op][0]})"
+                                      for op, us in hop_us.items()))
+                    if "tree" not in st or not hops:
+                        raise SystemExit(f"front door {name} at n={n}: no "
+                                         f"tree stats or no hop ops: {st}")
                 if "journal_dir" in kw:
                     jdir = kw["journal_dir"]
                     pending = Journal.replay(jdir).pending()
@@ -1305,6 +1342,8 @@ def phase_front_door(torch, mm_ops, metg):
                     "efficiency": kernel_s / per_task_s,
                     "overhead_us": summ["per_task_overhead_us"],
                     "launches": launches, "same_order": chk["same_order"]}
+                if hop_us is not None:
+                    summary[f"{name} n={n}"]["hop_us"] = hop_us
             del tasks
             torch.cuda.empty_cache()
     finally:
@@ -2034,12 +2073,191 @@ def served_logits(torch, res, vocab):
     return torch.cat(out)
 
 
+# a Prometheus text-format 0.0.4 sample line: name{label="v",...} value
+PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*")*\})? '
+    r'(-?\d+(\.\d+)?([eE][+-]?\d+)?|[+-]Inf|NaN)$')
+# the "engine" keys of /stats, as the JAX package's StatsServer.stats()
+# (src/repro/core/obs/server.py) builds them for an in-process engine
+STATS_ENGINE_KEYS = {"live_workers", "worker_deaths", "tasks_done",
+                     "tasks_failed", "tasks_retried", "journal_bytes",
+                     "ready_depth", "shard_ready_depth", "trace", "xfer"}
+SCRAPE_EVERY_S = 0.25
+TRACE_OUT = ROOT / "build" / "chip_trace" / "gemma2.trace.json"
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def scrape_stats(url, stop, rounds, errors):
+    """Thread body: GET /health, /stats and /metrics every SCRAPE_EVERY_S
+    until `stop` is set, each round appended to `rounds` as (seconds, {path:
+    body}); the first failure ends the thread and lands in `errors`, for
+    the caller to raise."""
+    import urllib.request
+    try:
+        while not stop.is_set():
+            got = {}
+            for ep in ("/health", "/stats", "/metrics"):
+                with urllib.request.urlopen(url + ep, timeout=30) as r:
+                    got[ep] = r.read().decode()
+            rounds.append((time.perf_counter(), got))
+            stop.wait(SCRAPE_EVERY_S)
+    except BaseException as e:  # noqa: BLE001 - raised by the caller
+        errors.append(e)
+
+
+def observed_serve(serve, argv):
+    """`serve.main(argv + --stats-port P --trace-out TRACE_OUT)` with a
+    thread scraping the live stats server from the moment `serve.main`
+    starts it until `serve.main` closes its client (held up to 60 s until
+    3 rounds have run).  Raises the first failed scrape.  Returns
+    (`serve.main`'s result, the scrape rounds)."""
+    import threading
+    from repro_torch.client import Client
+    stop, rounds, errors, threads = threading.Event(), [], [], []
+    real_stats_server, real_close = Client.stats_server, Client.close
+
+    def stats_server(self, *args, **kw):
+        srv = real_stats_server(self, *args, **kw)
+        t = threading.Thread(target=scrape_stats, name="chip-smoke-scraper",
+                             args=(srv.url, stop, rounds, errors),
+                             daemon=True)
+        t.start()
+        threads.append(t)
+        return srv
+
+    def close(self, *args, **kw):
+        t_end = time.monotonic() + 60.0
+        while len(rounds) < 3 and not errors and threads \
+                and time.monotonic() < t_end:
+            time.sleep(0.05)
+        stop.set()
+        for t in threads:
+            t.join()
+        return real_close(self, *args, **kw)
+
+    if TRACE_OUT.exists():
+        TRACE_OUT.unlink()
+    TRACE_OUT.parent.mkdir(parents=True, exist_ok=True)
+    argv = argv + ["--stats-port", str(free_port()),
+                   "--trace-out", str(TRACE_OUT)]
+    with mock.patch.object(Client, "stats_server", stats_server), \
+            mock.patch.object(Client, "close", close):
+        res = serve.main(argv)
+    stop.set()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    if not threads:
+        raise SystemExit("serve.main started no stats server")
+    return res, rounds
+
+
+def check_observability(res, rounds, name: str) -> dict:
+    """What the served run's observability holds: at least 3 scrape rounds,
+    /health ok in each, /metrics Prometheus text with a
+    repro_tasks_completed_total that never decreases, /stats with the
+    reference's engine keys; the Chrome trace at TRACE_OUT loads, with one
+    task span a batch the frontend formed and one request span a request;
+    the critical path names every batch and its attribution (scheduler +
+    run) sums to its makespan within 5 %.  One worker runs the batches one
+    after another, so the path's edges are that order: each batch waits on
+    the batch the worker ran before it.  Prints the scrapes, the trace's
+    spans and the path's makespan with its compute and scheduler shares;
+    returns them."""
+    from repro_torch.core.engine import BATCH_FORMED, RUN_START
+    if len(rounds) < 3:
+        raise SystemExit(f"{name}: {len(rounds)} scrape rounds, want >= 3")
+    completed = []
+    for _t, got in rounds:
+        health = json.loads(got["/health"])
+        if health.get("ok") is not True:
+            raise SystemExit(f"{name}: /health answered {health}")
+        value = None
+        for line in got["/metrics"].splitlines():
+            if not line or line.startswith("#"):
+                continue
+            if not PROM_SAMPLE.match(line):
+                raise SystemExit(f"{name}: /metrics line {line!r} is not "
+                                 f"Prometheus text")
+            if line.startswith("repro_tasks_completed_total "):
+                value = float(line.split()[1])
+        if value is None:
+            raise SystemExit(f"{name}: /metrics has no "
+                             f"repro_tasks_completed_total")
+        completed.append(value)
+        engine = json.loads(got["/stats"]).get("engine", {})
+        if set(engine) != STATS_ENGINE_KEYS:
+            raise SystemExit(f"{name}: /stats engine keys {sorted(engine)}, "
+                             f"want {sorted(STATS_ENGINE_KEYS)}")
+    if any(b < a for a, b in zip(completed, completed[1:])):
+        raise SystemExit(f"{name}: repro_tasks_completed_total went "
+                         f"down: {completed}")
+    span_s = rounds[-1][0] - rounds[0][0]
+    print(f"[c] {name} live stats: {len(rounds)} scrape rounds of /health, "
+          f"/stats, /metrics over {span_s:.1f}s, every one ok; "
+          f"repro_tasks_completed_total {completed[0]:.0f} -> "
+          f"{completed[-1]:.0f}; /stats engine keys = the reference's")
+
+    doc = json.loads(TRACE_OUT.read_text())
+    evs = doc["traceEvents"]
+    tasks = [e for e in evs if e["ph"] == "X" and e.get("cat") == "task"]
+    begins = [e for e in evs if e["ph"] == "b" and e.get("cat") == "request"]
+    print(f"[c] {name} Chrome trace {TRACE_OUT.relative_to(ROOT)}: "
+          f"{len(evs)} events, {len(tasks)} task spans, {len(begins)} "
+          f"request spans")
+    if len(tasks) != len(res["batches"]) \
+            or len(begins) != len(res["replies"]):
+        raise SystemExit(f"{name}: the trace has {len(tasks)} task spans "
+                         f"and {len(begins)} request spans for "
+                         f"{len(res['batches'])} batches and "
+                         f"{len(res['replies'])} requests")
+
+    trace = res["trace"]
+    batches = [e.task for e in trace.events if e.event == BATCH_FORMED]
+    order = [e.task for e in trace.events if e.event == RUN_START]
+    cp = trace.report(workers=1).explain(
+        deps={b: (a,) for a, b in zip(order, order[1:])})
+    total = cp.sched_s + cp.run_s
+    share = {"compute": cp.compute_s / cp.makespan_s,
+             "scheduler": cp.sched_s / cp.makespan_s}
+    print(f"[c] {name} critical path {cp.path}: makespan "
+          f"{cp.makespan_s * 1e3:.3f} ms, compute {cp.compute_s * 1e3:.3f} "
+          f"ms ({share['compute']:.6f}), scheduler {cp.sched_s * 1e3:.3f} ms "
+          f"({share['scheduler']:.6f}: dep_wait {cp.dep_wait_s * 1e3:.3f}, "
+          f"queue {cp.queue_s * 1e3:.3f}, dispatch "
+          f"{cp.dispatch_s * 1e3:.3f}, notify {cp.notify_s * 1e3:.3f}); "
+          f"attribution sums to {total / cp.makespan_s:.6f} of the makespan")
+    if sorted(cp.path) != sorted(batches) or not batches:
+        raise SystemExit(f"{name}: critical path {cp.path}, batches "
+                         f"{batches}")
+    if abs(total - cp.makespan_s) > 0.05 * cp.makespan_s:
+        raise SystemExit(f"{name}: attribution {total} vs makespan "
+                         f"{cp.makespan_s}")
+    return {"scrapes": len(rounds), "trace_events": len(evs),
+            "makespan_ms": cp.makespan_s * 1e3,
+            "compute_share": share["compute"],
+            "scheduler_share": share["scheduler"],
+            "sched_ms": {k: getattr(cp, f"{k}_s") * 1e3 for k in (
+                "dep_wait", "queue", "dispatch", "notify")}}
+
+
 def phase_serve(torch, fa_ops, attention, fa_ref, serve):
-    """The main path at full width, then kernel-path vs plain-path logits."""
+    """The main path at full width with its live stats server scraped and
+    its Chrome trace written (`check_observability`), then kernel-path vs
+    plain-path logits."""
     torch.cuda.reset_peak_memory_stats()
     fa_ops.flash_attention.launches = 0
     t0 = time.perf_counter()
-    res = serve.main(ARGV)
+    res, rounds = observed_serve(serve, ARGV)
     wall = time.perf_counter() - t0
     launches = fa_ops.flash_attention.launches
     model, params = res["model"], res["params"]
@@ -2057,6 +2275,7 @@ def phase_serve(torch, fa_ops, attention, fa_ref, serve):
     if launches != want:
         raise SystemExit(f"kernel launched {launches} times, want {want}")
     front_door_checks(res, "gemma2-2b")
+    obs = check_observability(res, rounds, "gemma2-2b")
     if len(res["replies"]) != 4:
         raise SystemExit("not every request was answered")
     for row in res["replies"]:
@@ -2095,7 +2314,7 @@ def phase_serve(torch, fa_ops, attention, fa_ref, serve):
           f"where margin > tol: {int(sure.sum())}/{len(sure)}")
     if err >= LOGIT_TOL or not bool(same.all()) or not bool(same_served.all()):
         raise SystemExit("kernel path and plain path disagree")
-    return launches, launches // len(res["batches"])
+    return launches, launches // len(res["batches"]), obs
 
 
 def wkv6_rechunked(fn, q, *args, chunk, initial_state=None):
@@ -2980,8 +3199,8 @@ def run(where: dict) -> int:
     # batches; training: its steps); "launches_per_forward": per prefill
     # batch or training forward
     where["phase"] = "(c) gemma2-2b serve"
-    row["launches"], row["launches_per_forward"] = phase_serve(
-        torch, fa_ops, attention, fa_ref, serve)
+    row["launches"], row["launches_per_forward"], row["serve_obs"] = \
+        phase_serve(torch, fa_ops, attention, fa_ref, serve)
     where["phase"] = "(c) rwkv6-1.6b serve"
     wkv_row["launches"], wkv_row["launches_per_forward"] = phase_serve_rwkv(
         torch, wkv_ops, rwkv, wkv_ref, serve)

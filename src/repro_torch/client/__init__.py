@@ -53,9 +53,8 @@ The legacy front doors — `repro_torch.core.dwork.run_pool`,
 `repro_torch.core.mpi_list.Context(engine_workers=...)` — and
 `repro_torch.runtime.elastic.ElasticPool` are thin shims over this client
 (batch mode, `Client(resident=False)` + `run()`, for the first three).
-The "tree" and "proc" transports and `stats_server()` raise
-`NotImplementedError` until their modules (the forwarding tree, the
-worker processes, `core/obs`) are ported.
+The "proc" transport raises `NotImplementedError` until its modules (the
+worker processes) are ported.
 """
 from repro_torch.client.client import SCHEDULERS, Client
 from repro_torch.client.futures import (CancelledError, DependencyFailed,

@@ -1,7 +1,7 @@
 """`Client`: the futures front door over the unified engine, the port's
-copy of the JAX package's `repro.client.client`.  The "tree" and "proc"
-transports and `stats_server()` raise `NotImplementedError` until their
-modules are ported (ROADMAP.md Queue 1 items 4d, 4f and 4g).
+copy of the JAX package's `repro.client.client`.  The "proc" transport
+raises `NotImplementedError` until its modules are ported (ROADMAP.md
+Queue 1 item 4g).
 
 One class drives all three schedulers and the serving layer.  The
 default (resident) mode owns an `Engine(resident=True)` whose dispatch
@@ -119,6 +119,8 @@ class Client:
         self._resolved = 0
         self._submitted = 0
         self._futures_resolved = 0          # futures only (not __batch etc.)
+        self._metrics = None                # MetricsRegistry once attached
+        self._stats_servers: list = []      # stopped by close()
 
     @staticmethod
     def _adapt_server(server, *, transport, workers, tree_fanout,
@@ -126,7 +128,8 @@ class Client:
         # lazy imports: dwork submodules import engine pieces
         from repro_torch.core.dwork.sharded import ShardedHub
         from repro_torch.core.engine.backends import (ServerBackend,
-                                                ShardedBackend, TreeBackend)
+                                                      ShardedBackend,
+                                                      TreeBackend)
 
         if isinstance(server, ShardedHub):
             lease = (server.shards[0].lease_timeout if server.shards
@@ -511,6 +514,9 @@ class Client:
                 self._report = self.engine.shutdown(drain=drain,
                                                     timeout=timeout)
         finally:
+            for srv in self._stats_servers:
+                srv.stop()
+            self._stats_servers = []
             for name in list(self._futures):
                 fut = self._futures.pop(name, None)
                 if fut is not None and not fut.done():
@@ -601,6 +607,13 @@ class Client:
         fe = Frontend(self.engine, execute_batch, **frontend_kw)
         fe.start()
         self._frontends.append(fe)
+        if self._metrics is not None:
+            # a stats server is already up: fold the new frontend in so
+            # its request latencies and admission counters appear live
+            from repro_torch.core.obs import instrument
+
+            instrument(self._metrics, frontend=fe,
+                       frontend_index=len(self._frontends) - 1)
         return fe
 
     # --------------------------------------------------------- membership
@@ -617,13 +630,24 @@ class Client:
 
     # ---------------------------------------------------------------- obs
     def stats_server(self, port: int = 0, *, host: str = "127.0.0.1"):
-        """The live observability endpoint (`/stats`, `/health`,
-        `/metrics`) of the JAX package's `Client`.  It is built on
-        `core/obs`, which the port has not taken over yet, so this
-        raises."""
-        raise NotImplementedError(
-            "stats_server needs core/obs, which the port has not taken "
-            "over yet: ROADMAP.md Queue 1 item 4f")
+        """Start the live observability endpoint for this client: wires a
+        `MetricsRegistry` over the engine, backend, frontends, and the
+        futures counters (`repro_torch.core.obs.instrument`), then serves
+        `/stats`, `/health`, and `/metrics` from an `http.server` thread.
+        `port=0` binds an ephemeral port — read it from the returned
+        `StatsServer`'s `.url`.  Idempotent metrics wiring; the server is
+        stopped automatically by `close()`.
+
+            srv = client.stats_server()
+            print(srv.url)   # point  python -m repro_torch.core.obs.top  here
+        """
+        from repro_torch.core.obs import StatsServer, instrument
+
+        self._metrics = instrument(self._metrics, client=self)
+        srv = StatsServer(self._metrics, client=self,
+                          host=host, port=port).start()
+        self._stats_servers.append(srv)
+        return srv
 
     def report(self) -> OverheadReport:
         """METG accounting for the session so far (or the final report

@@ -6,11 +6,14 @@
             hub and `run_pool`                            (paper §2.2, §6)
   mpi_list  bulk-synchronous distributed lists (DFM), engine-backed
             rank maps, and the DFM bridge on a torch device (paper §2.3)
-  engine    the unified worker pool all three schedulers run on: inproc
-            and thread transports, faults, leases, journal, tracing
+  engine    the unified worker pool all three schedulers run on: inproc,
+            thread and forwarding-tree transports, faults, leases,
+            journal, tracing
+  obs       live stats server, Prometheus metrics, Chrome-trace export
+            and the critical-path `explain`
   serving   the METG-batching request frontend over a resident engine
   metg      minimum-effective-task-granularity scaling laws (§3-§6)
 
 The futures front door over the engine is `repro_torch.client`.  The
-forwarding tree, worker processes and core/obs are not ported yet.
+worker processes (the "proc" transport) are not ported yet.
 """

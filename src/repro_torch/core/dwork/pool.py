@@ -1,7 +1,6 @@
 """dwork engine adapter: dispatch a TaskServer / ShardedHub through the
 unified worker pool; the port's copy of the JAX package's
-`repro.core.dwork.pool`.  `transport="tree"` raises `NotImplementedError`
-until the forwarding tree is ported.
+`repro.core.dwork.pool`.
 
 `run_pool(server, execute, workers=4)` replaces hand-rolled
 `Client.run_loop` loops: the engine's pool speaks the same Steal /

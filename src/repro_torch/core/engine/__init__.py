@@ -9,17 +9,17 @@ makes that claim *measurable* in one place instead of three ad-hoc loops:
     model.py     Task / TaskResult / TraceEvent lifecycle data model
                  (created -> ready -> stolen -> running -> completed/
                   failed/requeued), mapped to the paper's Fig. 2 protocol
-    backends.py  scheduler state adapters (dwork TaskServer, ShardedHub;
-                 the forwarding-tree TreeBackend raises) speaking the
-                 Table 2 verbs incl. the batched CompleteSteal; every call
-                 timed as an `rpc` event
-    executor.py  the worker pool: inproc / thread transports,
+    backends.py  scheduler state adapters (dwork TaskServer, ShardedHub,
+                 forwarding-tree TreeBackend) speaking the Table 2 verbs
+                 incl. the batched CompleteSteal; every call timed as an
+                 `rpc` event (tree hops as `op="hop:L<k>"`)
+    executor.py  the worker pool: inproc / thread / tree transports,
                  CompleteSteal piggybacking (complete+steal in one RTT),
                  Steal-n batching, sharded routing, heap-scheduled
                  slots/priority launch (pmake EFT)
     comm/        the transport registry: Connector/Listener pairs per
                  address scheme, TransportFamily per `transport=` name
-                 (the JAX package's four names; "tree" and "proc" raise)
+                 (the JAX package's four names; "proc" raises)
     faults.py    heartbeat leases, dead-worker requeue, seeded fault and
                  straggler injection (no wall-clock dependence in tests)
     journal.py   write-ahead journal + compacted checkpoints for the
@@ -29,12 +29,11 @@ makes that claim *measurable* in one place instead of three ad-hoc loops:
                  (optionally rpc-sampled), cross-checked against the
                  analytic laws in core/metg.py
 
-Not ported yet: the "tree" transport (the forwarding tree, ROADMAP.md
-Queue 1 item 4d) and the "proc" transport (`comm/proc.py`,
-`comm/worker.py`, item 4g) raise `NotImplementedError`, and `core/obs`
-(item 4f) comes later.  The scheduler adapters `run_pool`, `PMake.run`
-and the engine-backed mpi-list `Context` are ported.  Everything below is
-the reference's guidance, tree and proc included.
+Not ported yet: the "proc" transport (`comm/proc.py`, `comm/worker.py`,
+ROADMAP.md Queue 1 item 4g) raises `NotImplementedError`.  The scheduler
+adapters `run_pool`, `PMake.run` and the engine-backed mpi-list `Context`
+are ported, and so is the observability layer (`repro_torch.core.obs`).
+Everything below is the reference's guidance, proc included.
 
 Tuning `transport=` / `steal_n` against the METG laws (core/metg.py):
 

@@ -1,10 +1,11 @@
 """Comm subsystem: pluggable connectors/listeners + transport families,
 the port's copy of the JAX package's `repro.core.engine.comm`.
 
-The registry names the JAX package's four transports.  "inproc" and
-"thread" run; "tree" and "proc" (worker processes over sockets, the JAX
-package's `comm/proc.py` and `comm/worker.py`) raise `NotImplementedError`
-until they are ported (ROADMAP.md Queue 1 items 4d and 4g).
+The registry names the JAX package's four transports.  "inproc", "thread"
+and "tree" (the forwarding tree, `repro_torch.core.dwork.forwarder`) run;
+"proc" (worker processes over sockets, the JAX package's `comm/proc.py`
+and `comm/worker.py`) raises `NotImplementedError` until it is ported
+(ROADMAP.md Queue 1 item 4g).
 """
 from repro_torch.core.engine.comm.core import (Comm, Connector, Listener,
                                                TransportFamily, connect,

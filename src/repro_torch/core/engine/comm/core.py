@@ -1,8 +1,8 @@
 """Comm core: the connector/listener abstraction and the transport
 registry (in the spirit of dask-distributed's comm layer), the port's copy
 of the JAX package's `repro.core.engine.comm.core`.  The registry holds the
-same four names; "tree" and "proc" raise `NotImplementedError` when an
-engine asks for their backend, until their modules are ported.
+same four names; "proc" raises `NotImplementedError` when an engine asks
+for its backend, until its modules are ported.
 
 Two registries live here:
 
@@ -254,12 +254,19 @@ def _make_local(*, shards=1, lease_timeout=None, clock=None, tracer=None,
                          tracer=tracer)
 
 
+def _make_tree(*, workers=1, tree_fanout=4, tree_levels=1, shards=1,
+               lease_timeout=None, clock=None, tracer=None, **_):
+    from repro_torch.core.engine.backends import TreeBackend
+
+    return TreeBackend(workers=workers, fanout=tree_fanout,
+                       levels=tree_levels, shards=shards,
+                       lease_timeout=lease_timeout, clock=clock,
+                       tracer=tracer)
+
+
 # the JAX package's transports whose machinery the port does not have yet:
 # asking for one raises instead of quietly running in-process
 UNPORTED = {
-    "tree": "transport='tree' needs the forwarding tree "
-            "(dwork/forwarder.py), which the port has not taken over yet: "
-            "ROADMAP.md Queue 1 item 4d",
     "proc": "transport='proc' needs worker processes (comm/proc.py, "
             "comm/worker.py), which the port has not taken over yet: "
             "ROADMAP.md Queue 1 item 4g",
@@ -283,7 +290,7 @@ register_transport(TransportFamily(
 register_transport(TransportFamily(
     "tree", "inline",
     "inline execution behind a real TCP forwarding tree (paper §4)",
-    _unported("tree")))
+    _make_tree))
 register_transport(TransportFamily(
     "proc", "processes",
     "spawned worker processes over TCP frames (GIL-escaping parallelism)",

@@ -1,8 +1,8 @@
 """The unified worker pool: one execution substrate for all three schedulers,
 the port's copy of the JAX package's `repro.core.engine.executor`.  The
-"tree" and "proc" transports raise `NotImplementedError` until the
-forwarding tree and the worker processes are ported (ROADMAP.md Queue 1
-items 4d and 4g); everything else is the reference's.
+"proc" transport raises `NotImplementedError` until the worker processes
+are ported (ROADMAP.md Queue 1 item 4g); everything else is the
+reference's.
 
 A single dispatch loop drives virtual workers against a scheduler backend
 (`ServerBackend` / `ShardedBackend` / `TreeBackend`), generalizing the
@@ -22,7 +22,11 @@ Transports:
     for tests, fault injection, and pure-overhead measurement.
   * "thread" — a slot-bounded thread pool; real concurrency for workloads
     that block (pmake's popen'd scripts).
-  * "tree", "proc" — not ported yet (raise).
+  * "tree"   — like inproc, but every worker RPC crosses a real TCP
+    message-forwarding tree (paper §4): `tree_fanout` workers per leaf
+    `Forwarder`, `tree_levels` relay layers, pipelined shared upstream
+    links, per-hop `rpc` trace events.
+  * "proc"   — not ported yet (raises).
 
 Modes:
   * batch (default) — `run()` drains a pre-submitted task universe and
@@ -156,7 +160,8 @@ class Engine:
         self._owns_backend = backend is None
         if backend is None:
             # the comm registry owns the backend recipe per transport
-            # family (shards > 1 composes inside the builder)
+            # family (shards > 1 composes inside each family's recipe: a
+            # ShardedHub behind the tree)
             backend = fam.make_backend(
                 workers=self.workers, shards=shards,
                 lease_timeout=lease_timeout, clock=clock,
@@ -215,9 +220,8 @@ class Engine:
         self._loop_error: Optional[BaseException] = None
         # -------------------------------------------------- observability
         # plain tables the dispatch loop maintains unconditionally (one
-        # list-slot hit per completion); the JAX package's `core/obs`
-        # reads them via
-        # zero-cost callback instruments, and worker_stats()/
+        # list-slot hit per completion); `repro_torch.core.obs` reads them
+        # via zero-cost callback instruments, and worker_stats()/
         # tasks_done_total() are the monitoring probes over them
         self.worker_deaths = 0
         self.exec_failed = 0                  # executions raised / not-ok
@@ -225,6 +229,13 @@ class Engine:
         self._attempts: dict[str, int] = {}   # failed executions per task
         self._wstats: dict[str, list] = {}    # worker -> [done_n, busy_s]
         self._dead_workers: set = set()
+        # data-plane transfer totals and their obs sink (XferMetrics), as
+        # the JAX package's engine has them outside transport="proc":
+        # nothing here moves dependency values, so they stay at zero
+        self.xfer_totals = {"peer": [0, 0, 0.0], "hub": [0, 0, 0.0]}
+        self.xfer_metrics = None
+        self.xfer_lost_total = 0
+        self._xfer_lock = threading.Lock()
 
     # ------------------------------------------------------------- submit
     def submit(self, name: str, fn: Optional[Callable] = None, *,
@@ -562,8 +573,8 @@ class Engine:
         tuple of dependency names, for every registered task that has
         dependencies.  Read under the GIL (approximate while the loop
         runs, like `worker_stats`); the critical-path analyzer
-        (the JAX package's `core/obs/critical_path.py`) joins it
-        against the trace — exported traces carry the same edges on
+        (`repro_torch.core.obs.critical_path`) joins it against the
+        trace — exported traces carry the same edges on
         their CREATED events."""
         return {n: t.deps for n, t in list(self.tasks.items()) if t.deps}
 
@@ -1285,6 +1296,12 @@ class Engine:
             wall_s=time.perf_counter() - t_wall0,
             errors=self.backend.errors(), stalled=stalled,
             backend_stats=self.backend.stats())
+
+    def worker_pids(self) -> dict:
+        """worker -> OS pid for every worker process; the in-process
+        transports have none, so this is empty for them."""
+        fn = getattr(self.backend, "worker_pids", None)
+        return fn() if fn is not None else {}
 
     # ------------------------------------------------------------ helpers
     def _priority_of(self, name: str, meta: dict) -> float:

@@ -1,7 +1,7 @@
 """Trace recorder + empirical overhead / METG / latency analysis, the
 port's copy of the JAX package's `repro.core.engine.tracing`.  The
-Chrome-trace export and the critical-path report live in `core/obs`,
-which is not ported yet: both raise `NotImplementedError`.
+Chrome-trace export and the critical-path report live in
+`repro_torch.core.obs`.
 
 The recorder is a thread-safe log of `TraceEvent`s stamped by an
 injectable clock — append-only by default, or a bounded ring buffer
@@ -169,12 +169,9 @@ class TraceRecorder:
         `CriticalPathReport.path`) adds a dedicated lane plus flow
         arrows linking the path's executions.  Returns the document;
         with `path`, also writes it as JSON (conventional suffix
-        `.trace.json`).  The exporter is the JAX package's
-        `repro.core.obs.chrome_trace`, which the port has not taken over
-        yet, so this raises."""
-        raise NotImplementedError(
-            "to_chrome_trace needs core/obs (chrome_trace.py), which the "
-            "port has not taken over yet: ROADMAP.md Queue 1 item 4f")
+        `.trace.json`).  See `repro_torch.core.obs.chrome_trace`."""
+        from repro_torch.core.obs.chrome_trace import to_chrome_trace
+        return to_chrome_trace(self, path, critical_path=critical_path)
 
     # -------------------------------------------------------- persistence
     def save(self, path: str) -> int:
@@ -182,8 +179,9 @@ class TraceRecorder:
         counters), then one `[t, event, task, worker, extra]` array per
         event.  The format round-trips through `TraceRecorder.load`, so a
         trace captured in one process can be analyzed offline
-        (the JAX package's `python -m repro.core.obs.explain <path>` reads
-        it).  Returns the number
+        (`python -m repro_torch.core.obs.explain <path>`, or the JAX
+        package's `python -m repro.core.obs.explain <path>`).  Returns the
+        number
         of events written."""
         with self._lock:
             events = list(self.events)
@@ -523,13 +521,16 @@ class OverheadReport:
         did this run take `wall_s` — which chain of tasks gated the
         makespan, and how much of it was scheduler time (dep-wait +
         queue + dispatch + notify) vs compute?  Returns a
-        `CriticalPathReport` of the JAX package's `core/obs`; keyword
+        `repro_torch.core.obs.critical_path.CriticalPathReport`; keyword
         arguments (`deps=`, `scheduler=`, `steal_n=`, ...) are forwarded
         to `CriticalPathReport.from_trace`.  Strictly an analysis pass —
         nothing here runs on the dispatch hot path."""
-        raise NotImplementedError(
-            "explain() needs core/obs (critical_path.py), which the port "
-            "has not taken over yet: ROADMAP.md Queue 1 item 4f")
+        if self.trace is None:
+            raise ValueError("explain() needs the source trace; this "
+                             "report was built without one")
+        from repro_torch.core.obs.critical_path import CriticalPathReport
+        kw.setdefault("workers", self.workers)
+        return CriticalPathReport.from_trace(self.trace, **kw)
 
     def summary(self) -> dict:
         out = {

@@ -123,8 +123,8 @@ class Frontend:
         self.timeouts = 0              # queued past their deadline
         self._n_deadlines = 0          # queued requests carrying a deadline
         self.batches = 0
-        # optional serving-metrics sink (the JAX package's obs
-        # ServingMetrics; the port has no core/obs yet):
+        # optional serving-metrics sink
+        # (repro_torch.core.obs.ServingMetrics):
         # observed at response delivery, beside the REQ_DONE emit
         self.metrics = None
         self._thread: Optional[threading.Thread] = None

@@ -50,6 +50,13 @@ def parse_args(argv=None):
     ap.add_argument("--workers", type=int, default=1)
     ap.add_argument("--max-wait-ms", type=float, default=20.0,
                     help="frontend deadline before a partial batch ships")
+    ap.add_argument("--stats-port", type=int, default=None,
+                    help="serve /stats, /health, /metrics on this port "
+                         "while requests run (0 = ephemeral; see "
+                         "python -m repro_torch.core.obs.top)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the session as a Perfetto-loadable "
+                         "Chrome trace (.trace.json) at exit")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -57,8 +64,9 @@ def parse_args(argv=None):
 
 def main(argv=None):
     """Serve the requests; returns a dict with the model, its params, the
-    prompts, the replies, the batches the frontend formed, the timings and
-    the backend's stats, for callers that check them."""
+    prompts, the replies, the batches the frontend formed, the timings,
+    the backend's stats and the session's `TraceRecorder`, for callers
+    that check them."""
     args = parse_args(argv)
     if args.requests < 1 or args.prompt_len < 1 or args.max_new < 1:
         raise SystemExit("--requests, --prompt-len and --max-new must be >= 1")
@@ -90,6 +98,11 @@ def main(argv=None):
     client = Client(scheduler="dwork", workers=args.workers,
                     lease_timeout=120.0)
     try:
+        if args.stats_port is not None:
+            srv = client.stats_server(port=args.stats_port)
+            print(f"[serve] live stats at {srv.url}/stats "
+                  f"(/health, /metrics; dashboard: python -m "
+                  f"repro_torch.core.obs.top --url {srv.url})", flush=True)
         frontend = client.serve(execute_batch,
                                 max_queue=max(args.requests, 16),
                                 max_batch=max(args.requests, 1),
@@ -110,6 +123,10 @@ def main(argv=None):
     finally:
         report = client.close()
     wall = time.perf_counter() - t0
+    if args.trace_out:
+        report.trace.to_chrome_trace(args.trace_out)
+        print(f"[serve] Chrome trace written to {args.trace_out} "
+              f"(open in https://ui.perfetto.dev)")
     lat = report.trace.latency_report()
     batches = [e.extra["size"] for e in report.trace.of(BATCH_FORMED)]
     decode_tokens = (args.max_new - 1) * len(batches)
@@ -128,7 +145,7 @@ def main(argv=None):
             "decode_s": totals["decode_s"], "decode_steps": decode_tokens,
             "latency_pct_ms": [lat.p50_s * 1e3, lat.p95_s * 1e3,
                                lat.p99_s * 1e3],
-            "backend_stats": report.backend_stats}
+            "backend_stats": report.backend_stats, "trace": report.trace}
 
 
 if __name__ == "__main__":

@@ -444,10 +444,10 @@ def test_the_registries_agree():
     assert sorted(port_engine.__all__) == sorted(jax_engine.__all__)
 
 
-@pytest.mark.parametrize("transport", ["tree", "proc"])
+@pytest.mark.parametrize("transport", ["proc"])
 def test_unported_transports_raise(transport):
-    """The forwarding tree and worker processes are not ported: asking for
-    them raises, and never runs the tasks in-process instead."""
+    """The worker processes are not ported: asking for them raises, naming
+    their ROADMAP item, and never runs the tasks in-process instead."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_client.Client(workers=2, transport=transport)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -459,15 +459,76 @@ def test_unported_transports_raise(transport):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_engine.Engine(workers=2, transport=transport,
                            backend=ServerBackend(server=srv))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_engine.TreeBackend(workers=2)
+    with pytest.raises(NotImplementedError, match="4g"):
+        port_engine.Engine(workers=2, transport=transport)
 
 
-def test_stats_server_raises_until_obs_is_ported():
-    with port_client.Client(workers=1) as c:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            c.stats_server()
-        assert c.submit(lambda: 7).result(T) == 7
+def tree_program(ns, shards):
+    """README's composed example at a small size: futures over the
+    forwarding tree, sharded or not; the client's own sockets are released
+    at close."""
+    with ns.Client(scheduler="dwork", workers=8, transport="tree",
+                   shards=shards, tree_fanout=4) as c:
+        backend = c.engine.backend
+        xs = c.gather([c.submit(lambda x=x: x * x) for x in range(64)],
+                      timeout=T)
+        chain = c.submit(lambda: 1)
+        for _ in range(4):
+            chain = c.submit(lambda v: v + 1, chain)
+        last = chain.result(T)
+    st = c._report.backend_stats
+    for s in st.get("shards", [st]):
+        assert s["completed"] == s["created"] and s["errors"] == 0
+    return (xs, last, st["tree"], sorted(st),
+            [t.sock.fileno() for t in backend._conn.values()],
+            backend._boss is None)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_tree_transport_runs_the_same(shards):
+    """`transport="tree"` builds a working `TreeBackend` on both sides
+    (README's `Client(..., transport="tree", shards=4, tree_fanout=4)`),
+    and `close()` releases the tree's worker and boss links."""
+    port = tree_program(SIDES["port"], shards)
+    assert port == tree_program(SIDES["jax"], shards)
+    assert port[1] == 5 and port[2]["forwarders"] == [2]
+    assert port[4] == [] and port[5] is True
+
+
+def stats_server_program(ns):
+    import json
+    import urllib.request
+
+    with ns.Client(workers=2) as c:
+        srv = c.stats_server()
+        fe = c.serve(lambda ps: [p + 1 for p in ps], max_wait_s=0.002)
+        vals = c.gather([c.submit(lambda x=x: x * 3) for x in range(20)],
+                        timeout=T)
+        assert all(r.wait(T) for r in [fe.submit(i) for i in range(5)])
+        got = {}
+        for ep in ("/health", "/stats"):
+            with urllib.request.urlopen(srv.url + ep, timeout=T) as r:
+                got[ep] = json.loads(r.read().decode())
+        with urllib.request.urlopen(srv.url + "/metrics", timeout=T) as r:
+            families = sorted(line.split()[2] for line in
+                              r.read().decode().splitlines()
+                              if line.startswith("# TYPE"))
+    try:
+        urllib.request.urlopen(srv.url + "/health", timeout=0.5)
+        stopped = False
+    except OSError:
+        stopped = True
+    st = got["/stats"]
+    return (vals, got["/health"], sorted(st), sorted(st["engine"]),
+            st["engine"]["tasks_done"], families, stopped)
+
+
+def test_stats_server_serves_the_same():
+    """`Client.stats_server()`: the same endpoints, keys, metric families
+    and counts on both sides, and `close()` stops the server."""
+    port = stats_server_program(SIDES["port"])
+    assert port == stats_server_program(SIDES["jax"])
+    assert port[1]["ok"] is True and port[-1] is True
 
 
 def test_launch_counts_hold_across_threads():

@@ -385,4 +385,4 @@ def test_exports():
             "Create", "Steal", "Complete", "CompleteSteal", "Transfer",
             "Exit", "TaskMsg", "NotFound", "ExitResp", "run_pool"} <= \
         set(port_dwork.__all__)
-    assert "Forwarder" not in port_dwork.__all__
+    assert "Forwarder" in port_dwork.__all__

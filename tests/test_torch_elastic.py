@@ -181,8 +181,17 @@ def test_run_pool_inherits_server_lease_equal():
     both(idle_budget)
 
 
-def test_tree_transport_raises_until_ported():
-    srv = port_dwork.TaskServer()
-    port_dwork.Client(port_dwork.InProcTransport(srv), "boss").create("t0")
-    with pytest.raises(NotImplementedError, match="4d"):
-        port_dwork.run_pool(srv, lambda n, m: True, transport="tree")
+def run_pool_tree(ns):
+    srv = ns.TaskServer()
+    boss = ns.DworkClient(ns.InProcTransport(srv), "boss")
+    for i in range(30):
+        boss.create(f"t{i}", meta={"x": i})
+    rep = ns.run_pool(srv, lambda n, m: (True, m["x"] + 1), workers=4,
+                      steal_n=2, transport="tree", tree_fanout=2)
+    assert len(rep.completed) == 30 and not rep.stalled
+    assert rep.backend_stats["tree"]["relayed"][0] > 0
+    return ({k: r.value for k, r in rep.results.items()}, srv.stats())
+
+
+def test_run_pool_tree_transport_equal():
+    both(run_pool_tree)

@@ -312,13 +312,28 @@ def test_trace_analysis_agrees():
     assert out["port"] == out["jax"]
 
 
-def test_obs_paths_raise_until_ported():
-    tr = port_engine.TraceRecorder()
-    tr.emit(port_engine.CREATED, task="x")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tr.to_chrome_trace()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tr.report(workers=1).explain()
+def test_obs_paths_agree():
+    """`TraceRecorder.to_chrome_trace()` and `OverheadReport.explain()`
+    on the same inproc run under a ManualClock, computed by both
+    packages; explain() without a trace raises ValueError on both."""
+    out = {}
+    for side, E in SIDES.items():
+        rep = chains(E, workers=3, steal_n=2).run()
+        doc = rep.trace.to_chrome_trace()
+        lanes = sorted(e["args"]["name"] for e in doc["traceEvents"]
+                       if e["ph"] == "M" and e["name"] == "thread_name")
+        spans = [(e["name"], e["tid"], e["ts"], e["dur"])
+                 for e in doc["traceEvents"] if e.get("cat") == "task"]
+        cp = rep.overhead().explain()
+        with pytest.raises(ValueError):
+            E.OverheadReport().explain()
+        # the rpc fold and the METG-law ideal read wall-clock round trips
+        summ = {k: v for k, v in cp.summary().items()
+                if k not in ("rpc", "concurrency")}
+        out[side] = (lanes, spans, cp.path, cp.segments, summ,
+                     cp.concurrency_mean, cp.concurrency_peak)
+    assert out["port"] == out["jax"]
+    assert len(out["port"][1]) == 48 and out["port"][2]
 
 
 def test_engine_kwargs_of_the_port_exist_in_the_reference():
