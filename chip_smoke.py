@@ -11,11 +11,11 @@ Phases; any failure exits non-zero:
       which must not be 0 for flash attention and A^T B;
   (b) each kernel against its plain PyTorch version on the card, at the main
       paths' shapes and small cases: flash attention in bf16 and fp32 (head
-      dims 256, 80 and 32), the chunked WKV in fp32 (two decay regimes, an
-      initial state, rwkv6's training shape (2, 1024, 32, 64); at the main
-      shape its three stages' scratch after the scan over the chunks
-      against the plain stages, two runs bit for bit, each stage's ms, the
-      scratch bytes, registers and spills), the chunked
+      dims 256, 128, 80 and 32), the chunked WKV in fp32 (two decay regimes,
+      an initial state, rwkv6's training shape (2, 1024, 32, 64); at the main
+      shape its three stages' scratch after the scan over the chunks against
+      the plain stages, two runs bit for bit, each stage's ms, the scratch
+      bytes, registers and spills), the chunked
       SSD forward in fp32 (three chunk-parallel stages and a scan over the
       chunks, the products in 3xTF32 on the tensor cores; Y and the final
       state against the plain version in fp32 and fp64, in three decays,
@@ -33,8 +33,9 @@ Phases; any failure exits non-zero:
       torch.compile(flex_attention) with its softcap and band, the zamba2
       row's SDPA, at its training shape and at its serving shape (4, 4200,
       32, 80) in bf16, and the batch-1 shapes the served batches now run
-      (flash (1, 4200, 16/4, 256) beside torch.compile(flex_attention) and
-      (1, 4200, 32, 80) beside SDPA, the WKV at (1, 4224, 32, 64), the SSD
+      (flash (1, 4200, 16/4, 256) beside torch.compile(flex_attention),
+      (1, 4200, 32, 80) beside SDPA and deepseek-7b's (1, 4200, 32/32,
+      128) beside SDPA, the WKV at (1, 4224, 32, 64), the SSD
       at (1, 4224, 80, 64) with its final state: "serve_b1" in the JSON
       rows); then the SSD backward kernels (three chunk-parallel
       stages and the sum over head groups, the products in 3xTF32 on the
@@ -64,8 +65,21 @@ Phases; any failure exits non-zero:
       task run, completed == created with 0 errors, `Engine.recover` finds
       nothing to redo, the tree's stats and hop ops present; ms a task,
       efficiency, empirical overhead and its crosscheck printed, and the
-      mean us of each `hop:L1` / `hop:L1:s<j>` op); the paper's other two
-      schedulers: pmake's
+      mean us of each `hop:L1` / `hop:L1:s<j>` op); the proc transport
+      (`transport="proc"`, 4 worker processes, each with its own CUDA
+      context launching `tiled_matmul` for its tasks,
+      `launch.metg.proc_matmul`): 1,000 fp32 A^T B tasks at n = 256 and
+      1024 (every future ok, each C's sum against the plain one, one C in
+      64 held in the worker, the pids exactly `worker_pids()`' and none
+      this process's, every worker launching, the launches summed over
+      the processes equal to the tasks run; one /stats and /metrics scrape
+      with `repro_worker_rss_bytes` for every worker and the xfer section;
+      ms a task and efficiency beside the in-process dwork rows), a fan-in
+      of 64 producers' 4 MiB C to 64 consumers (each consumer's sum held,
+      peer fetches > 0, none lost, a producer's C materialized here), and
+      a SIGKILL drill (one worker killed mid-run of 400 tasks: every
+      future ok once, requeued >= 1, completed == created with 0 errors);
+      the paper's other two schedulers: pmake's
       `launch.campaign` with its defaults (reduced gemma2-2b, 2 shards of 6
       steps, 2 nodes; 3 tasks done, 0 errors, a report of 2 shards of 6
       steps, one flash op call per layer and step in each shard's log)
@@ -117,7 +131,14 @@ Phases; any failure exits non-zero:
       130 decode steps (logits, states, rings, K/V); the served first
       tokens are the bf16 prefill's argmax; one bf16 prefill and one
       decode step under torch.profiler (device ms, idle share, the kernels
-      with the most device time).  Then zamba2-2.7b training:
+      with the most device time).  Then the same traffic through
+      full-width deepseek-7b (30 layers, d_model 4096, 32 heads of 128,
+      random weights from a seed): the front door's checks, 30 flash
+      launches a prefill batch, the first served batch's prefill kernel
+      path against plain path (held in fp32, printed in bf16), the served
+      first tokens the bf16 prefill's argmax; prefill ms, decode ms a
+      token, p50/p95/p99 and the peak memory printed.  Then zamba2-2.7b
+      training:
       one fp32 train step at full width and one group of depth, kernel path
       against plain path (loss, grad norm, every gradient; 6 SSD forward and
       6 backward op calls); then the full model (54 Mamba2 layers) trained 6
@@ -160,15 +181,18 @@ Phases; any failure exits non-zero:
       registers and spills; the SSD row and the zamba2 flash row with
       zamba2 serving's op calls, serve_launches, and their serving shape's
       figures, serve_shape; every serving row's batch-1 figures, serve_b1;
-      the A^T B row's front-door summary, front_door, and the other
-      schedulers' runs: mpi_list, mesh_ops_ms, elastic, run_pool,
-      metg_schedulers (the tree rows' mean us a hop, hop_us, in
-      front_door); the gemma2 flash row's pmake campaigns, campaign, and
-      its served run's observability, serve_obs;
-      the flash row with the served figures and the
-      two profiles, serve; the gemma2 flash row with its training run's
-      train_launches, train_launches_per_forward, remat_launches,
-      train_shape, train_bwd_ms and train_step_profile; the WKV row with
+      the A^T B row's front-door summary, front_door, its proc
+      transport's summary, proc (ms a task, the launches by worker pid,
+      the fan-in's fetches, the drill), and the other schedulers' runs:
+      mpi_list, mesh_ops_ms, elastic, run_pool, metg_schedulers (the tree
+      rows' mean us a hop, hop_us, in front_door); the gemma2 flash row's
+      pmake campaigns, campaign, and its served run's observability,
+      serve_obs; the flash row with the served figures and the two
+      profiles, serve; the gemma2 flash row with deepseek-7b's serve,
+      deepseek, and its batch-1 prefill shape's figures, deepseek_b1; the
+      gemma2 flash row with its training run's train_launches,
+      train_launches_per_forward, remat_launches, train_shape,
+      train_bwd_ms and train_step_profile; the WKV row with
       rwkv6 training's train_launches, train_launches_per_forward,
       train_shape, bwd_ms (the recompute), bwd_fp64_err and
       train_step_profile), and
@@ -216,6 +240,14 @@ ARGV = ["--no-reduced", "--requests", "4", "--prompt-len", "4200",
         "--max-new", "16", "--device", "cuda", "--workers", "1"]
 B, S, HQ, G, HD = 4, 4200, 16, 4, 256      # gemma2-2b prefill attention
 SCALE, CAP = HD ** -0.5, 50.0              # 1/sqrt(query_pre_attn_scalar)
+# deepseek-7b prefill attention: one served prompt, 32 query heads on 32 K/V
+# heads of 128 (MHA), causal, no window, no softcap
+DSH, DSHD = 32, 128
+# its prefill, kernel path vs plain path in fp32: the two differ only in the
+# order of their fp32 sums (the flash kernel's tiles against the blockwise
+# version's), which moves the logits by far less than a wrong tile or a
+# dropped key block would (those move them by O(0.1) and more)
+DS_FP32_LOGIT_TOL = 1e-3
 FP32_TOL = 1e-4       # fp32 output vs plain version: summation order only
 BF16_ATOL = 1e-5      # bf16 output: one rounding of the fp32 result, see below
 LOGIT_TOL = 0.15               # prefill logits, kernel path vs plain path
@@ -297,6 +329,15 @@ MATMUL_SWEEP_ATOL = {"float32": 1e-4, "bfloat16": 0.25}
 # (c) the front door's schedulers: fp32 A^T B tasks a size, the sizes, and
 # mpi_list's rank blocks (one `Client.map` element a rank)
 FRONT_DOOR_TASKS, FRONT_DOOR_SIZES, FRONT_DOOR_RANKS = 2000, (256, 1024), 16
+# (c) the proc transport: worker processes, fp32 A^T B tasks a size (the
+# front door's sizes), the fan-in's producers (n = 1024, C 4 MiB) and
+# consumers, the SIGKILL drill's tasks at n = 1024 and the sleep each holds
+# its worker for after its kernel (so that the kill lands mid-run), the
+# warm-up tasks a size and their sleep (each worker's first task makes its
+# CUDA context and the operands), the operands' seed
+PROC_WORKERS, PROC_TASKS, PROC_FAN = 4, 1000, 64
+PROC_DRILL_TASKS, PROC_DRILL_HOLD_S = 400, 0.005
+PROC_WARM_TASKS, PROC_WARM_HOLD_S, PROC_SEED = 16, 0.1, 5
 # (c) pmake: a campaign of launch.campaign's shape at full width, its train
 # tasks gemma2-2b at batch 2 x 1024 (one card holds one: 61 GB at its peak)
 FULL_CAMPAIGN_STEPS, CAMPAIGN_TIMEOUT_S = 2, 600
@@ -1351,6 +1392,261 @@ def phase_front_door(torch, mm_ops, metg):
     return summary
 
 
+def scrape_once(url: str) -> dict:
+    """GET /stats and /metrics once: (the /stats JSON, the /metrics
+    samples as {name{labels}: value})."""
+    import urllib.request
+    with urllib.request.urlopen(url + "/stats", timeout=30) as r:
+        stats = json.loads(r.read().decode())
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    samples = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            if not PROM_SAMPLE.match(line):
+                raise SystemExit(f"proc: not a Prometheus sample: {line!r}")
+            key, value = line.rsplit(" ", 1)
+            samples[key] = float(value)
+    return stats, samples
+
+
+def phase_proc(torch, metg, front_door):
+    """The proc transport on the card: `Client(scheduler="dwork",
+    transport="proc", workers=PROC_WORKERS)` spawns worker PROCESSES, each
+    with its own CUDA context, running `launch.metg.proc_matmul` tasks that
+    make their operands from (n, PROC_SEED) on the card and launch
+    `tiled_matmul` there.  One session, four runs:
+
+      1. PROC_TASKS fp32 A^T B tasks a size, after a warm-up: every future
+         ok, each C's sum within n x the tolerance of the plain C's (made
+         here from the same seed: n^2 rounding errors of random sign add up
+         to about n x theirs), one task in 64 held element by element
+         against the plain version inside the worker, the pairs taken in
+         turn; the pids seen are exactly `worker_pids()`'
+         and none is this process's; every worker launched the kernel, and
+         the launches summed over the processes equal the tasks run.  One
+         /stats and /metrics scrape through `Client.stats_server()`:
+         `repro_worker_rss_bytes` for every worker, and the xfer section;
+      2. the fan-in: PROC_FAN producers return C (4 MiB, above inline_bytes:
+         it stays in the producer's store), PROC_FAN consumers each take two
+         producers' C and return the sum of their sum, held against the
+         plain one as in 1.; peer fetches > 0, none lost; one producer's C gathered
+         here through its RemoteValue, equal to the plain C;
+      3. the SIGKILL drill: one worker killed mid-run of PROC_DRILL_TASKS:
+         every future ok, each resolved exactly once, requeued >= 1;
+      4. the backend completed every task it created, with 0 errors.
+
+    Prints ms a task and efficiency against the kernel's time beside the
+    in-process dwork rows of `[c] front door`, the peer and hub fetches,
+    their bytes and seconds.  The launch counts live in the workers: each
+    task returns its process's running count.  Returns a summary."""
+    import collections
+    import signal
+    from repro_torch.client import Client
+    from repro_torch.core.engine.comm import serialize
+    # the operands the workers make (`metg.seeded_tasks`), made here from
+    # the same seed, with their plain products
+    ref = {n: metg.seeded_operands(n, PROC_SEED)
+           for n in FRONT_DOOR_SIZES}
+    kernel_s = {n: metg.kernel_time(t)[0] for n, t in ref.items()}
+    plain_sum = {n: [float(c.double().sum()) for c in t.plain]
+                 for n, t in ref.items()}
+    pairs = metg.PAIRS
+    summary = {"workers": PROC_WORKERS}
+    runs = collections.Counter()          # tasks submitted, all runs
+    last = {}                             # pid -> its last launch count
+    worst = collections.defaultdict(float)  # what -> max |sum - plain| / tol
+
+    def check_sum(n, pairs_of, total, want, what):
+        lim = n * sum(ref[n].limit[p] for p in pairs_of)
+        worst[what] = max(worst[what], abs(total - want) / lim)
+        if not abs(total - want) <= lim:
+            raise SystemExit(f"proc {what}: sum of C {total!r} vs plain "
+                             f"{want!r} (tol {lim:.3e})")
+
+    def take(vals, n, pairs_of, what):
+        for (total, pid, launches, _), pair in zip(vals, pairs_of):
+            check_sum(n, [pair], total, plain_sum[n][pair], what)
+            last[pid] = max(last.get(pid, 0), launches)
+
+    def checked(i):
+        # one task in CHECK_EVERY, its pair turning with each block of them
+        return i % metg.CHECK_EVERY == i // metg.CHECK_EVERY % pairs
+
+    t_session = time.perf_counter()
+    with Client(scheduler="dwork", transport="proc",
+                workers=PROC_WORKERS) as c:
+        eng = c.start().engine
+        if not eng.wait_workers(PROC_WORKERS, timeout=120):
+            raise SystemExit(f"proc: {len(eng.worker_pids())} of "
+                             f"{PROC_WORKERS} workers joined in 120 s")
+        pids = eng.worker_pids()
+        if len(set(pids.values())) != PROC_WORKERS \
+                or os.getpid() in pids.values():
+            raise SystemExit(f"proc: worker pids {pids}, this process "
+                             f"{os.getpid()}")
+        t0 = time.perf_counter()
+        for n in FRONT_DOOR_SIZES:
+            warm = [c.submit(metg.proc_matmul, n, i % pairs, PROC_SEED,
+                             hold_s=PROC_WARM_HOLD_S)
+                    for i in range(PROC_WARM_TASKS)]
+            take(c.gather(warm, timeout=300), n,
+                 [i % pairs for i in range(PROC_WARM_TASKS)], "warm-up")
+            runs["tasks"] += PROC_WARM_TASKS
+        warm_s = time.perf_counter() - t0
+        srv = c.stats_server()
+        stats, samples = scrape_once(srv.url)
+        rss = {w: samples.get(f'repro_worker_rss_bytes{{worker="{w}"}}')
+               for w in pids}
+        xfer = stats.get("engine", {}).get("xfer")
+        pickler = serialize._pickler
+        print(f"[c] proc: {PROC_WORKERS} workers joined, pids "
+              f"{sorted(pids.values())} (this process {os.getpid()}), "
+              f"tasks pickled by {pickler.__name__} "
+              f"{getattr(pickler, '__version__', '')}; "
+              f"warm-up {2 * PROC_WARM_TASKS} tasks in {warm_s:.2f}s; "
+              f"/stats and /metrics scraped: repro_worker_rss_bytes "
+              + ", ".join(f"{w} {v / 2**20:.0f} MiB" if v else f"{w} {v}"
+                          for w, v in sorted(rss.items()))
+              + f"; xfer {xfer}")
+        if not all(v and v > 0 for v in rss.values()) or xfer is None:
+            raise SystemExit(f"proc: /metrics rss {rss}, /stats xfer {xfer}")
+        for n in FRONT_DOOR_SIZES:
+            gc.collect()
+            gc.disable()
+            try:
+                t0 = time.perf_counter()
+                futs = [c.submit(metg.proc_matmul, n, i % pairs, PROC_SEED,
+                                 check=checked(i))
+                        for i in range(PROC_TASKS)]
+                vals = c.gather(futs, timeout=600)
+                wall = time.perf_counter() - t0
+            finally:
+                gc.enable()
+            runs["tasks"] += PROC_TASKS
+            take(vals, n, [i % pairs for i in range(PROC_TASKS)],
+                 f"n={n}")
+            ratios = [v[3] for v in vals if v[3] is not None]
+            want_pairs = collections.Counter(
+                i % pairs for i in range(PROC_TASKS) if checked(i))
+            got_pairs = collections.Counter(
+                i % pairs for i, v in enumerate(vals) if v[3] is not None)
+            seen = collections.Counter(v[1] for v in vals)
+            per_task = wall / PROC_TASKS
+            inproc = (front_door or {}).get(f"dwork n={n}", {})
+            print(f"[c] proc n={n}: {PROC_TASKS} tasks in {wall:.3f}s, "
+                  f"{per_task * 1e3:.4f} ms a task (kernel "
+                  f"{kernel_s[n] * 1e3:.4f}, efficiency "
+                  f"{kernel_s[n] / per_task:.3f}; in-process dwork "
+                  f"{inproc.get('ms_per_task', float('nan')):.4f} ms, "
+                  f"efficiency {inproc.get('efficiency', float('nan')):.3f});"
+                  f" tasks a worker {dict(sorted(seen.items()))}; C checked "
+                  f"in the workers {len(ratios)} (a pair "
+                  f"{dict(sorted(got_pairs.items()))}), worst max|C - plain|"
+                  f"/tol {max(ratios):.3e}; sums of C: worst |sum - plain|/"
+                  f"(n x tol) {worst[f'n={n}']:.3e}")
+            if got_pairs != want_pairs or len(want_pairs) != pairs:
+                raise SystemExit(f"proc n={n}: C checked a pair {got_pairs}, "
+                                 f"want {want_pairs}")
+            summary[f"n={n}"] = {
+                "ms_per_task": per_task * 1e3,
+                "efficiency": kernel_s[n] / per_task,
+                "inproc_ms_per_task": inproc.get("ms_per_task"),
+                "worst_over_tol": max(ratios)}
+        if set(last) != set(pids.values()) \
+                or sum(last.values()) != runs["tasks"] \
+                or not all(v > 0 for v in last.values()):
+            raise SystemExit(f"proc: launches a worker {last}, want a "
+                             f"launch in each of {sorted(pids.values())} "
+                             f"summing to {runs['tasks']} tasks")
+        print(f"[c] proc: tiled_matmul launches a worker process "
+              f"{dict(sorted(last.items()))}, sum {sum(last.values())} = "
+              f"{runs['tasks']} tasks run")
+        summary["launches"] = sum(last.values())
+        summary["launches_by_pid"] = {str(k): v for k, v in last.items()}
+
+        # 2. the fan-in, worker to worker
+        n = FRONT_DOOR_SIZES[-1]
+        t0 = time.perf_counter()
+        prods = [c.submit(metg.proc_matmul_c, n, i % pairs, PROC_SEED)
+                 for i in range(PROC_FAN)]
+        cons = [c.submit(metg.checksum_of_sum, prods[i],
+                         prods[(i + 1) % PROC_FAN]) for i in range(PROC_FAN)]
+        sums = c.gather(cons, timeout=600)
+        fan_s = time.perf_counter() - t0
+        for i, total in enumerate(sums):
+            p, q = i % pairs, (i + 1) % PROC_FAN % pairs
+            check_sum(n, [p, q], total, plain_sum[n][p] + plain_sum[n][q],
+                      f"fan-in consumer {i}")
+        c0 = prods[0].result(timeout=600)
+        err0 = float((c0.cuda() - ref[n].plain[0]).abs().max())
+        with eng._xfer_lock:
+            tot = {k: list(v) for k, v in eng.xfer_totals.items()}
+        lost = eng.xfer_lost_total
+        print(f"[c] proc fan-in n={n}: {PROC_FAN} producers (C "
+              f"{c0.numel() * 4 / 2**20:.0f} MiB, inline_bytes "
+              f"{eng.inline_bytes}), {PROC_FAN} consumers in {fan_s:.3f}s; "
+              + "; ".join(f"{k}: {v[0]} fetches, {v[1] / 2**20:.1f} MiB, "
+                          f"{v[2]:.4f}s" for k, v in sorted(tot.items()))
+              + f"; lost {lost}; a producer's C gathered here: "
+              f"max|C - plain| {err0:.3e} (tol {ref[n].limit[0]:.3e}); "
+              f"consumers' sums: worst |sum - plain|/(n x tol) "
+              f"{max(v for k, v in worst.items() if k.startswith('fan')):.3e}")
+        if tot.get("peer", [0])[0] <= 0 or lost \
+                or not err0 <= ref[n].limit[0]:
+            raise SystemExit(f"proc fan-in: xfer {tot}, lost {lost}, "
+                             f"C error {err0:.3e}")
+        summary["fan_in"] = {"s": fan_s, "xfer": tot, "lost": lost}
+        runs["fan"] += 2 * PROC_FAN
+
+        # 3. the SIGKILL drill
+        resolved = collections.Counter()
+        futs = []
+        for i in range(PROC_DRILL_TASKS):
+            f = c.submit(metg.proc_matmul, n, i % pairs, PROC_SEED,
+                         hold_s=PROC_DRILL_HOLD_S)
+            f.add_done_callback(lambda fut: resolved.update([fut.name]))
+            futs.append(f)
+        deadline = time.monotonic() + 120
+        while sum(f.done() for f in futs) < PROC_DRILL_TASKS // 4 \
+                and time.monotonic() < deadline:
+            time.sleep(0.002)
+        victim_w, victim = sorted(eng.worker_pids().items())[0]
+        done_at_kill = sum(f.done() for f in futs)
+        os.kill(victim, signal.SIGKILL)
+        vals = c.gather(futs, timeout=600)
+        take(vals, n, [i % pairs for i in range(PROC_DRILL_TASKS)], "drill")
+        deaths = eng.worker_deaths
+        # a value whose only copy died with the victim is recomputed under
+        # an alias task of its own (the data plane's zero-loss path)
+        recomputes = eng.xfer_lost_total
+        runs["drill"] += PROC_DRILL_TASKS
+    rep = c.close()
+    st = rep.backend_stats
+    requeued = st.get("requeued", 0)
+    once = sorted(set(resolved.values())) == [1] \
+        and len(resolved) == PROC_DRILL_TASKS
+    print(f"[c] proc SIGKILL drill: killed {victim_w} (pid {victim}) with "
+          f"{done_at_kill}/{PROC_DRILL_TASKS} done; every future ok, each "
+          f"resolved once: {once}; worker deaths {deaths}; requeued "
+          f"{requeued}; lost values recomputed {recomputes}; backend "
+          f"completed={st['completed']} created={st['created']} "
+          f"errors={st['errors']}; sums of C: worst |sum - plain|/(n x tol) "
+          f"{worst['drill']:.3e}; session "
+          f"{time.perf_counter() - t_session:.1f}s")
+    created = sum(runs.values()) + recomputes
+    if not once or deaths < 1 or requeued < 1 or st["errors"] \
+            or st["completed"] != st["created"] or st["created"] != created:
+        raise SystemExit(f"proc drill: once={once} deaths={deaths} "
+                         f"requeued={requeued} stats={st} (created {created})")
+    summary["drill"] = {"requeued": requeued, "deaths": deaths,
+                        "done_at_kill": done_at_kill,
+                        "recomputes": recomputes}
+    del ref
+    torch.cuda.empty_cache()
+    return summary
+
+
 # --------------------------------------------- the paper's other schedulers
 
 def _train_log(path: Path) -> dict:
@@ -1525,13 +1821,6 @@ def phase_campaign(torch, card, dev="cuda"):
     return summary
 
 
-def _matmul_tasks(torch, metg, n, seed, dev):
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    return metg.MatmulTasks([tuple(
-        torch.randn((n, n), generator=gen, device=dev) for _ in "ab")
-        for _ in range(metg.PAIRS)])
-
-
 def phase_mpi_list(torch, mm_ops, metg, card, dev="cuda"):
     """The engine-backed mpi-list `Context` on the card: 16 ranks on 4
     engine workers map MPI_ELEMENTS elements, each one fp32 A^T B at
@@ -1542,7 +1831,7 @@ def phase_mpi_list(torch, mm_ops, metg, card, dev="cuda"):
     check, and the collected list in order.  Returns a summary for the
     JSON line."""
     from repro_torch.core.mpi_list import Context
-    tasks = _matmul_tasks(torch, metg, MPI_N, 6, dev)
+    tasks = metg.seeded_operands(MPI_N, 6, dev)
     kernel_s, _ = metg.kernel_time(tasks)
     pairs = len(tasks.c)
     out = {}
@@ -1711,7 +2000,7 @@ def phase_elastic(torch, mm_ops, metg, card, dev="cuda"):
     from repro_torch.core.dwork import InProcTransport, TaskServer, run_pool
     from repro_torch.core.dwork import Client as DworkClient
     from repro_torch.runtime.elastic import ElasticPool
-    tasks = _matmul_tasks(torch, metg, MPI_N, 8, dev)
+    tasks = metg.seeded_operands(MPI_N, 8, dev)
     kernel_s, _ = metg.kernel_time(tasks)
     pairs = len(tasks.c)
     calls = []
@@ -1888,7 +2177,7 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
     flex = torch.compile(flex_attention)
     flex_compile_s = None
     gen = torch.Generator(device="cuda").manual_seed(0)
-    row = zrow = zsrow = row_b1 = zsrow_b1 = None
+    row = zrow = zsrow = row_b1 = zsrow_b1 = ds_b1 = None
     cases = [(dt, B, S, HQ, G, HD, w, CAP) for dt in ("bfloat16", "float32")
              for w in (4096, S + 1)]
     cases += [(dt, ZB, ZS, ZH, ZH, ZHD, None, 0.0)
@@ -1897,8 +2186,10 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
     # the served batches through the front door: one prompt each
     cases += [("bfloat16", 1, S, HQ, G, HD, S + 1, CAP),
               ("bfloat16", 1, ZSS, ZH, ZH, ZHD, None, 0.0)]
+    # deepseek-7b's served prefill: head dim 128, MHA, causal only
+    cases += [("bfloat16", 1, S, DSH, DSH, DSHD, None, 0.0)]
     cases += [(dt, 2, 203, 8, 2, hd, 50, CAP) for dt in ("bfloat16", "float32")
-              for hd in (32, 80, 256)]
+              for hd in (32, 80, 128, 256)]
     for dt, b, s, hq, g, hd, window, cap in cases:
         dtype = getattr(torch, dt)
         rt = fa_kernel.route(dtype, hd)
@@ -1930,7 +2221,8 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
         serve_shape = (b, s, hq, g, hd) == (ZSB, ZSS, ZH, ZH, ZHD)
         main_b1 = (b, s, hq, g, hd) == (1, S, HQ, G, HD)
         serve_b1 = (b, s, hq, g, hd) == (1, ZSS, ZH, ZH, ZHD)
-        big = main_shape or serve_shape or main_b1 or serve_b1
+        deepseek_b1 = (b, s, hq, g, hd) == (1, S, DSH, DSH, DSHD)
+        big = main_shape or serve_shape or main_b1 or serve_b1 or deepseek_b1
         ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw),
                      5 if big else 20)
         plain_ms = cuda_ms(lambda: fa_ref.flash_attention_blockwise(
@@ -1993,6 +2285,25 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
                       "library": "torch.compile(flex_attention)",
                       "tiling": rt.describe()}
         zamba_shape = (b, s, hq, g, hd) == (ZB, ZS, ZH, ZH, ZHD)
+        if deepseek_b1:
+            # SDPA computes exactly this function: causal, no window, no
+            # softcap, one K/V head per query head
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = functools.partial(
+                torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
+                is_causal=True, scale=hd ** -0.5)
+            sdpa_err = float((sdpa().transpose(1, 2).float() - out.float())
+                             .abs().max())
+            sdpa_ms = cuda_ms(sdpa, 5)
+            print(f"[b] deepseek-7b serve batch 1 shape: sdpa_ms="
+                  f"{sdpa_ms:.4f} max_abs_err vs sdpa={sdpa_err:.3e}")
+            ds_b1 = {"shape": [b, s, hq, g, hd], "max_abs_err": err,
+                     "bf16_excess": excess, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": sdpa_ms,
+                     "library": "scaled_dot_product_attention",
+                     "tiling": rt.describe()}
+            del qt, kt, vt, sdpa
         if (zamba_shape or serve_shape or serve_b1) and dt == "bfloat16":
             # SDPA computes exactly this function: causal, no window, no
             # softcap, one K/V head per query head
@@ -2035,6 +2346,7 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
     zrow["serve_shape"] = zsrow
     zrow["serve_b1"] = zsrow_b1
     row["serve_b1"] = row_b1
+    row["deepseek_b1"] = ds_b1
     return row, zrow
 
 
@@ -2430,6 +2742,114 @@ def phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref, serve):
     if rel[0] > WKV_TOL or max(rel) > STATE_TOL:
         raise SystemExit("rwkv6: kernel-path and plain-path states disagree")
     return launches, launches // len(res["batches"])
+
+
+def phase_serve_deepseek(torch, fa_ops, attention, fa_ref, serve):
+    """deepseek-7b at full width (30 layers, d_model 4096, 32 heads of 128)
+    through `launch.serve` and `Client.serve`, four batches of 1: every
+    request ok and the front door's checks, the flash kernel launched once
+    a layer and prefill batch, at head dim 128.  Then the first served
+    batch's prefill, kernel path against plain path: in fp32 (the params
+    read through an fp32 cast; held: last-position logits within
+    DS_FP32_LOGIT_TOL, and the argmax where the top-2 margin exceeds twice
+    that, which must hold for at least one token) and in bf16 (printed);
+    the served first tokens are, every one, the bf16 kernel path's argmax
+    in the batches they were served in.  Prints prefill ms, decode ms a token,
+    the latency percentiles and the peak memory (the fp32 params made by
+    `Model.init` and their bf16 cast live at once)."""
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", "deepseek-7b", *ARGV])
+    wall = time.perf_counter() - t0
+    launches = fa_ops.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    model, params = res["model"], res["params"]
+    cfg = model.cfg
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, cfg.vocab_size) == (30, 4096, DSH, DSH,
+                                                       DSHD, 102400)
+    n_params = sum(t.numel() for _, t in leaf_items(params))
+    p50, p95, p99 = front_door_checks(res, "deepseek-7b")
+    print(f"[c] deepseek-7b served {len(res['replies'])} requests in "
+          f"{wall:.1f}s (weights included: {n_params:,} parameters); "
+          f"prefill_ms={res['prefill_s'] * 1e3:.1f} decode_ms_per_token="
+          f"{res['decode_s'] * 1e3 / res['decode_steps']:.2f} latency_ms "
+          f"p50={p50:.1f} p95={p95:.1f} p99={p99:.1f} "
+          f"max_memory_allocated_GB={peak / 1e9:.2f}")
+    want = cfg.n_layers * len(res["batches"])
+    print(f"[c] deepseek-7b flash_attention launches={launches} (want "
+          f"{cfg.n_layers} layers x {len(res['batches'])} batches)")
+    if launches != want:
+        raise SystemExit(f"deepseek-7b: flash launched {launches} times, "
+                         f"want {want}")
+    if len(res["replies"]) != 4:
+        raise SystemExit("deepseek-7b: not every request was answered")
+    for row in res["replies"]:
+        if row.shape != (16,) or row.min() < 0 or row.max() >= cfg.vocab_size:
+            raise SystemExit(f"deepseek-7b: bad reply {row}")
+    V = cfg.vocab_size
+    first = res["batches"][0]
+    toks = torch.as_tensor(np.stack(res["prompts"][:first]),
+                           device="cuda").long()
+    logits = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            n = fa_ops.flash_attention.launches
+            lg_kernel, _ = model.forward(params, {"tokens": toks},
+                                         mode="prefill", dtype=dtype)
+            if fa_ops.flash_attention.launches != n + cfg.n_layers:
+                raise SystemExit("deepseek-7b: the kernel path did not "
+                                 "launch the kernel once a layer")
+            n = fa_ops.flash_attention.launches
+            with mock.patch.object(attention, "flash_attention",
+                                   fa_ref.flash_attention_blockwise):
+                lg_plain, _ = model.with_opts(q_block=1024, kv_block=1024) \
+                    .forward(params, {"tokens": toks}, mode="prefill",
+                             dtype=dtype)
+            if fa_ops.flash_attention.launches != n:
+                raise SystemExit("deepseek-7b: the plain path launched the "
+                                 "kernel")
+            logits[dtype] = (lg_kernel[:, :V].float(), lg_plain[:, :V].float())
+            del lg_kernel, lg_plain
+    a, b = logits[torch.float32]
+    if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+        raise SystemExit("deepseek-7b: non-finite prefill logits")
+    # logits within DS_FP32_LOGIT_TOL of each other share their argmax
+    # wherever the top-2 margin exceeds twice that
+    err = float((a - b).abs().max())
+    sure = top2_margin(b) > 2 * DS_FP32_LOGIT_TOL
+    same = (a.argmax(-1) == b.argmax(-1)) | ~sure
+    a16, b16 = logits[torch.bfloat16]
+    print(f"[c] deepseek-7b prefill of the first served batch ({first} "
+          f"prompt(s) of {toks.shape[1]} tokens), kernel vs plain path: "
+          f"fp32 logits max_abs_err={err:.3e} (tol {DS_FP32_LOGIT_TOL}), "
+          f"|logit|max={float(b.abs().max()):.3f}, top-2 margins="
+          f"{[round(float(m), 4) for m in top2_margin(b)]}, first tokens "
+          f"compared where margin > 2 x tol: {int(sure.sum())}/{len(sure)}; "
+          f"bf16 max_abs_err={float((a16 - b16).abs().max()):.4f} (printed)")
+    if err >= DS_FP32_LOGIT_TOL or not bool(same.all()) \
+            or not bool(sure.any()):
+        raise SystemExit("deepseek-7b: kernel path and plain path disagree")
+    # the served first tokens are the bf16 kernel path's argmax in the
+    # batches they were served in: the same function on the same inputs
+    # through the same kernels, so every token, whatever its margin
+    a = served_logits(torch, res, V)
+    served = torch.as_tensor([r[0] for r in res["replies"]], device="cuda")
+    equal = int((served == a.argmax(-1)).sum())
+    print(f"[c] deepseek-7b served first tokens equal to the bf16 kernel-path "
+          f"prefill's argmax: {equal}/{len(served)} (top-2 margin > "
+          f"{LOGIT_TOL}: {int((top2_margin(a) > LOGIT_TOL).sum())})")
+    if equal != len(served) or not len(served):
+        raise SystemExit("deepseek-7b: served first tokens are not the "
+                         "prefill's")
+    return {"launches": launches,
+            "launches_per_forward": launches // len(res["batches"]),
+            "prefill_ms": res["prefill_s"] * 1e3,
+            "decode_ms_per_token": res["decode_s"] * 1e3
+            / res["decode_steps"],
+            "latency_ms": [p50, p95, p99], "peak_gb": peak / 1e9,
+            "params": n_params, "fp32_logit_err": err}
 
 
 def zamba_cache_rel(a, b):
@@ -3179,6 +3599,8 @@ def run(where: dict) -> int:
     mm_row["launches"], metg_table = phase_metg(torch, mm_ops, metg)
     where["phase"] = "(c) the front door's schedulers on the card"
     mm_row["front_door"] = phase_front_door(torch, mm_ops, metg)
+    where["phase"] = "(c) the proc transport: worker processes on the card"
+    mm_row["proc"] = phase_proc(torch, metg, mm_row["front_door"])
     where["phase"] = "(c) pmake campaigns"
     row["campaign"] = phase_campaign(torch, card)
     where["phase"] = "(c) mpi-list on the card"
@@ -3210,6 +3632,11 @@ def run(where: dict) -> int:
         zrow["serve"] = phase_serve_zamba(torch, ssd_ops, fa_ops, attention,
                                           fa_ref, serve)
     gc.collect()               # the served model and its caches go first
+    torch.cuda.empty_cache()
+    where["phase"] = "(c) deepseek-7b serve"
+    row["deepseek"] = phase_serve_deepseek(torch, fa_ops, attention, fa_ref,
+                                           serve)
+    gc.collect()
     torch.cuda.empty_cache()
     where["phase"] = "(c) zamba2 one-group train step"
     # one group of depth: 6 Mamba2 layers and the shared block

@@ -53,8 +53,6 @@ The legacy front doors — `repro_torch.core.dwork.run_pool`,
 `repro_torch.core.mpi_list.Context(engine_workers=...)` — and
 `repro_torch.runtime.elastic.ElasticPool` are thin shims over this client
 (batch mode, `Client(resident=False)` + `run()`, for the first three).
-The "proc" transport raises `NotImplementedError` until its modules (the
-worker processes) are ported.
 """
 from repro_torch.client.client import SCHEDULERS, Client
 from repro_torch.client.futures import (CancelledError, DependencyFailed,

@@ -1,7 +1,5 @@
 """`Client`: the futures front door over the unified engine, the port's
-copy of the JAX package's `repro.client.client`.  The "proc" transport
-raises `NotImplementedError` until its modules are ported (ROADMAP.md
-Queue 1 item 4g).
+copy of the JAX package's `repro.client.client`.
 
 One class drives all three schedulers and the serving layer.  The
 default (resident) mode owns an `Engine(resident=True)` whose dispatch
@@ -25,7 +23,8 @@ from typing import Callable, Iterable, Optional
 
 from repro_torch.client.futures import (_CANCELLED, _DONE, CancelledError,
                                         DependencyFailed, Future, TaskFailed)
-from repro_torch.core.engine.comm.serialize import RemoteValue
+from repro_torch.core.engine.comm.serialize import (RemoteValue, Ref,
+                                                    dumps_call)
 from repro_torch.core.engine.executor import Engine, EngineReport
 from repro_torch.core.engine.model import (CREATED, FAILED, WorkerCrash,
                                            next_seq)
@@ -201,6 +200,22 @@ class Client:
         engine_kw = {}
         if tenant is not None:
             engine_kw["meta"] = {"tenant": tenant}
+        if self.engine.transport == "proc":
+            # the task runs in another PROCESS: pack (fn, args, kwargs)
+            # with cloudpickle NOW — an unpicklable callable raises
+            # SerializationError here, naming the task, instead of
+            # hanging a worker.  Done-future arguments inline their
+            # value; pending ones ride as `Ref` placeholders the worker
+            # resolves from its local cache or a Fetch round-trip.  The
+            # `_make_call` wrapper (which captures the unpicklable
+            # Future) never crosses the boundary.
+            meta = dict(engine_kw.get("meta") or {})
+            meta["__call__"] = _proc_call_payload(name, fn, args, kwargs)
+            engine_kw["meta"] = meta
+            return self._submit(fut, fn=None, deps=dep_names,
+                                priority=priority,
+                                slots=max(int(slots), 1), retry=retry,
+                                **engine_kw)
         if not all(d.done() for d in fdeps):
             # the wrapper will _peek a producer mid-run, so futures must
             # resolve live (batch run() otherwise defers resolution to
@@ -443,6 +458,15 @@ class Client:
                     # futures-only session: the engine's own registered-fn
                     # dispatch is the leanest path (no worker plumbing)
                     self.engine.start()
+                elif self.engine.transport == "proc":
+                    # ship the RAW user executor to the worker processes:
+                    # the `_execute` bound method drags the whole client
+                    # (futures, locks) into the pickle and cannot cross.
+                    # Futures-submitted tasks still run their packed
+                    # `meta["__call__"]` worker-side, which takes
+                    # precedence over the executor.
+                    self.engine.start(self._executor,
+                                      pass_worker=self._executor_pass_worker)
                 else:
                     self.engine.start(self._execute, pass_worker=True)
 
@@ -468,7 +492,16 @@ class Client:
             # see only a partial result set)
             if self._report is not None:
                 return self._report
-            execute = None if self._executor is None else self._execute
+            pass_worker = True
+            if self._executor is None:
+                execute = None
+            elif self.engine.transport == "proc":
+                # raw user executor across the process boundary (see
+                # _start_engine); packed `__call__` payloads win per task
+                execute = self._executor
+                pass_worker = self._executor_pass_worker
+            else:
+                execute = self._execute
             if not self._live_results_needed:
                 # no wrapper peeks a producer mid-run: drop the per-task
                 # result listener so the dispatch loop keeps the raw
@@ -478,7 +511,7 @@ class Client:
                 self.engine.on_result = None
                 self.engine.on_loop_error = None
             try:
-                report = self.engine.run(execute, pass_worker=True)
+                report = self.engine.run(execute, pass_worker=pass_worker)
             finally:
                 if self._owns_backend:
                     self.engine.backend.close()
@@ -657,6 +690,8 @@ class Client:
             return self._report.overhead()
         if self.engine.transport == "thread":
             workers = min(self.engine.workers, self.engine.capacity)
+        elif self.engine.transport == "proc":
+            workers = self.engine.live_workers()   # real OS parallelism
         else:
             workers = 1      # serial inline transports (engine convention)
         return self.engine.tracer.report(workers=max(workers, 1))
@@ -677,6 +712,34 @@ class Client:
         return (f"Client({self.scheduler}, {mode}, {state}, "
                 f"workers={self.engine.workers}, "
                 f"pending={len(self._futures)})")
+
+
+def _proc_call_payload(name: str, fn: Callable, args: tuple,
+                       kwargs: dict) -> str:
+    """Pack a futures submission for a worker process: cloudpickle
+    `(fn, args, kwargs)` with done-future arguments inlined to their
+    values and pending ones replaced by `Ref(task)` placeholders (the
+    worker materializes those from its local cache or a Fetch).  Raises
+    `SerializationError` naming the task on an unpicklable callable or
+    argument — the submit-time contract of `transport="proc"`."""
+    def lift(x):
+        if not isinstance(x, Future):
+            return x
+        if not x.done():
+            return Ref(x.name)
+        if isinstance(x._value, RemoteValue):
+            # the value never left its producing worker: keep it remote
+            # (the dependent peer-fetches it) instead of hauling it
+            # through this process — but pin the name so auto-prune can't
+            # evict the payload before the dependent runs (a done
+            # future's dep edge is dropped by _lift_deps)
+            x._client.engine.pin(x.name)
+            return Ref(x.name)
+        return x._peek()
+
+    a = tuple(lift(x) for x in args)
+    kw = {k: lift(v) for k, v in kwargs.items()} if kwargs else {}
+    return dumps_call(fn, a, kw, task=name)
 
 
 def _make_call(fut: Future, fn: Callable, args: tuple, kwargs: dict):

@@ -122,9 +122,8 @@ class Stats:
 
 
 # ------------------------------------------------- proc-transport verbs
-# (the engine's proc transport, not ported yet): spoken between a
-# worker PROCESS and the engine's front door, never by the TaskServer
-# itself — the front door
+# (`repro_torch.core.engine.comm`): spoken between a worker PROCESS and
+# the engine's front door, never by the TaskServer itself — the front door
 # strips them (and the extended CompleteSteal `done` entries, which may
 # carry a third per-task element {"v": value, "e": error, "d": duration,
 # "n": nbytes, "x": xfer stats, "as": store-as alias}) down to the plain

@@ -13,13 +13,16 @@ makes that claim *measurable* in one place instead of three ad-hoc loops:
                  forwarding-tree TreeBackend) speaking the Table 2 verbs
                  incl. the batched CompleteSteal; every call timed as an
                  `rpc` event (tree hops as `op="hop:L<k>"`)
-    executor.py  the worker pool: inproc / thread / tree transports,
-                 CompleteSteal piggybacking (complete+steal in one RTT),
-                 Steal-n batching, sharded routing, heap-scheduled
-                 slots/priority launch (pmake EFT)
+    executor.py  the worker pool: inproc / thread / tree / proc
+                 transports, CompleteSteal piggybacking (complete+steal
+                 in one RTT), Steal-n batching, sharded routing,
+                 heap-scheduled slots/priority launch (pmake EFT)
     comm/        the transport registry: Connector/Listener pairs per
-                 address scheme, TransportFamily per `transport=` name
-                 (the JAX package's four names; "proc" raises)
+                 address scheme, TransportFamily per `transport=` name;
+                 the proc family spawns worker PROCESSES speaking
+                 Table-2 frames over TCP (Hello handshake, heartbeat
+                 leases, cloudpickle at the boundary, multi-host join
+                 via `python -m repro_torch.core.engine.comm.worker`)
     faults.py    heartbeat leases, dead-worker requeue, seeded fault and
                  straggler injection (no wall-clock dependence in tests)
     journal.py   write-ahead journal + compacted checkpoints for the
@@ -29,11 +32,12 @@ makes that claim *measurable* in one place instead of three ad-hoc loops:
                  (optionally rpc-sampled), cross-checked against the
                  analytic laws in core/metg.py
 
-Not ported yet: the "proc" transport (`comm/proc.py`, `comm/worker.py`,
-ROADMAP.md Queue 1 item 4g) raises `NotImplementedError`.  The scheduler
-adapters `run_pool`, `PMake.run` and the engine-backed mpi-list `Context`
-are ported, and so is the observability layer (`repro_torch.core.obs`).
-Everything below is the reference's guidance, proc included.
+Scheduler adapters built on this substrate:
+    dwork    `repro_torch.core.dwork.pool.run_pool`  (TaskServer /
+             ShardedHub)
+    pmake    `repro_torch.core.pmake.PMake.run`      (slots=nodes, EFT
+             priority)
+    mpi-list `repro_torch.core.mpi_list.Context(..., engine_workers=...)`
 
 Tuning `transport=` / `steal_n` against the METG laws (core/metg.py):
 

@@ -1,8 +1,6 @@
 """Comm core: the connector/listener abstraction and the transport
 registry (in the spirit of dask-distributed's comm layer), the port's copy
-of the JAX package's `repro.core.engine.comm.core`.  The registry holds the
-same four names; "proc" raises `NotImplementedError` when an engine asks
-for its backend, until its modules are ported.
+of the JAX package's `repro.core.engine.comm.core`.
 
 Two registries live here:
 
@@ -264,19 +262,18 @@ def _make_tree(*, workers=1, tree_fanout=4, tree_levels=1, shards=1,
                        tracer=tracer)
 
 
-# the JAX package's transports whose machinery the port does not have yet:
-# asking for one raises instead of quietly running in-process
-UNPORTED = {
-    "proc": "transport='proc' needs worker processes (comm/proc.py, "
-            "comm/worker.py), which the port has not taken over yet: "
-            "ROADMAP.md Queue 1 item 4g",
-}
+def _make_proc(*, shards=1, lease_timeout=None, clock=None, tracer=None,
+               steal_n=1, resident=False, proc_host="127.0.0.1",
+               proc_port=0, heartbeat_s=0.5, inline_bytes=65536,
+               spill_bytes=64 * 1024 * 1024, **_):
+    from repro_torch.core.engine.comm.proc import ProcBackend
 
-
-def _unported(name: str) -> Callable:
-    def make_backend(**_):
-        raise NotImplementedError(UNPORTED[name])
-    return make_backend
+    inner = _make_local(shards=shards, lease_timeout=lease_timeout,
+                        clock=clock, tracer=tracer)
+    return ProcBackend(inner, host=proc_host, port=proc_port,
+                       steal_n=steal_n, resident=resident,
+                       heartbeat_s=heartbeat_s, inline_bytes=inline_bytes,
+                       spill_bytes=spill_bytes)
 
 
 register_transport(TransportFamily(
@@ -294,4 +291,4 @@ register_transport(TransportFamily(
 register_transport(TransportFamily(
     "proc", "processes",
     "spawned worker processes over TCP frames (GIL-escaping parallelism)",
-    _unported("proc")))
+    _make_proc))

@@ -1,7 +1,5 @@
 """Serialization at the process boundary (`transport="proc"`), the port's
-copy of the JAX package's `repro.core.engine.comm.serialize`.  The port
-has no proc transport yet (ROADMAP.md Queue 1 item 4g); the client and the
-futures use `Ref`, `RemoteValue` and `dumps_call` from here.
+copy of the JAX package's `repro.core.engine.comm.serialize`.
 
 The in-process transports pass callables and values by reference; a
 worker process needs them by value.  cloudpickle (pickle fallback)

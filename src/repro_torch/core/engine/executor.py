@@ -1,8 +1,5 @@
 """The unified worker pool: one execution substrate for all three schedulers,
-the port's copy of the JAX package's `repro.core.engine.executor`.  The
-"proc" transport raises `NotImplementedError` until the worker processes
-are ported (ROADMAP.md Queue 1 item 4g); everything else is the
-reference's.
+the port's copy of the JAX package's `repro.core.engine.executor`.
 
 A single dispatch loop drives virtual workers against a scheduler backend
 (`ServerBackend` / `ShardedBackend` / `TreeBackend`), generalizing the
@@ -26,7 +23,6 @@ Transports:
     message-forwarding tree (paper §4): `tree_fanout` workers per leaf
     `Forwarder`, `tree_levels` relay layers, pipelined shared upstream
     links, per-hop `rpc` trace events.
-  * "proc"   — not ported yet (raises).
 
 Modes:
   * batch (default) — `run()` drains a pre-submitted task universe and
@@ -65,15 +61,19 @@ from heapq import heapify, heappop, heappush
 from pathlib import Path
 from typing import Callable, Optional
 
+from repro_torch.core.dwork.api import Fetch, ValueMsg
 from repro_torch.core.engine.backends import DONE, EMPTY
 from repro_torch.core.engine.comm import core as comm_core
+from repro_torch.core.engine.comm.serialize import (RemoteValue, dumps_call,
+                                                    loads)
 from repro_torch.core.engine.faults import FaultPlan
 from repro_torch.core.engine.journal import Journal
 from repro_torch.core.engine.model import (CANCELLED, COMPLETED, CREATED,
-                                           FAILED, READY, RETRIED, RUN_END,
-                                           RUN_START, STOLEN, WORKER_DEAD,
-                                           EngineTask, RetryPolicy,
-                                           TaskResult, WorkerCrash)
+                                           FAILED, READY, REQUEUED, RETRIED,
+                                           RUN_END, RUN_START, STOLEN,
+                                           WORKER_DEAD, XFER, EngineTask,
+                                           RetryPolicy, TaskResult,
+                                           WorkerCrash)
 from repro_torch.core.engine.tracing import OverheadReport, TraceRecorder
 
 # transport families live in the comm registry (repro_torch.core.engine.comm);
@@ -116,12 +116,11 @@ class Engine:
                  keep_results: bool = True,
                  on_result: Optional[Callable] = None,
                  retry: Optional[RetryPolicy] = None,
-                 journal=None):
+                 journal=None, proc_host: str = "127.0.0.1",
+                 proc_port: int = 0, heartbeat_s: float = 0.5,
+                 inline_bytes: int = 65536,
+                 spill_bytes: int = 64 * 1024 * 1024):
         fam = comm_core.family(transport)   # raises on an unknown name
-        if transport in comm_core.UNPORTED:
-            # never run a caller-supplied backend under a transport whose
-            # machinery is missing: that would silently be "inproc"
-            raise NotImplementedError(comm_core.UNPORTED[transport])
         self.workers = max(int(workers), 0)
         self.capacity = capacity if capacity is not None else max(workers, 1)
         self.transport = transport
@@ -138,6 +137,13 @@ class Engine:
         self.journal = Journal(journal) if self._owns_journal else journal
         self.poll = poll
         self.lease_timeout = lease_timeout
+        self.heartbeat_s = max(float(heartbeat_s), 0.05)
+        # peer-to-peer data plane knobs (transport="proc"): results above
+        # `inline_bytes` serialized payload stay in the producing worker's
+        # local store (the hub tracks the LOCATION); `spill_bytes` is each
+        # worker's LRU byte budget before owned values spill to the hub
+        self.inline_bytes = max(int(inline_bytes), 0)
+        self.spill_bytes = max(int(spill_bytes), 0)
         self.resident = bool(resident)
         # result plumbing for the futures client: `on_result(name, ok,
         # res, error)` fires exactly once per task name, at its FIRST
@@ -160,16 +166,35 @@ class Engine:
         self._owns_backend = backend is None
         if backend is None:
             # the comm registry owns the backend recipe per transport
-            # family (shards > 1 composes inside each family's recipe: a
-            # ShardedHub behind the tree)
+            # family (shards > 1 composes inside each builder: a
+            # ShardedHub behind the tree, or sharded under proc)
             backend = fam.make_backend(
                 workers=self.workers, shards=shards,
                 lease_timeout=lease_timeout, clock=clock,
                 tracer=self.tracer, tree_fanout=tree_fanout,
                 tree_levels=tree_levels, steal_n=self.steal_n,
-                resident=self.resident)
-        elif getattr(backend, "tracer", None) is None:
-            backend.tracer = self.tracer
+                resident=self.resident, proc_host=proc_host,
+                proc_port=proc_port, heartbeat_s=self.heartbeat_s,
+                inline_bytes=self.inline_bytes,
+                spill_bytes=self.spill_bytes)
+        else:
+            if getattr(backend, "tracer", None) is None:
+                backend.tracer = self.tracer
+            if transport == "proc":
+                from repro_torch.core.engine.comm.proc import ProcBackend
+
+                if not isinstance(backend, ProcBackend):
+                    # a caller-supplied TaskServer/hub adaptation (the
+                    # run_pool shim): front it with the process door.
+                    # The wrapper's listener/processes are ours to close
+                    # even though the inner backend is not.
+                    backend = ProcBackend(
+                        backend, host=proc_host, port=proc_port,
+                        steal_n=self.steal_n, resident=self.resident,
+                        heartbeat_s=self.heartbeat_s, owns_inner=False,
+                        inline_bytes=self.inline_bytes,
+                        spill_bytes=self.spill_bytes)
+                    self._owns_backend = True
         self.backend = backend
         if self.journal is not None:
             # backends journal the requeue records their verbs observe
@@ -220,8 +245,8 @@ class Engine:
         self._loop_error: Optional[BaseException] = None
         # -------------------------------------------------- observability
         # plain tables the dispatch loop maintains unconditionally (one
-        # list-slot hit per completion); `repro_torch.core.obs` reads them
-        # via zero-cost callback instruments, and worker_stats()/
+        # list-slot hit per completion); `repro_torch.core.obs` reads them via
+        # zero-cost callback instruments, and worker_stats()/
         # tasks_done_total() are the monitoring probes over them
         self.worker_deaths = 0
         self.exec_failed = 0                  # executions raised / not-ok
@@ -229,13 +254,23 @@ class Engine:
         self._attempts: dict[str, int] = {}   # failed executions per task
         self._wstats: dict[str, list] = {}    # worker -> [done_n, busy_s]
         self._dead_workers: set = set()
-        # data-plane transfer totals and their obs sink (XferMetrics), as
-        # the JAX package's engine has them outside transport="proc":
-        # nothing here moves dependency values, so they stay at zero
+        # ---------------------------------------------- data plane (proc)
+        # transfer attribution: per-path [count, bytes, seconds] totals
+        # (every fetch is counted — xfer events are not sampled), plus an
+        # optional obs sink (repro_torch.core.obs wires XferMetrics here)
         self.xfer_totals = {"peer": [0, 0, 0.0], "hub": [0, 0, 0.0]}
         self.xfer_metrics = None
-        self.xfer_lost_total = 0
-        self._xfer_lock = threading.Lock()
+        self.xfer_lost_total = 0              # lost-value recomputes issued
+        self._xfer_lock = threading.Lock()    # totals vs. Future.result()
+        self._xfer_conns: dict = {}           # data_addr -> Comm (engine)
+        self._xfer_attempts: dict = {}        # lost name -> recompute count
+        self._xfer_pending: dict = {}         # lost name -> recompute alias
+        self._xfer_wanted: set = set()        # reader-requested recomputes
+        self._loop_live = False               # dispatch loop can recompute
+        # names whose payloads must survive prune_terminal: a done future
+        # holding a RemoteValue that was lifted into a later submit's
+        # arguments (the dependent has no dep edge the keep-set would see)
+        self._pinned: set = set()
 
     # ------------------------------------------------------------- submit
     def submit(self, name: str, fn: Optional[Callable] = None, *,
@@ -249,6 +284,13 @@ class Engine:
         In resident mode this is thread-safe and may be called while the
         dispatch loop is running.  `retry` overrides the engine-wide
         `RetryPolicy` for this task."""
+        if self.transport == "proc" and fn is not None:
+            meta = dict(meta or {})
+            if "__call__" not in meta:
+                # pack the callable for the worker process NOW: an
+                # unpicklable fn raises SerializationError at submit
+                # time, naming the task — never opaquely in a worker
+                meta["__call__"] = dumps_call(fn, task=name)
         task = EngineTask(name=name, fn=fn, deps=tuple(deps),
                           meta=dict(meta or {}), slots=max(int(slots), 1),
                           priority=priority, retry=retry)
@@ -573,9 +615,8 @@ class Engine:
         tuple of dependency names, for every registered task that has
         dependencies.  Read under the GIL (approximate while the loop
         runs, like `worker_stats`); the critical-path analyzer
-        (`repro_torch.core.obs.critical_path`) joins it against the
-        trace — exported traces carry the same edges on
-        their CREATED events."""
+        (`repro_torch.core.obs.critical_path`) joins it against the trace —
+        exported traces carry the same edges on their CREATED events."""
         return {n: t.deps for n, t in list(self.tasks.items()) if t.deps}
 
     def worker_stats(self) -> dict:
@@ -668,9 +709,15 @@ class Engine:
         futures client and serving frontend satisfy this).  Returns the
         number of entries dropped across both layers."""
         with self._cond:
-            keep: set = set()
+            keep: set = set(self._pinned)
             for task in self._mailbox:
                 keep.update(task.deps)
+            if self.transport == "proc":
+                # a worker may still Fetch a dependency VALUE for any
+                # in-flight dependent — keep those payloads fetchable
+                for n, t in self.tasks.items():
+                    if t.deps and n not in self._terminal:
+                        keep.update(t.deps)
             prunable = [n for n in self._terminal
                         if n not in self._succs and n not in keep]
             for n in prunable:
@@ -685,6 +732,15 @@ class Engine:
             n_backend = (self.backend.prune_terminal(keep=keep)
                          if backend else 0)
         return len(prunable) + n_backend
+
+    def pin(self, name: str):
+        """Exempt `name`'s payload from prune_terminal: a terminal task
+        whose (remote) value is lifted into a later submission's
+        arguments has no dependency edge the prune keep-set would see —
+        the worker resolving the new task must still be able to Fetch
+        it (the futures client pins lifted RemoteValue results)."""
+        with self._cond:
+            self._pinned.add(name)
 
     # ----------------------------------------------------------- recovery
     @classmethod
@@ -788,6 +844,8 @@ class Engine:
         die / the pool stalls).  `execute(name, meta)` may return bool,
         (ok, value), or None (success); default runs the submitted `fn`.
         In resident mode the loop instead runs until `shutdown()`."""
+        if self.transport == "proc":
+            return self._run_proc(execute, pass_worker)
         exec_fn = execute or self._execute_registered
         self._pass_worker = pass_worker and execute is not None
         resident = self.resident
@@ -1297,11 +1355,524 @@ class Engine:
             errors=self.backend.errors(), stalled=stalled,
             backend_stats=self.backend.stats())
 
+    # ------------------------------------------------------- proc transport
+    @property
+    def comm_address(self) -> Optional[str]:
+        """Where `python -m repro_torch.core.engine.comm.worker --connect`
+        dials (`tcp://host:port`) — None for in-process transports."""
+        return getattr(self.backend, "address", None)
+
     def worker_pids(self) -> dict:
-        """worker -> OS pid for every worker process; the in-process
-        transports have none, so this is empty for them."""
+        """worker -> OS pid for every handshaken worker process
+        (transport="proc"; empty for in-process transports)."""
         fn = getattr(self.backend, "worker_pids", None)
         return fn() if fn is not None else {}
+
+    def wait_workers(self, n: Optional[int] = None,
+                     timeout: float = 30.0) -> bool:
+        """Block until `n` workers (default: the configured pool size)
+        have completed their Hello handshake.  True once reached; in-
+        process transports return True immediately (workers are the
+        dispatch loop itself)."""
+        fn = getattr(self.backend, "connected", None)
+        if fn is None:
+            return True
+        want = self.workers if n is None else int(n)
+        deadline = time.monotonic() + timeout
+        while len(fn()) < want:
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.01)
+        return True
+
+    def _run_proc(self, execute, pass_worker: bool) -> EngineReport:
+        """Dispatch loop for `transport="proc"` — supervision, not
+        execution.  Tasks run inside worker processes that speak the
+        frame protocol straight to the backend's front door on its
+        handler threads; this loop ingests submissions, drains the
+        completion records the door queued, reconstructs their trace
+        spans, and supervises liveness (membership commands, remote
+        joins, crash/stale detection with zero-loss requeue)."""
+        backend = self.backend
+        resident = self.resident
+        tracer = self.tracer
+        emit = tracer.emit
+        t_wall0 = time.perf_counter()
+        # serialize the execute callback BEFORE spawning anything: an
+        # unpicklable callback must fail fast, not hang a handshake
+        backend.prepare(execute=execute, pass_worker=pass_worker,
+                        steal_n=self.steal_n, resident=resident)
+        alive = [f"w{i}" for i in range(self.workers)]
+        dead: set[str] = set()
+        self._dead_workers = dead
+        wstats = self._wstats
+        for w in alive:
+            wstats.setdefault(w, [0, 0.0])
+        self._live = len(alive)
+        peak_workers = max(len(alive), 1)
+        backend.start_pool(alive)
+        results: dict[str, TaskResult] = {}
+        record_results = self.keep_results or not resident
+        note_terminal = (self._note_terminal
+                         if resident or self.on_result is not None
+                         or self.journal is not None else None)
+        note_many = self._note_terminal_many
+        terminal_seen = self._terminal if note_terminal else ()
+        # liveness grace: a worker busy on a long task still heartbeats
+        # (daemon thread), so staleness only means the PROCESS is gone or
+        # wedged; locally-spawned processes are additionally poll()ed
+        # and surface within one round of dying
+        grace = max(3.0 * self.heartbeat_s, 1.0)
+        stolen_at = backend.door.stolen_at
+        stalled = False
+        idle_rounds = 0
+        # retry plumbing, proc flavor: the front door WITHHOLDS failures
+        # this predicate approves (the task stays leased), queueing them
+        # for drain_failed below — the policy decision runs here but the
+        # completion-suppression must happen at the wire, before the
+        # scheduler learns of the failure and poisons dependents
+        retry_default = self.retry
+        attempts = self._attempts
+        retry_pending: list = []        # (t_ready, worker, task)
+
+        def retry_policy_of(name: str):
+            task = self.tasks.get(name)
+            return (task.retry if task is not None
+                    and task.retry is not None else retry_default)
+
+        def retry_check(name: str, err) -> bool:
+            # runs on door handler threads: GIL-grade dict reads only
+            pol = retry_policy_of(name)
+            return (pol is not None
+                    and pol.should_retry(attempts.get(name, 0) + 1, err))
+
+        backend.retry_check = retry_check
+
+        def spawn_recompute(missing: str):
+            """Ensure a recompute of a lost value is in flight: reuse the
+            pending store-as alias when it has not itself terminated, else
+            create a fresh one from the task's packed call.  -> the alias
+            name, or None when recompute is impossible (no packed call) or
+            the attempt budget is spent — callers fail/raise then."""
+            with self._xfer_lock:
+                alias = self._xfer_pending.get(missing)
+                if alias is not None and alias not in terminal_seen \
+                        and alias not in results:
+                    return alias
+                k = self._xfer_attempts.get(missing, 0) + 1
+                task_m = self.tasks.get(missing)
+                call = (task_m.meta.get("__call__")
+                        if task_m is not None else None)
+                if call is None or k > 3:
+                    self._xfer_attempts[missing] = k   # mark exhausted:
+                    return None                        # waiters stop too
+                self._xfer_attempts[missing] = k
+                alias = f"{missing}~r{k}"
+                self._xfer_pending[missing] = alias
+            backend.create(alias, deps=(), meta={
+                "__call__": call, "__store_as__": missing})
+            self.xfer_lost_total += 1
+            return alias
+
+        self._loop_live = True
+        try:
+            while True:
+                progress = False
+                stopping = not resident or self._stop
+                if resident:
+                    if self._abort:
+                        break
+                    if self._mailbox:
+                        self._ingest_mailbox()
+                        progress = True
+                    if self._commands:
+                        with self._cond:
+                            cmds = list(self._commands)
+                            self._commands.clear()
+                        for cmd, w in cmds:
+                            if cmd == "add":
+                                if w in wstats and w not in dead:
+                                    continue          # already live
+                                dead.discard(w)
+                                backend.door.exited.discard(w)
+                                if w not in alive:
+                                    alive.append(w)
+                                wstats.setdefault(w, [0, 0.0])
+                                backend.spawn(w)
+                                self._live = len(alive) - len(dead)
+                                peak_workers = max(peak_workers,
+                                                   self._live)
+                            elif cmd == "lose" and w in wstats \
+                                    and w not in dead:
+                                dead.add(w)
+                                self.worker_deaths += 1
+                                emit(WORKER_DEAD, worker=w, reason="lose")
+                                backend.kill_worker(w)
+                                backend.exit_worker(w)
+                                self._live = len(alive) - len(dead)
+                                progress = True
+                                door = backend.door
+                                for missing, loc in \
+                                        list(door.locations.items()):
+                                    if loc[0] != w \
+                                            or missing in door.values:
+                                        continue
+                                    door.locations.pop(missing, None)
+                                    if missing not in self.tasks:
+                                        continue
+                                    if spawn_recompute(missing) is not None:
+                                        emit(REQUEUED, task=missing, n=1,
+                                             via="xfer_lost")
+                # remote joins: a CLI worker's Hello is add_worker-on-
+                # connect (multi-host launch), and locally-spawned
+                # workers land here too (their handshake confirms them)
+                for w in backend.drain_joined():
+                    if w in wstats and w not in dead:
+                        continue
+                    if w in dead:
+                        dead.discard(w)
+                    if w not in alive:
+                        alive.append(w)
+                    wstats.setdefault(w, [0, 0.0])
+                    self._live = len(alive) - len(dead)
+                    peak_workers = max(peak_workers, self._live)
+                    progress = True
+                # completion records queued by the front door
+                recs = backend.drain_records()
+                if recs:
+                    progress = True
+                    notes = [] if note_terminal is not None else None
+                    for w, name, ok, err, dur, payload, nbytes, xfers \
+                            in recs:
+                        if xfers:
+                            # dependency-value transfers this execution
+                            # performed (peer fetches and hub fallbacks):
+                            # every one is attributed, no sampling
+                            for path, n, dt in xfers:
+                                self._record_xfer(name, w, path, n, dt)
+                        if name in terminal_seen or name in results:
+                            # duplicate after a requeue: first one won
+                            stolen_at.pop(name, None)
+                            continue
+                        value = None
+                        if ok and payload is not None:
+                            try:
+                                value = loads(payload)
+                            except Exception as e:  # noqa: BLE001
+                                ok = False
+                                err = ("result deserialization failed: "
+                                       f"{e!r}")
+                        elif ok and nbytes:
+                            # the payload stayed in the producing worker's
+                            # store: hand out a lazy handle — materialized
+                            # hub-first/peer-second only when read
+                            value = RemoteValue(name, nbytes,
+                                                self._proc_fetch_value)
+                        # reconstruct the run span from the worker's
+                        # reported duration, clamped to the STOLEN stamp
+                        # so report pairing never sees negative dispatch
+                        t1 = tracer.clock()
+                        t0 = t1 - dur
+                        t_stolen = stolen_at.pop(name, None)
+                        if t_stolen is not None and t0 < t_stolen:
+                            t0 = t_stolen
+                        tracer.emit_at(t0, RUN_START, task=name, worker=w)
+                        tracer.emit_at(t1, RUN_END, task=name, worker=w)
+                        st = wstats.setdefault(w, [0, 0.0])
+                        st[0] += 1
+                        st[1] += dur
+                        if not ok:
+                            self.exec_failed += 1
+                        res = TaskResult(task=name, ok=ok, worker=w,
+                                         t_start=t0, t_end=t1, value=value,
+                                         error=err)
+                        if record_results:
+                            results[name] = res
+                        emit(COMPLETED if ok else FAILED, task=name,
+                             worker=w, error=err)
+                        if notes is not None:
+                            notes.append((name, ok, res))
+                        elif ok:
+                            self._on_terminal(name)
+                    if notes:
+                        note_many(notes)
+                # lease requeues observed at the wire (an expired lease
+                # reaped by another worker's steal)
+                n_rq = backend.drain_requeued()
+                if n_rq:
+                    emit(REQUEUED, n=n_rq, via="lease")
+                    if self.journal is not None:
+                        self.journal.append_requeue(n_rq, "lease")
+                    progress = True
+                # completions the door WITHHELD because a dependency value
+                # is unrecoverable (its producer was killed before the
+                # value replicated): recompute the missing value under a
+                # store-as alias, then Transfer-requeue the dependent —
+                # the zero-loss contract for the peer-to-peer data plane
+                for w, name, missing in backend.drain_lost():
+                    progress = True
+                    if name in terminal_seen or name in results:
+                        # the dependent already completed elsewhere (a
+                        # requeue duplicate): just clear the stale lease
+                        backend.complete(w, name,
+                                         ok=name not in self._failed)
+                        continue
+                    if missing in backend.door.values:
+                        # the value resurfaced (a spill/exit-flush landed
+                        # after the worker's fetch failed): plain requeue
+                        backend.transfer(w, name, [])
+                        continue
+                    alias = spawn_recompute(missing)
+                    if alias is None:
+                        why = (f"dependency value {missing!r} lost "
+                               "(producer died before replication); "
+                               "recompute exhausted or no packed call")
+                        backend.complete(w, name, ok=False)
+                        self.exec_failed += 1
+                        stolen_at.pop(name, None)
+                        emit(FAILED, task=name, worker=w, error=why)
+                        res = TaskResult(task=name, ok=False, worker=w,
+                                         error=why)
+                        if record_results:
+                            results[name] = res
+                        if note_terminal is not None:
+                            note_terminal(name, False, res, why)
+                        continue
+                    emit(REQUEUED, task=name, n=1, via="xfer_lost")
+                    backend.transfer(w, name, [alias])
+                # transiently-failed completions the door withheld on
+                # retry_check's word: charge the attempt and queue the
+                # Transfer-requeue behind the policy's backoff
+                for w, name, err in backend.drain_failed():
+                    progress = True
+                    if name in terminal_seen or name in results:
+                        backend.complete(w, name,
+                                         ok=name not in self._failed)
+                        continue
+                    pol = retry_policy_of(name)
+                    attempt = attempts.get(name, 0) + 1
+                    if pol is None or not pol.should_retry(attempt, err):
+                        # the budget ran out between the wire check and
+                        # this drain: fail for real
+                        backend.complete(w, name, ok=False)
+                        self.exec_failed += 1
+                        stolen_at.pop(name, None)
+                        emit(FAILED, task=name, worker=w, error=err)
+                        res = TaskResult(task=name, ok=False, worker=w,
+                                         error=err)
+                        if record_results:
+                            results[name] = res
+                        if note_terminal is not None:
+                            note_terminal(name, False, res, err)
+                        continue
+                    attempts[name] = attempt
+                    delay = pol.delay_s(name, attempt)
+                    self.retries_total += 1
+                    emit(RETRIED, task=name, worker=w, attempt=attempt,
+                         delay_s=delay)
+                    retry_pending.append(
+                        (time.perf_counter() + delay, w, name))
+                if retry_pending:
+                    now_r = time.perf_counter()
+                    due = [e for e in retry_pending if e[0] <= now_r]
+                    if due:
+                        retry_pending = [e for e in retry_pending
+                                         if e[0] > now_r]
+                        for _t, w, name in due:
+                            if w in dead:
+                                # exit_worker already requeued the lease
+                                continue
+                            backend.transfer(w, name, [])
+                        progress = True
+                # engine-side readers (RemoteValue.get in a client
+                # thread) asking for a lost value to be recomputed: all
+                # backend.create calls stay on this thread
+                if self._xfer_wanted:
+                    with self._xfer_lock:
+                        wanted = list(self._xfer_wanted)
+                        self._xfer_wanted.clear()
+                    door = backend.door
+                    for missing in wanted:
+                        if missing not in door.values \
+                                and spawn_recompute(missing) is not None:
+                            emit(REQUEUED, task=missing, n=1,
+                                 via="xfer_lost")
+                    progress = True
+                # liveness: a SIGKILLed process surfaces as a crash
+                # (WORKER_DEAD) and its in-flight work requeues via Exit
+                for w, reason in backend.check_dead(grace):
+                    if w in dead or w not in wstats:
+                        continue
+                    dead.add(w)
+                    self.worker_deaths += 1
+                    emit(WORKER_DEAD, worker=w, crash=True, reason=reason)
+                    backend.exit_worker(w)
+                    self._live = len(alive) - len(dead)
+                    progress = True
+                    # eager zero-loss: values whose ONLY copy lived in
+                    # the dead worker's store are recomputed NOW, not
+                    # when (if ever) a dependent trips over the hole —
+                    # client-facing RemoteValues have no dependent task
+                    door = backend.door
+                    for missing, loc in list(door.locations.items()):
+                        if loc[0] != w or missing in door.values \
+                                or missing not in self.tasks:
+                            continue   # alive elsewhere, replicated, or
+                        if spawn_recompute(missing) is not None:  # alias
+                            emit(REQUEUED, task=missing, n=1,
+                                 via="xfer_lost")
+                # termination
+                if stopping and not backend.has_records():
+                    if resident:
+                        with self._cond:
+                            if self._inflight <= 0 and not self._mailbox:
+                                break
+                    elif backend.all_done():
+                        break
+                    elif len(dead) >= len(alive):
+                        stalled = True     # every worker died mid-batch
+                        break
+                if progress:
+                    idle_rounds = 0
+                else:
+                    idle_rounds += 1
+                    if idle_rounds >= self.max_idle_rounds and stopping \
+                            and not resident:
+                        # workers alive but nothing moving: only a true
+                        # deadlock (nothing ready, nothing leased) is a
+                        # stall — long-running tasks are just busy.  A
+                        # sharded hub reports ready and assigned per shard
+                        # only: read them there, or a pool still starting
+                        # up (nothing moving for max_idle_rounds polls)
+                        # would pass for a deadlock
+                        st = backend.stats()
+                        busy = any(s.get("ready", 0) or s.get("assigned", 0)
+                                   for s in st.get("shards", [st]))
+                        if not busy and not backend.all_done():
+                            stalled = True
+                            break
+                        idle_rounds = 0
+                    time.sleep(self.poll)
+        finally:
+            self._loop_live = False
+            backend.stop_pool()
+            # the workers' exit flush has replicated every owned value to
+            # the hub by now: materialize outstanding RemoteValue handles
+            # while the door still exists (the handles are shared with
+            # client futures, so get() caches for them too)
+            for res in results.values():
+                v = res.value
+                if isinstance(v, RemoteValue):
+                    try:
+                        res.value = v.get()
+                    except Exception:  # noqa: BLE001 — unrecoverable value
+                        pass           # keep the handle; reads raise
+            self._close_xfer_conns()
+            journal = self.journal
+            if journal is not None:
+                journal.sync()
+                if self._owns_journal:
+                    journal.close()
+            if self._owns_backend:
+                self.backend.close()
+        live_peak = max(peak_workers, 1)
+        return EngineReport(
+            results=results, trace=self.tracer, workers=live_peak,
+            pool_workers=live_peak,
+            wall_s=time.perf_counter() - t_wall0,
+            errors=self.backend.errors(), stalled=stalled,
+            backend_stats=self.backend.stats())
+
+    # ----------------------------------------------- data plane (helpers)
+    def _record_xfer(self, task: str, worker: Optional[str], path: str,
+                     nbytes: int, dt: float):
+        """Attribute one dependency-value transfer: an `xfer` trace event
+        (never sampled — fetches are rare next to rpcs), the per-path
+        running totals, and the obs metrics sink when wired."""
+        self.tracer.emit(XFER, task=task, worker=worker, path=path,
+                         n=int(nbytes), dt=float(dt))
+        with self._xfer_lock:
+            tot = self.xfer_totals.setdefault(path, [0, 0, 0.0])
+            tot[0] += 1
+            tot[1] += int(nbytes)
+            tot[2] += float(dt)
+        m = self.xfer_metrics
+        if m is not None:
+            m.observe(path, int(nbytes), float(dt))
+
+    def _fetch_value_once(self, name: str):
+        """One fetch attempt: the hub's value store first (a spill or
+        exit-flush may have landed), then a direct dial of the producing
+        worker's data listener.  -> (payload, path) or (None, None)."""
+        door = self.backend.door
+        payload = door.values.get(name)
+        path = "hub"
+        if payload is None:
+            loc = door.locations.get(name)
+            if loc is not None and loc[1]:
+                addr = loc[1]
+                resp = None
+                try:
+                    comm = self._xfer_conns.get(addr)
+                    if comm is None:
+                        comm = comm_core.connect(addr)
+                        self._xfer_conns[addr] = comm
+                    resp = comm.request(Fetch(task=name))
+                except Exception:  # noqa: BLE001 — producer gone mid-dial
+                    stale = self._xfer_conns.pop(addr, None)
+                    if stale is not None:
+                        try:
+                            stale.close()
+                        except Exception:  # noqa: BLE001
+                            pass
+                if isinstance(resp, ValueMsg):
+                    payload = resp.payload
+                    path = "peer"
+            if payload is None:
+                payload = door.values.get(name)  # a spill raced us in
+        return (payload, path) if payload is not None else (None, None)
+
+    def _proc_fetch_value(self, name: str):
+        """Engine-side RemoteValue materializer, called from client
+        threads (`Future.result()`, `gather`).  Cache-miss recovery: when
+        the value is gone AND the dispatch loop is live AND the task has a
+        packed call with attempt budget left, ask the loop to recompute it
+        (`_xfer_wanted` — all backend.create calls stay on the dispatch
+        thread) and poll until the store-as lands the value back on the
+        hub.  Raises KeyError only when genuinely unrecoverable."""
+        t0 = time.perf_counter()
+        deadline = t0 + 30.0
+        next_ask = t0
+        while True:
+            payload, path = self._fetch_value_once(name)
+            if payload is not None:
+                self._record_xfer(name, None, path, len(payload),
+                                  time.perf_counter() - t0)
+                return loads(payload)
+            now = time.perf_counter()
+            task = self.tasks.get(name)
+            recomputable = (
+                self._loop_live and now < deadline
+                and task is not None
+                and task.meta.get("__call__") is not None
+                and self._xfer_attempts.get(name, 0) <= 3)
+            if not recomputable:
+                raise KeyError(
+                    f"value for {name!r} is unrecoverable: not on the hub "
+                    "and its producing worker cannot serve it")
+            if now >= next_ask:   # re-ask ~1/s: idempotent while an alias
+                with self._xfer_lock:          # is live, rolls to the next
+                    self._xfer_wanted.add(name)  # attempt once one fails
+                next_ask = now + 1.0
+            time.sleep(0.02)
+
+    def _close_xfer_conns(self):
+        for comm in self._xfer_conns.values():
+            try:
+                comm.close()
+            except Exception:  # noqa: BLE001
+                pass
+        self._xfer_conns.clear()
 
     # ------------------------------------------------------------ helpers
     def _priority_of(self, name: str, meta: dict) -> float:

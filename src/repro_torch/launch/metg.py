@@ -53,6 +53,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import subprocess
 import time
 
@@ -279,6 +280,68 @@ class MatmulTasks:
         except Exception as e:
             self.failures.append(f"{name}: {e!r}")
             raise
+
+
+# A^T B tasks for worker PROCESSES (`Client(transport="proc")`): functions
+# named at module level, so plain pickle ships them as cloudpickle does.  No
+# CUDA tensor crosses the process boundary: each process makes a size's
+# operands from (n, seed) on its own device, once, and so holds the same A_i
+# and B_i as a parent that made them from the same seed.
+_SEEDED: dict = {}
+
+
+def seeded_operands(n: int, seed: int, device="cuda") -> MatmulTasks:
+    """The PAIRS operand pairs of size n made from `seed` on `device`, with
+    their plain results."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return MatmulTasks([tuple(
+        torch.randn((n, n), generator=gen, device=device) for _ in "ab")
+        for _ in range(PAIRS)])
+
+
+def seeded_tasks(n: int, seed: int, device="cuda") -> MatmulTasks:
+    """`seeded_operands`, made once a process."""
+    key = (n, seed, str(device))
+    if key not in _SEEDED:
+        _SEEDED[key] = seeded_operands(n, seed, device)
+    return _SEEDED[key]
+
+
+def proc_matmul(n: int, pair: int, seed: int, *, check: bool = False,
+                hold_s: float = 0.0, device="cuda") -> tuple:
+    """One task: C_pair = A^T B through the kernel, synchronised; with
+    `check`, C held against the plain version within `tolerance` (raises
+    past it); then `hold_s` seconds of sleep.  -> (the sum of C in float64,
+    this process's pid, its tiled_matmul launches so far, max |C - plain|
+    over the tolerance or None)."""
+    tasks = seeded_tasks(n, seed, device)
+    tasks.launch(pair)
+    tasks.sync()
+    c = tasks.c[pair]
+    ratio = None
+    if check:
+        err = float((c - tasks.plain[pair]).abs().max())
+        ratio = err / tasks.limit[pair]
+        if not (ratio <= 1.0 and bool(torch.isfinite(c).all())):
+            raise ValueError(f"A^T B n={n} pair {pair}: max|C - plain| "
+                             f"{err:.3e} > {tasks.limit[pair]:.3e}")
+    if hold_s:
+        time.sleep(hold_s)
+    return (float(c.double().sum()), os.getpid(), tiled_matmul.launches,
+            ratio)
+
+
+def proc_matmul_c(n: int, pair: int, seed: int, device="cuda"):
+    """A producer: C_pair through the kernel, copied to the host (n = 1024:
+    4 MiB, a value that stays in the producing worker's store)."""
+    tasks = seeded_tasks(n, seed, device)
+    tasks.launch(pair)
+    return tasks.c[pair].cpu()
+
+
+def checksum_of_sum(x, y) -> float:
+    """A consumer: the sum of two producers' C, in float64."""
+    return float((x + y).double().sum())
 
 
 def device_seconds(launch, reps: int, device) -> tuple[float, float]:

@@ -444,29 +444,15 @@ def test_the_registries_agree():
     assert sorted(port_engine.__all__) == sorted(jax_engine.__all__)
 
 
-@pytest.mark.parametrize("transport", ["proc"])
-def test_unported_transports_raise(transport):
-    """The worker processes are not ported: asking for them raises, naming
-    their ROADMAP item, and never runs the tasks in-process instead."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_client.Client(workers=2, transport=transport)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_engine.Engine(workers=2, transport=transport)
-    srv = port_dwork.TaskServer()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_client.Client(workers=2, transport=transport, server=srv)
-    from repro_torch.core.engine.backends import ServerBackend
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_engine.Engine(workers=2, transport=transport,
-                           backend=ServerBackend(server=srv))
-    with pytest.raises(NotImplementedError, match="4g"):
-        port_engine.Engine(workers=2, transport=transport)
-
-
 def tree_program(ns, shards):
     """README's composed example at a small size: futures over the
     forwarding tree, sharded or not; the client's own sockets are released
-    at close."""
+    at close.  -> what is deterministic: the values, the tree's shape, the
+    stats' keys and the released links.  The frames the forwarders relayed
+    depend on how many steals come back empty while the resident loop
+    waits for submissions, so they are held to what the tasks need at
+    least instead: one steal frame per steal_n tasks."""
+    n_tasks = 64 + 5
     with ns.Client(scheduler="dwork", workers=8, transport="tree",
                    shards=shards, tree_fanout=4) as c:
         backend = c.engine.backend
@@ -476,10 +462,16 @@ def tree_program(ns, shards):
         for _ in range(4):
             chain = c.submit(lambda v: v + 1, chain)
         last = chain.result(T)
+        steal_n = c.engine.steal_n
     st = c._report.backend_stats
     for s in st.get("shards", [st]):
         assert s["completed"] == s["created"] and s["errors"] == 0
-    return (xs, last, st["tree"], sorted(st),
+    tree = dict(st["tree"])
+    relayed = tree.pop("relayed")
+    assert len(relayed) == tree["levels"]
+    assert all(r >= -(-n_tasks // steal_n) for r in relayed), (relayed,
+                                                               steal_n)
+    return (xs, last, tree, sorted(st),
             [t.sock.fileno() for t in backend._conn.values()],
             backend._boss is None)
 
@@ -492,6 +484,8 @@ def test_tree_transport_runs_the_same(shards):
     port = tree_program(SIDES["port"], shards)
     assert port == tree_program(SIDES["jax"], shards)
     assert port[1] == 5 and port[2]["forwarders"] == [2]
+    assert port[2] == {"levels": 1, "fanout": 4, "shards": shards,
+                       "forwarders": [2]}
     assert port[4] == [] and port[5] is True
 
 

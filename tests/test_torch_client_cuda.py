@@ -97,3 +97,29 @@ def test_a_failing_task_on_the_card_raises_its_error():
         down = c.submit(lambda x: x, bad)
         with pytest.raises(Exception, match="failed"):
             down.result(timeout=60)
+
+
+@pytest.mark.cuda
+def test_proc_workers_launch_the_kernel_in_their_own_processes():
+    """`transport="proc"`: each worker process launches `tiled_matmul` on
+    its own CUDA context for the tasks it runs (`launch.metg.proc_matmul`,
+    operands made in the worker from a seed); the launches the tasks report
+    sum to the tasks, and each sum of C is the plain one's."""
+    import os
+    from repro_torch.launch import metg
+    _need_card()
+    seed, count = 5, 64
+    ref = metg.seeded_operands(N, seed, "cuda")
+    with Client(scheduler="dwork", transport="proc", workers=2) as c:
+        vals = c.gather([c.submit(metg.proc_matmul, N, i % metg.PAIRS, seed,
+                                  check=i % 8 == 0) for i in range(count)],
+                        timeout=300)
+        pids = set(c.engine.worker_pids().values())
+    last = {}
+    for i, (total, pid, launches, _ratio) in enumerate(vals):
+        p = i % metg.PAIRS
+        assert abs(total - float(ref.plain[p].double().sum())) \
+            <= N * N * ref.limit[p]
+        last[pid] = max(last.get(pid, 0), launches)
+    assert set(last) <= pids and os.getpid() not in pids
+    assert sum(last.values()) == count

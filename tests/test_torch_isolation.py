@@ -1,9 +1,14 @@
 """The port stands alone: no file of src/repro_torch/ nor chip_smoke.py
 imports jax or anything of the JAX package, nor yaml (the card's machine may
 not have it: pmake reads its files with its own reader), and its entry
-points default to the card."""
+points default to the card.  No string of the port names a module of the
+JAX package, and a worker process the port spawns loads neither it nor
+jax."""
 import ast
 import inspect
+import os
+import re
+import sys
 from pathlib import Path
 
 import pytest
@@ -56,7 +61,8 @@ def test_the_front_door_modules_are_covered():
         "core/engine/faults.py", "core/engine/journal.py",
         "core/engine/model.py", "core/engine/tracing.py",
         "core/engine/comm/__init__.py", "core/engine/comm/core.py",
-        "core/engine/comm/serialize.py", "core/serving/__init__.py",
+        "core/engine/comm/serialize.py", "core/engine/comm/proc.py",
+        "core/engine/comm/worker.py", "core/serving/__init__.py",
         "core/serving/frontend.py")} <= names
 
 
@@ -90,3 +96,65 @@ def test_entry_points_default_to_cuda():
                zamba.init_lm, zamba.init_cache, mamba2.init_mamba,
                mamba2.init_mamba_state, train_step.init_train_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+REPRO_MODULE = re.compile(r"(?<![\w.])repro(\.[A-Za-z_]\w*)+")
+
+
+def _code_strings(path):
+    """Every string literal of a file that is not a docstring, f-strings'
+    literal parts included: what the code may hand to `-m`, `import_module`
+    or a subprocess."""
+    tree = ast.parse(path.read_text(), str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) \
+                    and isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            yield node.lineno, node.value
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_string_names_a_repro_module(path):
+    """A module named in a string escapes the import scan above: the proc
+    transport runs `python -m <module>` in each worker, and a leftover
+    `"repro.core..."` there would run the JAX package's worker under the
+    port's engine."""
+    bad = [(line, s) for line, s in _code_strings(path)
+           if REPRO_MODULE.search(s) or s.strip() == "repro"]
+    assert not bad, f"{path} names the JAX package in {bad}"
+
+
+def test_the_string_scan_sees_a_worker_command(tmp_path):
+    planted = tmp_path / "planted.py"
+    planted.write_text('"""Docstring: repro.core is the reference."""\n'
+                       'CMD = ["-m", "repro.core.engine.comm.worker"]\n'
+                       'OK = "repro_torch.core.engine.comm.worker"\n')
+    assert [s for _, s in _code_strings(planted)
+            if REPRO_MODULE.search(s)] == ["repro.core.engine.comm.worker"]
+
+
+def test_a_spawned_port_worker_loads_neither_repro_nor_jax():
+    """The proc transport's worker process, spawned on the CPU, runs the
+    port's worker module and has loaded neither the JAX package nor jax
+    (nor torch: a task that needs it imports it)."""
+    from repro_torch.client import Client
+
+    with Client(workers=1, transport="proc", heartbeat_s=0.1) as c:
+        argv0, mods, pid = c.submit(lambda: (
+            sys.argv[0], sorted(m for m in ("repro", "jax", "jaxlib",
+                                            "torch", "repro_torch")
+                                if m in sys.modules), os.getpid())).result(
+            timeout=60)
+        pids = set(c.engine.worker_pids().values())
+    assert pid in pids and pid != os.getpid()
+    assert Path(argv0).resolve() == (ROOT / "src" / "repro_torch" / "core"
+                                     / "engine" / "comm" / "worker.py")
+    assert mods == ["repro_torch"]

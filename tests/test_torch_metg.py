@@ -15,6 +15,7 @@ tolerance 1e-5 * sqrt(K) * max(1, max|a| * max|b|) (only the order of the
 sums differs; `launch.metg.tolerance`).  Then `launch.metg.main` runs a small ladder on the CPU."""
 import importlib.util
 import math
+import os
 from pathlib import Path
 
 import pytest
@@ -331,3 +332,50 @@ def test_metg_main_prints_the_three_scheduler_table(capsys):
 def test_measure_pmake_launch_and_mpilist_sigma():
     assert launch_metg.measure_pmake_launch(2) > 0
     assert launch_metg.measure_mpilist_sigma(4, 64) >= 0
+
+
+def test_proc_tasks_run_in_the_port_workers():
+    """The A^T B tasks of `transport="proc"` on the CPU: `proc_matmul` in
+    two port worker processes, its checksums against the JAX kernel
+    (interpret mode) on the operands made from the same seed; then the
+    fan-in, producers' C fetched worker to worker (a small inline_bytes
+    keeps them in the producers' stores), and a producer's C materialized
+    in the parent."""
+    from repro_torch.client import Client
+
+    n, seed, count = 32, 5, 24
+    mine = launch_metg.seeded_tasks(n, seed, "cpu")
+    want, limit = [], []
+    for a, b, lim in zip(mine.a, mine.b, mine.limit):
+        c = np.asarray(jax_tiled_matmul(jnp.asarray(a.numpy()),
+                                        jnp.asarray(b.numpy()), bm=16, bn=16,
+                                        bk=16), np.float64)
+        want.append(c)
+        limit.append(lim)
+    with Client(scheduler="dwork", transport="proc", workers=2,
+                heartbeat_s=0.1, inline_bytes=1024) as c:
+        futs = [c.submit(launch_metg.proc_matmul, n, i % len(want), seed,
+                         check=i % 8 == 0, device="cpu")
+                for i in range(count)]
+        vals = c.gather(futs, timeout=60)
+        pids = set(c.engine.worker_pids().values())
+        prods = [c.submit(launch_metg.proc_matmul_c, n, i % len(want), seed,
+                          device="cpu") for i in range(4)]
+        cons = [c.submit(launch_metg.checksum_of_sum, prods[i],
+                         prods[(i + 1) % 4]) for i in range(4)]
+        sums = c.gather(cons, timeout=60)
+        c0 = prods[0].result(timeout=60)
+        peer = c.engine.xfer_totals["peer"][0]
+        lost = c.engine.xfer_lost_total
+    for i, (total, pid, launches, ratio) in enumerate(vals):
+        p = i % len(want)
+        assert abs(total - want[p].sum()) <= n * n * limit[p]
+        assert pid in pids and launches == 0      # the plain version here
+        assert (ratio is not None) == (i % 8 == 0) and (ratio or 0) <= 1.0
+    assert len(pids) == 2 and os.getpid() not in pids
+    for i, s in enumerate(sums):
+        p, q = i, (i + 1) % 4
+        assert abs(s - want[p].sum() - want[q].sum()) \
+            <= n * n * (limit[p] + limit[q])
+    assert float(np.abs(c0.numpy() - want[0]).max()) <= limit[0]
+    assert peer > 0 and lost == 0
