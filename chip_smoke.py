@@ -35,7 +35,11 @@ Phases; any failure exits non-zero:
       32, 80) in bf16, and the batch-1 shapes the served batches now run
       (flash (1, 4200, 16/4, 256) beside torch.compile(flex_attention),
       (1, 4200, 32, 80) beside SDPA and deepseek-7b's (1, 4200, 32/32,
-      128) beside SDPA, the WKV at (1, 4224, 32, 64), the SSD
+      128) beside SDPA; deepseek-v2-lite-16b's MLA prefill at q/k head dim
+      192 and v head dim 128, (1, 4200, 16/16, 192/128), and qwen2-vl-2b's
+      (1, 4200, 16/2, 128), each beside SDPA (torch.compile(flex_attention)
+      if SDPA refuses the shape), and the 192/128 pair at a ragged GQA case
+      (2, 203, 8/2) in bf16 and fp32; the WKV at (1, 4224, 32, 64), the SSD
       at (1, 4224, 80, 64) with its final state: "serve_b1" in the JSON
       rows); then the SSD backward kernels (three chunk-parallel
       stages and the sum over head groups, the products in 3xTF32 on the
@@ -137,7 +141,20 @@ Phases; any failure exits non-zero:
       launches a prefill batch, the first served batch's prefill kernel
       path against plain path (held in fp32, printed in bf16), the served
       first tokens the bf16 prefill's argmax; prefill ms, decode ms a
-      token, p50/p95/p99 and the peak memory printed.  Then zamba2-2.7b
+      token, p50/p95/p99 and the peak memory printed.  Then the same
+      traffic through full-width deepseek-v2-lite-16b (27 layers of MLA, the
+      first with a dense FFN, 26 of MoE: 64 experts top-6 and 2 shared;
+      15,706,484,224 parameters) and qwen2-vl-2b (28 layers, M-RoPE, the
+      text positions on all 3 streams; 1,587,965,440 parameters): the
+      front door's checks, one flash launch a layer and prefill batch, the
+      first served batch's prefill kernel path against plain path in fp32
+      and bf16 (deepseek-v2-lite: each MoE layer's expert choices recorded
+      on both paths, the last position's printed, the (layer, token) pairs
+      whose choices differ counted; the fp32 logits held within 1e-3 where
+      none differ), the served first tokens the bf16 prefill's argmax, the
+      MoE's dropped choices over the served prefills, prefill ms, decode
+      ms a token, p50/p95/p99, the peak memory (held under 80 GB).  Then
+      zamba2-2.7b
       training:
       one fp32 train step at full width and one group of depth, kernel path
       against plain path (loss, grad norm, every gradient; 6 SSD forward and
@@ -189,7 +206,10 @@ Phases; any failure exits non-zero:
       pmake campaigns, campaign, and its served run's observability,
       serve_obs; the flash row with the served figures and the two
       profiles, serve; the gemma2 flash row with deepseek-7b's serve,
-      deepseek, and its batch-1 prefill shape's figures, deepseek_b1; the
+      deepseek, and its batch-1 prefill shape's figures, deepseek_b1;
+      deepseek-v2-lite-16b's and qwen2-vl-2b's serves, deepseek_v2_lite
+      and qwen2_vl, and their prefill shapes' figures,
+      deepseek_v2_lite_b1 and qwen2_vl_b1; the
       gemma2 flash row with its training run's train_launches,
       train_launches_per_forward, remat_launches, train_shape,
       train_bwd_ms and train_step_profile; the WKV row with
@@ -243,6 +263,11 @@ SCALE, CAP = HD ** -0.5, 50.0              # 1/sqrt(query_pre_attn_scalar)
 # deepseek-7b prefill attention: one served prompt, 32 query heads on 32 K/V
 # heads of 128 (MHA), causal, no window, no softcap
 DSH, DSHD = 32, 128
+# deepseek-v2-lite-16b's MLA prefill attention: 16 heads, q/k head dim 192
+# (128 no-rope + 64 rope), v head dim 128, causal; qwen2-vl-2b's: 12 query
+# heads padded to 16 on 2 K/V heads of 128 (GQA ratio 8), causal
+MLAH, MLAHD, MLAHDV = 16, 192, 128
+VLH, VLG, VLHD = 16, 2, 128
 # its prefill, kernel path vs plain path in fp32: the two differ only in the
 # order of their fp32 sums (the flash kernel's tiles against the blockwise
 # version's), which moves the logits by far less than a wrong tile or a
@@ -408,13 +433,15 @@ def bf16_excess(out, exact) -> float:
     return float(((out.float() - x).abs() - half_ulp).max())
 
 
-def attention_bound(b, s, hq, g, hd, window, itemsize, flops_peak):
-    """Least time for the function: allowed (q, k) pairs x 4*hd FLOPs, and
-    q, k, v read once plus o written once."""
+def attention_bound(b, s, hq, g, hd, window, itemsize, flops_peak, hd_v=None):
+    """Least time for the function: allowed (q, k) pairs x 2*(hd + hd_v)
+    FLOPs (Q.K^T at the q/k head dim hd, P.V at the v head dim hd_v,
+    default hd), and q, k, v read once plus o written once."""
+    hd_v = hd if hd_v is None else hd_v
     w = window or s + 1
     pairs = sum(min(i + 1, w) for i in range(s)) * b * hq
-    flops = 4.0 * hd * pairs
-    nbytes = itemsize * (2 * b * s * hq * hd + 2 * b * s * g * hd)
+    flops = 2.0 * (hd + hd_v) * pairs
+    nbytes = itemsize * (b * s * hq * (hd + hd_v) + b * s * g * (hd + hd_v))
     t_ops, t_bytes = flops / flops_peak, nbytes / H100_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes"), flops
@@ -2178,6 +2205,7 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
     flex_compile_s = None
     gen = torch.Generator(device="cuda").manual_seed(0)
     row = zrow = zsrow = row_b1 = zsrow_b1 = ds_b1 = None
+    sdpa_b1 = {}
     cases = [(dt, B, S, HQ, G, HD, w, CAP) for dt in ("bfloat16", "float32")
              for w in (4096, S + 1)]
     cases += [(dt, ZB, ZS, ZH, ZH, ZHD, None, 0.0)
@@ -2190,16 +2218,25 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
     cases += [("bfloat16", 1, S, DSH, DSH, DSHD, None, 0.0)]
     cases += [(dt, 2, 203, 8, 2, hd, 50, CAP) for dt in ("bfloat16", "float32")
               for hd in (32, 80, 128, 256)]
-    for dt, b, s, hq, g, hd, window, cap in cases:
+    cases = [c + (c[5],) for c in cases]          # v's head dim: q's
+    # the served MLA prefill of deepseek-v2-lite-16b (q/k 192, v 128) and
+    # qwen2-vl-2b's GQA prefill, one prompt each; the pair at a ragged GQA
+    # case in both types
+    cases += [("bfloat16", 1, S, MLAH, MLAH, MLAHD, None, 0.0, MLAHDV),
+              ("bfloat16", 1, S, VLH, VLG, VLHD, None, 0.0, VLHD)]
+    cases += [(dt, 2, 203, 8, 2, MLAHD, 50, CAP, MLAHDV)
+              for dt in ("bfloat16", "float32")]
+    for dt, b, s, hq, g, hd, window, cap, hd_v in cases:
         dtype = getattr(torch, dt)
-        rt = fa_kernel.route(dtype, hd)
-        if rt != fa_kernel.c_route(dtype, hd) or (rt.route == 1) != (
+        rt = fa_kernel.route(dtype, hd, hd_v)
+        if rt != fa_kernel.c_route(dtype, hd, hd_v) or (rt.route == 1) != (
                 dt == "bfloat16"):
             raise SystemExit(f"flash_attention route: {rt} stated, "
-                             f"{fa_kernel.c_route(dtype, hd)} taken")
+                             f"{fa_kernel.c_route(dtype, hd, hd_v)} taken")
         q = torch.randn((b, s, hq, hd), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, s, g, hd), generator=gen, device="cuda").to(dtype)
-        v = torch.randn((b, s, g, hd), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((b, s, g, hd_v), generator=gen, device="cuda").to(
+            dtype)
         kw = dict(window=window, logit_softcap=cap, scale=hd ** -0.5)
         out = fa_ops.flash_attention(q, k, v, **kw)
         # the plain version upcasts its inputs, so on q.float() etc. it
@@ -2222,15 +2259,21 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
         main_b1 = (b, s, hq, g, hd) == (1, S, HQ, G, HD)
         serve_b1 = (b, s, hq, g, hd) == (1, ZSS, ZH, ZH, ZHD)
         deepseek_b1 = (b, s, hq, g, hd) == (1, S, DSH, DSH, DSHD)
-        big = main_shape or serve_shape or main_b1 or serve_b1 or deepseek_b1
+        # deepseek-v2-lite-16b's and qwen2-vl-2b's served prefill shapes
+        served_b1 = {(1, S, MLAH, MLAH, MLAHD, MLAHDV): "deepseek_v2_lite_b1",
+                     (1, S, VLH, VLG, VLHD, VLHD): "qwen2_vl_b1"}.get(
+            (b, s, hq, g, hd, hd_v))
+        big = (main_shape or serve_shape or main_b1 or serve_b1 or deepseek_b1
+               or served_b1)
         ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw),
                      5 if big else 20)
         plain_ms = cuda_ms(lambda: fa_ref.flash_attention_blockwise(
             q, k, v, **kw), 2 if big else 5)
         bound_ms, bound_by, flops = attention_bound(
             b, s, hq, g, hd, window, q.element_size(),
-            H100_BF16_FLOPS if dt == "bfloat16" else H100_FP32_FLOPS)
-        print(f"[b] {dt:8s} q{(b, s, hq, hd)} kv{(b, s, g, hd)} window={window}"
+            H100_BF16_FLOPS if dt == "bfloat16" else H100_FP32_FLOPS, hd_v)
+        print(f"[b] {dt:8s} q{(b, s, hq, hd)} k{(b, s, g, hd)} "
+              f"v{(b, s, g, hd_v)} window={window}"
               f" softcap={cap}: max_abs_err={err:.3e} {check}"
               f" kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}"
               f" bound_ms={bound_ms:.4f} ({bound_by}, {flops:.3e} FLOP)"
@@ -2304,6 +2347,15 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
                      "library": "scaled_dot_product_attention",
                      "tiling": rt.describe()}
             del qt, kt, vt, sdpa
+        if served_b1:
+            lib_ms, lib = sdpa_yardstick(torch, q, k, v, out, hd ** -0.5,
+                                         served_b1)
+            sdpa_b1[served_b1] = {
+                "shape": [b, s, hq, g, hd, hd_v], "max_abs_err": err,
+                "bf16_excess": excess, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms, "library": lib,
+                "tiling": rt.describe()}
         if (zamba_shape or serve_shape or serve_b1) and dt == "bfloat16":
             # SDPA computes exactly this function: causal, no window, no
             # softcap, one K/V head per query head
@@ -2347,7 +2399,40 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
     zrow["serve_b1"] = zsrow_b1
     row["serve_b1"] = row_b1
     row["deepseek_b1"] = ds_b1
+    row.update(sdpa_b1)
     return row, zrow
+
+
+def sdpa_yardstick(torch, q, k, v, out, scale, what):
+    """The one PyTorch call that computes causal attention (no window, no
+    softcap) on q (B,S,Hq,hd), k (B,T,G,hd), v (B,T,G,hd_v): SDPA with
+    enable_gqa, or, if it refuses the shape, torch.compile(flex_attention)
+    with a causal block mask.  Prints and returns its ms and its name; the
+    port never calls it."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    call = functools.partial(
+        torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
+        is_causal=True, scale=scale, enable_gqa=k.shape[2] != q.shape[2])
+    lib = "scaled_dot_product_attention"
+    try:
+        ref_out = call()
+    except RuntimeError as e:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        print(f"[b] {what}: SDPA refuses the shape ({e}); timing "
+              f"torch.compile(flex_attention) instead")
+        mask = create_block_mask(lambda b, h, qi, ki: qi >= ki, None, None,
+                                 q.shape[1], k.shape[1], device="cuda")
+        call = functools.partial(torch.compile(flex_attention), qt, kt, vt,
+                                 block_mask=mask, scale=scale,
+                                 enable_gqa=k.shape[2] != q.shape[2])
+        lib = "torch.compile(flex_attention)"
+        ref_out = call()
+    err = float((ref_out.transpose(1, 2).float() - out.float()).abs().max())
+    lib_ms = cuda_ms(call, 5)
+    print(f"[b] {what} shape: {lib} ms={lib_ms:.4f} max_abs_err vs it="
+          f"{err:.3e}")
+    return lib_ms, lib
 
 
 def front_door_checks(res, name: str) -> list:
@@ -2370,6 +2455,17 @@ def front_door_checks(res, name: str) -> list:
     return pct
 
 
+def serve_batch(torch, cfg, toks):
+    """The batch `launch.serve` makes of prompts `toks`: for an M-RoPE model
+    also the text positions on all 3 streams."""
+    batch = {"tokens": toks}
+    if cfg.mrope:
+        b, s = toks.shape
+        batch["mrope_positions"] = torch.arange(
+            s, device=toks.device).expand(3, b, s)
+    return batch
+
+
 def served_logits(torch, res, vocab):
     """The kernel path's bf16 last-position prefill logits of the served
     prompts in the batches the frontend formed them into: the composition
@@ -2379,7 +2475,8 @@ def served_logits(torch, res, vocab):
         for n in res["batches"]:
             toks = torch.as_tensor(np.stack(res["prompts"][i:i + n]),
                                    device="cuda").long()
-            out.append(model.forward(params, {"tokens": toks},
+            out.append(model.forward(params, serve_batch(torch, model.cfg,
+                                                         toks),
                                      mode="prefill")[0][:, :vocab].float())
             i += n
     return torch.cat(out)
@@ -2744,112 +2841,218 @@ def phase_serve_rwkv(torch, wkv_ops, rwkv, wkv_ref, serve):
     return launches, launches // len(res["batches"])
 
 
-def phase_serve_deepseek(torch, fa_ops, attention, fa_ref, serve):
-    """deepseek-7b at full width (30 layers, d_model 4096, 32 heads of 128)
-    through `launch.serve` and `Client.serve`, four batches of 1: every
-    request ok and the front door's checks, the flash kernel launched once
-    a layer and prefill batch, at head dim 128.  Then the first served
-    batch's prefill, kernel path against plain path: in fp32 (the params
-    read through an fp32 cast; held: last-position logits within
-    DS_FP32_LOGIT_TOL, and the argmax where the top-2 margin exceeds twice
-    that, which must hold for at least one token) and in bf16 (printed);
-    the served first tokens are, every one, the bf16 kernel path's argmax
-    in the batches they were served in.  Prints prefill ms, decode ms a token,
-    the latency percentiles and the peak memory (the fp32 params made by
-    `Model.init` and their bf16 cast live at once)."""
+class RouteLog:
+    """Stands in for `models.moe.route`: calls it and keeps each call's
+    `Routing` (one a MoE layer and forward)."""
+
+    def __init__(self, moe):
+        self.route, self.calls = moe.route, []
+
+    def __call__(self, router, xg, cfg):
+        r = self.route(router, xg, cfg)
+        self.calls.append(r)
+        return r
+
+
+class RoutePin(RouteLog):
+    """Stands in for `models.moe.route` on the plain path: records the
+    path's own routing, and returns the experts, slots and drops another
+    path chose (`pinned`, its `Routing`s in call order), with the gates
+    renormalised from this path's own router probabilities at those
+    experts.  Where the choices agree this is `route`'s result itself."""
+
+    def __init__(self, moe, pinned):
+        super().__init__(moe)
+        self.pinned = list(pinned)
+
+    def __call__(self, router, xg, cfg):
+        import torch
+        own = super().__call__(router, xg, cfg)
+        ref = self.pinned[len(self.calls) - 1]
+        G, g, _ = xg.shape
+        k = cfg.moe.top_k
+        probs = torch.softmax(xg.float() @ router.float(), dim=-1)
+        vals = probs.gather(-1, ref.idx.reshape(G, k, g).transpose(1, 2))
+        vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+        return own._replace(idx=ref.idx, slot=ref.slot, keep=ref.keep,
+                            gate=vals.transpose(1, 2).reshape(G, k * g))
+
+
+def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
+                      dims, n_params):
+    """`arch` (a transformer: deepseek-7b, deepseek-v2-lite-16b,
+    qwen2-vl-2b) at full width and depth through `launch.serve` and
+    `Client.serve`, four batches of 1: the front door's checks, `dims`
+    (layers, d_model, heads, KV heads, head dim, vocab) and the parameter
+    count, the
+    flash kernel launched once a layer and prefill batch, 4 replies of 16
+    in-vocab tokens.  Then the first served batch's prefill on the kernel
+    path and the plain path (the params read through an fp32 cast), in
+    fp32 and bf16 (printed).  A MoE
+    model's router may pick another expert on the two paths where a token
+    sits near a top-k tie (they sum attention in other orders): each
+    layer's choices are recorded, the last position's printed per layer on
+    both paths with the count of layers where they differ, and the count of
+    (layer, token) pairs whose expert sets differ over the prompt.  The
+    fp32 logits are held within DS_FP32_LOGIT_TOL (and the argmax where the
+    top-2 margin exceeds twice that, which must hold for at least one
+    token) only where no choice differs: as they are if none does (a model
+    without experts), else against the plain path rerun with its routing
+    pinned to the kernel path's choices (`RoutePin`), the unpinned error
+    printed beside it.  The
+    served first tokens are the bf16 kernel path's argmax.  Prints prefill
+    ms, decode ms a token, p50/p95/p99, the peak memory (held under 80 GB)
+    and, for a MoE model, the choices dropped over the served prefills."""
     torch.cuda.reset_peak_memory_stats()
     fa_ops.flash_attention.launches = 0
     t0 = time.perf_counter()
-    res = serve.main(["--arch", "deepseek-7b", *ARGV])
+    res = serve.main(["--arch", arch, *ARGV])
     wall = time.perf_counter() - t0
     launches = fa_ops.flash_attention.launches
     peak = torch.cuda.max_memory_allocated()
     model, params = res["model"], res["params"]
     cfg = model.cfg
-    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-            cfg.resolved_head_dim, cfg.vocab_size) == (30, 4096, DSH, DSH,
-                                                       DSHD, 102400)
-    n_params = sum(t.numel() for _, t in leaf_items(params))
-    p50, p95, p99 = front_door_checks(res, "deepseek-7b")
-    print(f"[c] deepseek-7b served {len(res['replies'])} requests in "
-          f"{wall:.1f}s (weights included: {n_params:,} parameters); "
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.resolved_head_dim, cfg.vocab_size)
+    n = sum(t.numel() for _, t in leaf_items(params))
+    if got != dims or n != n_params:
+        raise SystemExit(f"{arch}: served {got} with {n:,} parameters, "
+                         f"want {dims} with {n_params:,}")
+    p50, p95, p99 = front_door_checks(res, arch)
+    print(f"[c] {arch} served {len(res['replies'])} requests in {wall:.1f}s "
+          f"(weights included: {n:,} parameters, {cfg.n_layers} layers); "
           f"prefill_ms={res['prefill_s'] * 1e3:.1f} decode_ms_per_token="
           f"{res['decode_s'] * 1e3 / res['decode_steps']:.2f} latency_ms "
           f"p50={p50:.1f} p95={p95:.1f} p99={p99:.1f} "
           f"max_memory_allocated_GB={peak / 1e9:.2f}")
     want = cfg.n_layers * len(res["batches"])
-    print(f"[c] deepseek-7b flash_attention launches={launches} (want "
+    print(f"[c] {arch} flash_attention launches={launches} (want "
           f"{cfg.n_layers} layers x {len(res['batches'])} batches)")
     if launches != want:
-        raise SystemExit(f"deepseek-7b: flash launched {launches} times, "
-                         f"want {want}")
+        raise SystemExit(f"{arch}: flash launched {launches} times, want "
+                         f"{want}")
+    if peak >= 80e9:
+        raise SystemExit(f"{arch}: peak memory {peak / 1e9:.2f} GB")
     if len(res["replies"]) != 4:
-        raise SystemExit("deepseek-7b: not every request was answered")
+        raise SystemExit(f"{arch}: not every request was answered")
     for row in res["replies"]:
         if row.shape != (16,) or row.min() < 0 or row.max() >= cfg.vocab_size:
-            raise SystemExit(f"deepseek-7b: bad reply {row}")
+            raise SystemExit(f"{arch}: bad reply {row}")
     V = cfg.vocab_size
     first = res["batches"][0]
     toks = torch.as_tensor(np.stack(res["prompts"][:first]),
                            device="cuda").long()
-    logits = {}
+    batch = serve_batch(torch, cfg, toks)
+    logits, routes = {}, {}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
-            n = fa_ops.flash_attention.launches
-            lg_kernel, _ = model.forward(params, {"tokens": toks},
-                                         mode="prefill", dtype=dtype)
-            if fa_ops.flash_attention.launches != n + cfg.n_layers:
-                raise SystemExit("deepseek-7b: the kernel path did not "
-                                 "launch the kernel once a layer")
-            n = fa_ops.flash_attention.launches
-            with mock.patch.object(attention, "flash_attention",
-                                   fa_ref.flash_attention_blockwise):
-                lg_plain, _ = model.with_opts(q_block=1024, kv_block=1024) \
-                    .forward(params, {"tokens": toks}, mode="prefill",
-                             dtype=dtype)
-            if fa_ops.flash_attention.launches != n:
-                raise SystemExit("deepseek-7b: the plain path launched the "
-                                 "kernel")
-            logits[dtype] = (lg_kernel[:, :V].float(), lg_plain[:, :V].float())
-            del lg_kernel, lg_plain
-    a, b = logits[torch.float32]
+            for path in ("kernel", "plain"):
+                log = RouteLog(moe)
+                before = fa_ops.flash_attention.launches
+                with contextlib.ExitStack() as stack:
+                    stack.enter_context(mock.patch.object(moe, "route", log))
+                    m = model
+                    if path == "plain":
+                        stack.enter_context(mock.patch.object(
+                            attention, "flash_attention",
+                            fa_ref.flash_attention_blockwise))
+                        m = model.with_opts(q_block=1024, kv_block=1024)
+                    lg, _ = m.forward(params, batch, mode="prefill",
+                                      dtype=dtype)
+                grew = fa_ops.flash_attention.launches - before
+                if grew != (cfg.n_layers if path == "kernel" else 0):
+                    raise SystemExit(f"{arch}: the {path} path launched the "
+                                     f"kernel {grew} times")
+                logits[dtype, path] = lg[:, :V].float()
+                routes[dtype, path] = log.calls
+                del lg
+    moe_keys = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ka, pa = routes[dtype, "kernel"], routes[dtype, "plain"]
+        if not ka:
+            continue
+        last = [[r.idx.reshape(r.idx.shape[0], cfg.moe.top_k, -1)[-1, :, -1]
+                 .tolist() for r in calls] for calls in (ka, pa)]
+        sets = [[r.idx.reshape(r.idx.shape[0], cfg.moe.top_k, -1)
+                 .transpose(1, 2).reshape(-1, cfg.moe.top_k).sort(-1).values
+                 for r in calls] for calls in (ka, pa)]
+        n_last = sum(sorted(a) != sorted(b) for a, b in zip(*last))
+        n_pairs = sum(int((a != b).any(-1).sum()) for a, b in zip(*sets))
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        print(f"[c] {arch} {name} prefill, the last position's experts per "
+              f"MoE layer (choice order), kernel path: {last[0]}")
+        print(f"[c] {arch} {name} prefill, plain path: {last[1]}")
+        print(f"[c] {arch} {name} prefill: layers whose last-position "
+              f"experts differ between the paths: {n_last} of {len(ka)}; "
+              f"(layer, token) pairs whose expert sets differ: {n_pairs} of "
+              f"{len(ka) * sets[0][0].shape[0]}")
+        moe_keys[f"{name}_route_diff_layers_last"] = n_last
+        moe_keys[f"{name}_route_diff_pairs"] = n_pairs
+    a, b = logits[torch.float32, "kernel"], logits[torch.float32, "plain"]
+    unpinned = ""
+    if moe_keys.get("fp32_route_diff_pairs", 0):
+        pin = RoutePin(moe, routes[torch.float32, "kernel"])
+        with torch.inference_mode(), mock.patch.object(moe, "route", pin), \
+                mock.patch.object(attention, "flash_attention",
+                                  fa_ref.flash_attention_blockwise):
+            lg, _ = model.with_opts(q_block=1024, kv_block=1024).forward(
+                params, batch, mode="prefill", dtype=torch.float32)
+        unpinned = (f"; the plain path unpinned (its own routing): "
+                    f"max_abs_err={float((a - b).abs().max()):.3e}")
+        moe_keys["fp32_logit_err_unpinned"] = float((a - b).abs().max())
+        b = lg[:, :V].float()
+        del lg, pin
     if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
-        raise SystemExit("deepseek-7b: non-finite prefill logits")
-    # logits within DS_FP32_LOGIT_TOL of each other share their argmax
-    # wherever the top-2 margin exceeds twice that
+        raise SystemExit(f"{arch}: non-finite prefill logits")
     err = float((a - b).abs().max())
     sure = top2_margin(b) > 2 * DS_FP32_LOGIT_TOL
     same = (a.argmax(-1) == b.argmax(-1)) | ~sure
-    a16, b16 = logits[torch.bfloat16]
-    print(f"[c] deepseek-7b prefill of the first served batch ({first} "
-          f"prompt(s) of {toks.shape[1]} tokens), kernel vs plain path: "
-          f"fp32 logits max_abs_err={err:.3e} (tol {DS_FP32_LOGIT_TOL}), "
-          f"|logit|max={float(b.abs().max()):.3f}, top-2 margins="
+    a16 = logits[torch.bfloat16, "kernel"]
+    b16 = logits[torch.bfloat16, "plain"]
+    print(f"[c] {arch} prefill of the first served batch ({first} "
+          f"prompt(s) of {toks.shape[1]} tokens), kernel vs plain path"
+          f"{' (its routing pinned to the kernel path' + chr(39) + 's)' if unpinned else ''}: "
+          f"fp32 logits max_abs_err={err:.3e} (tol {DS_FP32_LOGIT_TOL})"
+          f"{unpinned}, |logit|max={float(b.abs().max()):.3f}, top-2 margins="
           f"{[round(float(m), 4) for m in top2_margin(b)]}, first tokens "
           f"compared where margin > 2 x tol: {int(sure.sum())}/{len(sure)}; "
           f"bf16 max_abs_err={float((a16 - b16).abs().max()):.4f} (printed)")
     if err >= DS_FP32_LOGIT_TOL or not bool(same.all()) \
             or not bool(sure.any()):
-        raise SystemExit("deepseek-7b: kernel path and plain path disagree")
+        raise SystemExit(f"{arch}: kernel path and plain path disagree")
+    del logits, routes
     # the served first tokens are the bf16 kernel path's argmax in the
-    # batches they were served in: the same function on the same inputs
-    # through the same kernels, so every token, whatever its margin
-    a = served_logits(torch, res, V)
+    # batches they were served in; the same prefills count the dropped
+    # choices
+    log = RouteLog(moe)
+    with mock.patch.object(moe, "route", log):
+        a = served_logits(torch, res, V)
     served = torch.as_tensor([r[0] for r in res["replies"]], device="cuda")
     equal = int((served == a.argmax(-1)).sum())
-    print(f"[c] deepseek-7b served first tokens equal to the bf16 kernel-path "
+    print(f"[c] {arch} served first tokens equal to the bf16 kernel-path "
           f"prefill's argmax: {equal}/{len(served)} (top-2 margin > "
           f"{LOGIT_TOL}: {int((top2_margin(a) > LOGIT_TOL).sum())})")
     if equal != len(served) or not len(served):
-        raise SystemExit("deepseek-7b: served first tokens are not the "
-                         "prefill's")
+        raise SystemExit(f"{arch}: served first tokens are not the "
+                         f"prefill's")
+    if log.calls:
+        dropped = sum(int((~r.keep).sum()) for r in log.calls)
+        choices = sum(r.keep.numel() for r in log.calls)
+        r0 = log.calls[0]
+        print(f"[c] {arch} MoE over the {len(res['batches'])} served "
+              f"prefills: {len(log.calls)} routings of groups of "
+              f"{r0.idx.shape[1] // cfg.moe.top_k} tokens, {r0.capacity} "
+              f"slots an expert; choices dropped {dropped} of {choices}")
+        moe_keys.update(dropped=dropped, choices=choices,
+                        group=r0.idx.shape[1] // cfg.moe.top_k,
+                        capacity=r0.capacity)
     return {"launches": launches,
             "launches_per_forward": launches // len(res["batches"]),
             "prefill_ms": res["prefill_s"] * 1e3,
             "decode_ms_per_token": res["decode_s"] * 1e3
             / res["decode_steps"],
             "latency_ms": [p50, p95, p99], "peak_gb": peak / 1e9,
-            "params": n_params, "fp32_logit_err": err}
+            "params": n, "fp32_logit_err": err, **moe_keys}
 
 
 def zamba_cache_rel(a, b):
@@ -3069,9 +3272,14 @@ def phase_serve_zamba(torch, ssd_ops, fa_ops, attention, fa_ref, serve):
 
 
 def leaf_items(tree, prefix=""):
+    """(path, leaf) of a tree of dicts and tuples (a tuple's items keyed
+    by their index)."""
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from leaf_items(v, f"{prefix}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from leaf_items(v, f"{prefix}/{i}")
     else:
         yield prefix, tree
 
@@ -3568,7 +3776,7 @@ def run(where: dict) -> int:
     from repro_torch.kernels.tiled_matmul import ops as mm_ops
     from repro_torch.kernels.tiled_matmul import ref as mm_ref
     from repro_torch.launch import metg, serve, train
-    from repro_torch.models import attention, rwkv
+    from repro_torch.models import attention, moe, rwkv
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -3634,8 +3842,21 @@ def run(where: dict) -> int:
     gc.collect()               # the served model and its caches go first
     torch.cuda.empty_cache()
     where["phase"] = "(c) deepseek-7b serve"
-    row["deepseek"] = phase_serve_deepseek(torch, fa_ops, attention, fa_ref,
-                                           serve)
+    row["deepseek"] = phase_serve_model(
+        torch, fa_ops, attention, fa_ref, moe, serve, "deepseek-7b",
+        (30, 4096, DSH, DSH, DSHD, 102400), 6_910_365_696)
+    gc.collect()
+    torch.cuda.empty_cache()
+    where["phase"] = "(c) deepseek-v2-lite-16b serve"
+    row["deepseek_v2_lite"] = phase_serve_model(
+        torch, fa_ops, attention, fa_ref, moe, serve, "deepseek-v2-lite-16b",
+        (27, 2048, 16, 16, 128, 102400), 15_706_484_224)
+    gc.collect()
+    torch.cuda.empty_cache()
+    where["phase"] = "(c) qwen2-vl-2b serve"
+    row["qwen2_vl"] = phase_serve_model(
+        torch, fa_ops, attention, fa_ref, moe, serve, "qwen2-vl-2b",
+        (28, 1536, 12, 2, 128, 151936), 1_587_965_440)
     gc.collect()
     torch.cuda.empty_cache()
     where["phase"] = "(c) zamba2 one-group train step"

@@ -15,16 +15,19 @@ from repro_torch.configs.base import (
     SSMConfig,
     input_specs,
 )
+from repro_torch.configs.arctic_480b import CONFIG as _arctic_480b
 from repro_torch.configs.deepseek_67b import CONFIG as _deepseek_67b
 from repro_torch.configs.deepseek_7b import CONFIG as _deepseek_7b
+from repro_torch.configs.deepseek_v2_lite import CONFIG as _deepseek_v2_lite
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2_2b
 from repro_torch.configs.qwen2_5_32b import CONFIG as _qwen2_5_32b
+from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwen2_vl_2b
 from repro_torch.configs.rwkv6_1p6b import CONFIG as _rwkv6_1p6b
 from repro_torch.configs.zamba2_2p7b import CONFIG as _zamba2_2p7b
 
 REGISTRY: dict[str, ModelConfig] = {c.name: c for c in [
     _gemma2_2b, _rwkv6_1p6b, _zamba2_2p7b, _deepseek_7b, _qwen2_5_32b,
-    _deepseek_67b]}
+    _deepseek_67b, _deepseek_v2_lite, _qwen2_vl_2b, _arctic_480b]}
 
 ARCH_IDS = list(REGISTRY)
 

@@ -12,7 +12,11 @@
 // input-typed operands; P.V multiplies fp32 P by V (the JAX default,
 // probs_bf16=False).  Inputs are bf16 or fp32, addressed by strides (last
 // dim contiguous, 16-byte-aligned rows); the output has q's type.  Head dims
-// 32, 64, 80 (zamba2-2.7b's shared block), 128 and 256 (gemma2-2b).
+// 32, 64, 80 (zamba2-2.7b's shared block), 128 and 256 (gemma2-2b) for q, k
+// and v alike, and q/k head dim 192 with v head dim 128 (DeepSeek-V2's MLA:
+// 128 no-rope + 64 rope dims against 128 value dims).  V is staged at its
+// own head dim, never padded to q's: padding would spend a third of the
+// 192/128 pair's P.V products on zeros.
 //
 // What bounds it on an H100: at gemma2-2b's prefill shape (head_dim 256,
 // S ~ 4k) the work is ~4*hd FLOPs per allowed (query, key) pair against
@@ -35,9 +39,11 @@
 //     bf16, in 64-wide swizzled panels: head dim 80 is padded to two panels
 //     (128) and head dim 32 to one (64); no wgmma spans the padding, so it
 //     is never read or cleared (Q.K^T stops at k-step hd/16, P.V's N is
-//     hd).  Padding, not a 32-byte swizzle, keeps one layout and one
+//     hd_v).  Padding, not a 32-byte swizzle, keeps one layout and one
 //     descriptor scheme for every head dim; it costs shared memory only.
-//     hd 256: Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB, one block an SM.
+//     hd 256: Q 64 KB + 2 x (K 32 KB + V 32 KB) = 192 KB, one block an SM;
+//     192/128: Q 48 KB + 2 x (K 24 KB + V 16 KB) = 129 KB, one block an SM
+//     (Q.K^T runs 12 k-steps over 3 panels, P.V an n128 wgmma).
 //   - S = Q.K^T: wgmma m64n64k16 per 16 of head dim, Q (A) and K (B) both
 //     K-major from shared memory, fp32 accumulators (bf16 products are
 //     exact in fp32, as in the Pallas kernel's fp32 dot).
@@ -56,7 +62,7 @@
 //     version).
 //   - P.V with fp32 P on bf16 tensor cores: P = P_hi + P_lo with P_hi =
 //     bf16(P) and P_lo = bf16(P - P_hi), each multiplied by V (two wgmma
-//     m64n{hd}k16 per 16 keys, A from registers, V as an MN-major B operand
+//     m64n{hd_v}k16 per 16 keys, A from registers, V as an MN-major B operand
 //     from shared memory, transpose bit set).  P_hi + P_lo carries 16
 //     significant bits of P: ~1e-6 beyond one bf16 rounding of the result,
 //     where P_hi alone is ~2e-3 off and P rounded to TF32 ~5e-4 (tolerance
@@ -91,7 +97,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -179,21 +184,22 @@ struct Tile {
   }
 };
 
-template <int HD>
+template <int HD, int DV = HD>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(BQ * (HD + 4) + BK * (HD + 4) + BK * HD);
+  return sizeof(float) * (size_t)(BQ * (HD + 4) + BK * (HD + 4) + BK * DV);
 }
 
-template <int HD>
+// HD: q/k head dim; DV: v head dim (and the output's)
+template <int HD, int DV = HD>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_cuda_cores(const Args a) {
   constexpr int LD = HD + 4;     // padded row stride of sQ and sK
-  constexpr int DPL = (HD + 31) / 32;   // output columns per lane, the
-                                        // last one guarded by lane + 32c < HD
+  constexpr int DPL = (DV + 31) / 32;   // output columns per lane, the
+                                        // last one guarded by lane + 32c < DV
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);   // BQ x LD
   float* sK = sQ + BQ * LD;                       // BK x LD
-  float* sV = sK + BK * LD;                       // BK x HD
+  float* sV = sK + BK * LD;                       // BK x DV
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -231,7 +237,8 @@ flash_fwd_cuda_cores(const Args a) {
 
   // K/V tiles pass through registers: the next tile's loads are issued
   // before the current tile is computed, so they are in flight meanwhile.
-  Tile<HD, BK> kt, vt;
+  Tile<HD, BK> kt;
+  Tile<DV, BK> vt;
   int k0 = (k_first / BK) * BK;
   if (k0 < k_end) {
     kt.load(kp, a.kss, k0, a.T, tid);
@@ -240,7 +247,7 @@ flash_fwd_cuda_cores(const Args a) {
   for (; k0 < k_end; k0 += BK) {
     __syncthreads();   // the previous tile is no longer read
     kt.store(sK, LD, tid);
-    vt.store(sV, HD, tid);
+    vt.store(sV, DV, tid);
     __syncthreads();
     if (k0 + BK < k_end) {
       kt.load(kp, a.kss, k0 + BK, a.T, tid);
@@ -292,7 +299,7 @@ flash_fwd_cuda_cores(const Args a) {
       float vv[DPL];
 #pragma unroll
       for (int c = 0; c < DPL; ++c)
-        vv[c] = lane + 32 * c < HD ? sV[j * HD + lane + 32 * c] : 0.f;
+        vv[c] = lane + 32 * c < DV ? sV[j * DV + lane + 32 * c] : 0.f;
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const float pj = __shfl_sync(FULL, s[r], j);
@@ -310,19 +317,19 @@ flash_fwd_cuda_cores(const Args a) {
     float* orow = op + (long long)qpos * a.oss;
 #pragma unroll
     for (int c = 0; c < DPL; ++c)
-      if (lane + 32 * c < HD) orow[lane + 32 * c] = acc[r][c] / den;
+      if (lane + 32 * c < DV) orow[lane + 32 * c] = acc[r][c] / den;
   }
 }
 
-template <int HD>
+template <int HD, int DV>
 int launch_cuda_cores(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HD>();
+  const size_t smem = smem_bytes<HD, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_cuda_cores<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_cuda_cores<HD, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.S + BQ - 1) / BQ, a.Hq, a.B);
-  flash_fwd_cuda_cores<HD><<<grid, NTHREADS, smem, stream>>>(a);
+  flash_fwd_cuda_cores<HD, DV><<<grid, NTHREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -335,18 +342,22 @@ constexpr int BK = 64;         // keys per tile
 constexpr int THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int HD>
+// HD: q/k head dim; DV: v head dim (and the output's)
+template <int HD, int DV = HD>
 struct Shape {
-  static constexpr int PANELS = (HD + 63) / 64;   // 64-wide panels
+  static constexpr int PANELS = (HD + 63) / 64;   // 64-wide panels of Q, K
+  static constexpr int V_PANELS = (DV + 63) / 64;  // and of V
   // K/V ring depth: 2 (3 measured slower at every head dim), and two
   // blocks an SM where registers allow (up to hd 80: 128 a thread), so one
   // block's softmax overlaps the other's wgmma
   static constexpr int STAGES = 2;
   static constexpr int MIN_BLOCKS = HD <= 80 ? 2 : 1;
   static constexpr int Q_BYTES = PANELS * BQ * 128;
-  static constexpr int KV_BYTES = PANELS * BK * 128;   // one K or V tile
+  static constexpr int K_BYTES = PANELS * BK * 128;    // one K tile
+  static constexpr int V_BYTES = V_PANELS * BK * 128;  // one V tile
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
   static constexpr size_t SMEM =
-      Q_BYTES + 2 * STAGES * KV_BYTES + 1024;          // + alignment slack
+      Q_BYTES + STAGES * STAGE_BYTES + 1024;           // + alignment slack
 };
 
 // Rows row0 .. row0+NROWS-1 of a (rows, HD) bf16 matrix with row stride
@@ -380,12 +391,27 @@ __device__ __forceinline__ void split_p(float p0, float p1, uint32_t& hi,
   lo = sm90::pack_bf16(p0 - h.x, p1 - h.y);
 }
 
+// O += P_hi . V + P_lo . V over one key tile: A (P) from registers, V as
+// an MN-major B operand from shared memory.  HD here is V's head dim.
 template <int HD>
-__global__ void __launch_bounds__(THREADS, Shape<HD>::MIN_BLOCKS)
+__device__ __forceinline__ void pv_tile(float (&o)[HD / 2],
+                                        uint32_t (&phi)[BK / 16][4],
+                                        uint32_t (&plo)[BK / 16][4],
+                                        const uint8_t* sV) {
+#pragma unroll
+  for (int kt = 0; kt < BK / 16; ++kt) {
+    const uint64_t dv = sm90::desc(sV + kt * 2048, BK * 128, 1024);
+    sm90::wgmma_rs<HD, 1>(o, phi[kt], dv, 1);
+    sm90::wgmma_rs<HD, 1>(o, plo[kt], dv, 1);   // P_lo . V
+  }
+}
+
+template <int HD, int DV>
+__global__ void __launch_bounds__(THREADS, Shape<HD, DV>::MIN_BLOCKS)
 flash_fwd_tc(const Args a) {
-  using Sh = Shape<HD>;
+  using Sh = Shape<HD, DV>;
   constexpr int NS = BK / 2;    // S accumulators a thread
-  constexpr int NO = HD / 2;    // O accumulators a thread
+  constexpr int NO = DV / 2;    // O accumulators a thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = sm90::align1024(smem_raw);
   uint8_t* sKV = sQ + Sh::Q_BYTES;   // stage s: K, then V
@@ -414,9 +440,9 @@ flash_fwd_tc(const Args a) {
 #pragma unroll
   for (int s = 0; s < Sh::STAGES - 1; ++s) {
     if (s < n_tiles) {
-      uint8_t* dst = sKV + s * 2 * Sh::KV_BYTES;
+      uint8_t* dst = sKV + s * Sh::STAGE_BYTES;
       load_rows<HD, BK>(dst, kp, a.kss, (j0 + s) * BK, a.T);
-      load_rows<HD, BK>(dst + Sh::KV_BYTES, vp, a.vss, (j0 + s) * BK, a.T);
+      load_rows<DV, BK>(dst + Sh::K_BYTES, vp, a.vss, (j0 + s) * BK, a.T);
     }
     sm90::cp_async_commit();
   }
@@ -439,16 +465,16 @@ flash_fwd_tc(const Args a) {
     // the tile STAGES - 1 ahead goes into the stage tile it - 1 left
     const int nxt = it + Sh::STAGES - 1;
     if (nxt < n_tiles) {
-      uint8_t* dst = sKV + (nxt % Sh::STAGES) * 2 * Sh::KV_BYTES;
+      uint8_t* dst = sKV + (nxt % Sh::STAGES) * Sh::STAGE_BYTES;
       load_rows<HD, BK>(dst, kp, a.kss, (j0 + nxt) * BK, a.T);
-      load_rows<HD, BK>(dst + Sh::KV_BYTES, vp, a.vss, (j0 + nxt) * BK, a.T);
+      load_rows<DV, BK>(dst + Sh::K_BYTES, vp, a.vss, (j0 + nxt) * BK, a.T);
     }
     sm90::cp_async_commit();
     sm90::cp_async_wait<Sh::STAGES - 1>();   // tile it has landed
     sm90::fence_proxy_async();
     __syncthreads();
-    const uint8_t* sK = sKV + (it % Sh::STAGES) * 2 * Sh::KV_BYTES;
-    const uint8_t* sV = sK + Sh::KV_BYTES;
+    const uint8_t* sK = sKV + (it % Sh::STAGES) * Sh::STAGE_BYTES;
+    const uint8_t* sV = sK + Sh::K_BYTES;
     const bool seen = wq0 < a.S && k0 <= wq_last &&
                       (a.window <= 0 || k0 + BK - 1 > wq0 - a.window);
     if (seen) {
@@ -523,12 +549,7 @@ flash_fwd_tc(const Args a) {
                   plo[kt][r]);
       sm90::fence_regs(o);
       sm90::wgmma_fence();
-#pragma unroll
-      for (int kt = 0; kt < BK / 16; ++kt) {
-        const uint64_t dv = sm90::desc(sV + kt * 2048, BK * 128, 1024);
-        sm90::wgmma_rs<HD, 1>(o, phi[kt], dv, 1);
-        sm90::wgmma_rs<HD, 1>(o, plo[kt], dv, 1);   // P_lo . V
-      }
+      pv_tile<DV>(o, phi, plo, sV);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
@@ -550,7 +571,7 @@ flash_fwd_tc(const Args a) {
     const float den = fmaxf(l[hh], 1e-37f);
     __nv_bfloat16* orow = op + qpos * a.oss + cq;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       __nv_bfloat162 v;
       v.x = out_bf16(o[4 * j + 2 * hh] / den);
       v.y = out_bf16(o[4 * j + 2 * hh + 1] / den);
@@ -559,59 +580,69 @@ flash_fwd_tc(const Args a) {
   }
 }
 
-template <int HD>
+template <int HD, int DV>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = Shape<HD>::SMEM;
+  const size_t smem = Shape<HD, DV>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_tc<HD, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.S + BQ - 1) / BQ, a.Hq, a.B);
-  flash_fwd_tc<HD><<<grid, THREADS, smem, stream>>>(a);
+  flash_fwd_tc<HD, DV><<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
-// fn(std::integral_constant<int, hd>) for a head dim the kernels take.
+template <int HD_, int DV_ = HD_>
+struct Dims {
+  static constexpr int HD = HD_, DV = DV_;
+};
+
+// fn(Dims<hd, hd_v>) for a (q/k, v) head-dim pair the kernels take: one
+// head dim for all three, or MLA's 192/128.
 template <typename Fn>
-int with_hd(int hd, Fn&& fn) {
+int with_hd(int hd, int hd_v, Fn&& fn) {
+  if (hd == 192 && hd_v == 128) return fn(Dims<192, 128>());
+  if (hd != hd_v) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 32: return fn(std::integral_constant<int, 32>());
-    case 64: return fn(std::integral_constant<int, 64>());
-    case 80: return fn(std::integral_constant<int, 80>());
-    case 128: return fn(std::integral_constant<int, 128>());
-    case 256: return fn(std::integral_constant<int, 256>());
+    case 32: return fn(Dims<32>());
+    case 64: return fn(Dims<64>());
+    case 80: return fn(Dims<80>());
+    case 128: return fn(Dims<128>());
+    case 256: return fn(Dims<256>());
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// The kernel a launch of this type and head dim takes: out[0] route (0 fp32
-// on the CUDA cores, 1 bf16 on the tensor cores), out[1] query rows and
-// out[2] keys per tile, out[3] K/V stages in shared memory, out[4] threads
-// a block, out[5] dynamic shared memory bytes.  Returns 0, or
-// cudaErrorInvalidValue for a type or head dim the kernels do not take.
-extern "C" int flash_attention_route(int dtype, int hd, int* out) {
+// The kernel a launch of this type and head-dim pair takes (hd: q and k,
+// hd_v: v and the output): out[0] route (0 fp32 on the CUDA cores, 1 bf16
+// on the tensor cores), out[1] query rows and out[2] keys per tile, out[3]
+// K/V stages in shared memory, out[4] threads a block, out[5] dynamic
+// shared memory bytes.  Returns 0, or cudaErrorInvalidValue for a type or
+// head-dim pair the kernels do not take.
+extern "C" int flash_attention_route(int dtype, int hd, int hd_v, int* out) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return with_hd(hd, [&](auto c) {
-    constexpr int HD = decltype(c)::value;
-    const int tc_v[6] = {1, tc::BQ, tc::BK, tc::Shape<HD>::STAGES,
+  return with_hd(hd, hd_v, [&](auto c) {
+    constexpr int HD = decltype(c)::HD, DV = decltype(c)::DV;
+    const int tc_v[6] = {1, tc::BQ, tc::BK, tc::Shape<HD, DV>::STAGES,
                          tc::THREADS,
-                         static_cast<int>(tc::Shape<HD>::SMEM)};
+                         static_cast<int>(tc::Shape<HD, DV>::SMEM)};
     const int cc_v[6] = {0, BQ, BK, 1, NTHREADS,
-                         static_cast<int>(smem_bytes<HD>())};
+                         static_cast<int>(smem_bytes<HD, DV>())};
     for (int i = 0; i < 6; ++i) out[i] = dtype == 1 ? tc_v[i] : cc_v[i];
     return 0;
   });
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  hd: q/k head dim; hd_v: v's and the
+// output's.  Strides are in elements.  Returns cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int hd,
-    int B, int S, int T, int Hq, int G,
+    int hd_v, int B, int S, int T, int Hq, int G,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
@@ -624,8 +655,9 @@ extern "C" int flash_attention_fwd(
                qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh,
                scale, softcap, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_hd(hd, [&](auto c) {
-    constexpr int HD = decltype(c)::value;
-    return dtype == 1 ? tc::launch<HD>(a, st) : launch_cuda_cores<HD>(a, st);
+  return with_hd(hd, hd_v, [&](auto c) {
+    constexpr int HD = decltype(c)::HD, DV = decltype(c)::DV;
+    return dtype == 1 ? tc::launch<HD, DV>(a, st)
+                      : launch_cuda_cores<HD, DV>(a, st);
   });
 }

@@ -8,6 +8,9 @@ and greedy decode.
         --no-reduced --requests 4 --prompt-len 4200 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --no-reduced --requests 4 --prompt-len 4200 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --no-reduced --requests 4 \
+        --prompt-len 4200 --max-new 16
 
 The session rides the same front door as the JAX package's driver
 (`repro_torch.client.Client`): `client.serve(execute_batch)` attaches a
@@ -18,9 +21,10 @@ p50/p95/p99 latency comes from the trace.  Any request that fails or times
 out stops the driver.
 
 Runs on the card unless --device cpu.  Weights are random, made from --seed
-on the device, and cast to bf16 once at load, except the leaves the model
-reads in fp32 (norms; rwkv's decay and bonus params; the Mamba2 layers'
-A_log, dt_bias and D_skip).
+on the device, each matrix cast to bf16 as soon as it is drawn, except the
+leaves the model reads in fp32 (norms; the MoE router; rwkv's decay and
+bonus params; the Mamba2 layers' A_log, dt_bias and D_skip).  A text prompt
+of an M-RoPE model (qwen2-vl-2b) carries its positions on all 3 streams.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.engine import BATCH_FORMED
 from repro_torch.models.common import Options
 from repro_torch.models.model import build_model
-from repro_torch.runtime.serve_step import greedy_generate, serving_params
+from repro_torch.runtime.serve_step import (greedy_generate,
+                                            init_serving_params)
 
 
 def parse_args(argv=None):
@@ -74,17 +79,22 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = build_model(cfg, Options(q_block=64, kv_block=64))
+    model = build_model(cfg, Options(q_block=64, kv_block=64, moe_group=64))
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = serving_params(model, model.init(gen, device))
+    params = init_serving_params(model, gen, device)
     totals = {"prefill_s": 0.0, "decode_s": 0.0}
 
     def execute_batch(prompts):
         """One engine task: prefill + greedy decode of the batch, on the
         engine's worker thread."""
         toks = torch.from_numpy(np.stack(prompts)).to(device)
+        batch = {"tokens": toks}
+        if cfg.mrope:
+            B, S = toks.shape
+            batch["mrope_positions"] = torch.arange(
+                S, device=device).expand(3, B, S)
         timings: dict = {}
-        out = greedy_generate(model, params, {"tokens": toks}, args.max_new,
+        out = greedy_generate(model, params, batch, args.max_new,
                               args.prompt_len + args.max_new + 1, timings)
         out = out.cpu().numpy()
         if out.shape != (len(prompts), args.max_new):

@@ -6,6 +6,7 @@ a leading ``(L, ...)`` dim, as in the JAX package, and the model loops over it.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional
@@ -19,6 +20,24 @@ import torch.utils.checkpoint as ckpt
 # ---------------------------------------------------------------------------
 
 _TRUNC_LO = math.erf(-2.0 / math.sqrt(2.0))   # 2*Phi(-2) - 1
+_on_draw = None        # see `on_draw`
+
+
+@contextlib.contextmanager
+def on_draw(fn):
+    """Within: each tensor that dense_init and embed_init draw is passed,
+    in draw order, through fn, which returns the tensor to keep (so a
+    caller can cast each matrix as soon as it is drawn)."""
+    global _on_draw
+    prev, _on_draw = _on_draw, fn
+    try:
+        yield
+    finally:
+        _on_draw = prev
+
+
+def _drawn(t):
+    return t if _on_draw is None else _on_draw(t)
 
 
 def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
@@ -30,12 +49,12 @@ def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
     # inverse-CDF sampling of a normal truncated to [-2, 2]
     t.uniform_(_TRUNC_LO, -_TRUNC_LO, generator=gen)
     t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
-    return t.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+    return _drawn(t.mul_(1.0 / math.sqrt(fan_in)).to(dtype))
 
 
 def embed_init(gen: torch.Generator, shape, device="cuda", dtype=torch.float32):
     t = torch.empty(shape, device=device, dtype=torch.float32)
-    return t.normal_(0.0, 0.02, generator=gen).to(dtype)
+    return _drawn(t.normal_(0.0, 0.02, generator=gen).to(dtype))
 
 
 def zeros_init(shape, device="cuda", dtype=torch.float32):
@@ -179,17 +198,23 @@ class Options:
 
     q_block / kv_block size the blocks of the plain blockwise attention, the
     path tensors on the CPU take; the CUDA kernel tiles on its own.  remat
-    is `maybe_remat`'s policy for the transformer's training blocks."""
+    is `maybe_remat`'s policy for the transformer's training blocks.
+    mla_absorb picks MLA decode's absorbed branch (attention against the
+    compressed cache); moe_group is the MoE's largest token group."""
 
     def __init__(self, *, q_block: int = 1024, kv_block: int = 1024,
-                 remat: str = "none"):
+                 remat: str = "none", mla_absorb: bool = False,
+                 moe_group: int = 1024):
         self.q_block = q_block
         self.kv_block = kv_block
         self.remat = remat
+        self.mla_absorb = mla_absorb
+        self.moe_group = moe_group
 
     def replace(self, **kw):
         cur = dict(q_block=self.q_block, kv_block=self.kv_block,
-                   remat=self.remat)
+                   remat=self.remat, mla_absorb=self.mla_absorb,
+                   moe_group=self.moe_group)
         cur.update(kw)
         return Options(**cur)
 

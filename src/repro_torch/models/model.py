@@ -31,9 +31,12 @@ class Model:
 
     def forward(self, params, batch: dict, mode: str = "train", cache=None,
                 dtype=torch.bfloat16):
+        kw = {}
+        if self.cfg.mrope and "mrope_positions" in batch:
+            kw["mrope_positions"] = batch["mrope_positions"]
         return self._mod.forward(params, self.cfg, batch["tokens"],
                                  opts=self.opts, mode=mode, dtype=dtype,
-                                 cache=cache)
+                                 cache=cache, **kw)
 
     def decode_step(self, params, tokens, positions, cache,
                     dtype=torch.bfloat16):
@@ -55,7 +58,8 @@ class Model:
         return Model(self.cfg, self.opts.replace(**kw), self._mod)
 
 
-_FAMILY_MODULES = {"dense": transformer, "ssm": rwkv, "hybrid": zamba}
+_FAMILY_MODULES = {"dense": transformer, "moe": transformer,
+                   "vlm": transformer, "ssm": rwkv, "hybrid": zamba}
 
 
 def build_model(cfg, opts: Options = None) -> Model:

@@ -1,4 +1,5 @@
-"""Rotary position embeddings (half-split convention)."""
+"""Rotary position embeddings (half-split convention): standard RoPE and
+Qwen2-VL's M-RoPE."""
 from __future__ import annotations
 
 import torch
@@ -11,6 +12,26 @@ def rope_angles(positions, head_dim: int, theta: float):
                             device=positions.device) / half
     inv_freq = 1.0 / (theta ** exponent)
     ang = positions.float()[..., None] * inv_freq
+    return torch.sin(ang), torch.cos(ang)
+
+
+def mrope_angles(mpositions, sections, head_dim: int, theta: float):
+    """Multimodal RoPE (Qwen2-VL).
+
+    mpositions: (3, B, S) temporal / height / width position streams.
+    sections: each stream's rotary half-dims, summing to head_dim//2.
+    Returns (sin, cos) of shape (B, S, head_dim//2)."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not sum to {half}")
+    exponent = torch.arange(half, dtype=torch.float32,
+                            device=mpositions.device) / half
+    inv_freq = 1.0 / (theta ** exponent)
+    stream = torch.repeat_interleave(
+        torch.arange(len(sections), device=mpositions.device),
+        torch.tensor(sections, device=mpositions.device))      # (half,)
+    pos = mpositions[stream].movedim(0, -1).float()            # (B, S, half)
+    ang = pos * inv_freq
     return torch.sin(ang), torch.cos(ang)
 
 

@@ -14,10 +14,13 @@ token through `decode_step` instead: the same function up to rounding, but
 one that never runs the chunked-WKV or the SSD kernel."""
 from __future__ import annotations
 
+import itertools
 import time
 
 import torch
 from torch.overrides import TorchFunctionMode
+
+from repro_torch.models.common import on_draw
 
 
 class _LeafReads(TorchFunctionMode):
@@ -53,11 +56,26 @@ class _LeafReads(TorchFunctionMode):
 
 
 def _leaves(tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    """(path, leaf) of a param tree of dicts and tuples; a tuple's items
+    are keyed by their index."""
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree) if isinstance(tree, (tuple, list)) else ())
+    for k, v in items:
+        if isinstance(v, (dict, tuple, list)):
             yield from _leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), v
+
+
+def _cast_tree(tree, cast: set, dtype, prefix=()):
+    """`tree` with the leaves at the paths in `cast` cast to `dtype`."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, cast, dtype, prefix + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_cast_tree(v, cast, dtype, prefix + (i,))
+                          for i, v in enumerate(tree))
+    return tree.to(dtype) if prefix in cast else tree
 
 
 def _cast_only_leaves(model, dtype=torch.bfloat16) -> set:
@@ -86,14 +104,43 @@ def serving_params(model, params, dtype=torch.bfloat16):
     For a model served in `dtype` this is exact, leaf by leaf: the model
     computes the same values from the cast params, and each decode step reads
     half the bytes of the matrices."""
+    return _cast_tree(params, _cast_only_leaves(model, dtype), dtype)
+
+
+def _draw_paths(model) -> dict:
+    """{n: path} of the param leaves that `model.init` draws through
+    dense_init / embed_init, n counting the draws in order.  Found by
+    running `model.init` on the meta device (no storage)."""
+    drawn = []
+
+    def keep(t):
+        drawn.append(t)
+        return t
+
+    with on_draw(keep):
+        params = model.init(torch.Generator().manual_seed(0), "meta")
+    at = {id(t): n for n, t in enumerate(drawn)}
+    return {at[id(t)]: path for path, t in _leaves(params) if id(t) in at}
+
+
+def init_serving_params(model, generator, device, dtype=torch.bfloat16):
+    """`serving_params(model, model.init(generator, device), dtype)`, bit
+    for bit, without the whole fp32 tree: each matrix is drawn in fp32 in
+    `Model.init`'s order from `generator` and, if the model reads it only
+    through a cast to `dtype`, cast as soon as it is drawn.  The peak is
+    the served params plus the largest fp32 matrix, where `serving_params`
+    of a whole fp32 tree holds both trees at once."""
     cast = _cast_only_leaves(model, dtype)
+    paths = _draw_paths(model)
+    count = itertools.count()
 
-    def walk(tree, prefix):
-        return {k: (walk(v, prefix + (k,)) if isinstance(v, dict) else
-                    v.to(dtype) if prefix + (k,) in cast else v)
-                for k, v in tree.items()}
+    def finish(t):
+        return t.to(dtype) if paths.get(next(count)) in cast else t
 
-    return walk(params, ())
+    with on_draw(finish):
+        params = model.init(generator, device)
+    # leaves made otherwise (biases, norm scales) are cast here
+    return _cast_tree(params, cast, dtype)
 
 
 def make_prefill_step(model):

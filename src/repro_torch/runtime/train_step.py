@@ -2,7 +2,11 @@
 
 The port's `forward` returns logits only; the dense and hybrid models have
 no auxiliary loss, so the loss function takes aux = 0 as the JAX versions
-of those models return it.
+of those models return it.  A MoE model's loss would add the router's aux
+loss (the JAX package's `loss + aux`), and its MLA prefill would need the
+flash backward at head dims 192/128: the loss function refuses MoE and MLA
+configs until that training is ported (ROADMAP.md Queue 1, "MoE and MLA
+training").
 """
 from __future__ import annotations
 
@@ -16,6 +20,11 @@ from repro_torch.optim.adamw import OptState, adamw_update, init_opt
 
 def make_loss_fn(model):
     cfg = model.cfg
+    if cfg.moe is not None or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE and MLA training is not ported (ROADMAP.md "
+            f"Queue 1, \"MoE and MLA training\"): the MoE aux loss would "
+            f"be dropped")
 
     def loss_fn(params, batch):
         logits = model.forward(params, batch)

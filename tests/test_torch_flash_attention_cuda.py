@@ -32,6 +32,32 @@ def _qkv(B, S, H, G, hd, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mla_head_dims_match_plain(dtype):
+    """On the card: q/k head dim 192 with v head dim 128 (DeepSeek-V2's
+    MLA), a ragged GQA case: the output has v's head dim and holds the
+    tolerances above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    q, k, _ = _qkv(2, 203, 8, 2, 192, seed=6)
+    v = np.random.default_rng(7).standard_normal((2, 203, 2, 128)).astype(
+        np.float32)
+    q, k, v = (torch.from_numpy(a).to("cuda", dt) for a in (q, k, v))
+    for window, cap in [(None, 0.0), (50, 50.0)]:
+        out = ops.flash_attention(q, k, v, window=window, logit_softcap=cap,
+                                  scale=192 ** -0.5)
+        assert out.shape == (2, 203, 8, 128)
+        plain = ref.flash_attention_blockwise(
+            q.float(), k.float(), v.float(), window=window,
+            logit_softcap=cap, scale=192 ** -0.5)
+        if dt == torch.float32:
+            assert float((out - plain).abs().max()) < 1e-4
+        else:
+            assert _bf16_excess(out, plain) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
 def test_cuda_kernel_matches_plain(dtype, hd):
     """On the card: the kernel against the plain version, a ragged GQA case.

@@ -11,6 +11,8 @@ bf16 rounding of the plain blockwise version's fp32 result (`bf16_excess`,
 as chip_smoke.py and tests/test_torch_flash_attention_cuda.py measure the
 kernel).  The same emulation with P as one bf16 term, or with P rounded to
 TF32, lies well beyond that tolerance: two terms are the design."""
+from unittest import mock
+
 import numpy as np
 import pytest
 
@@ -40,20 +42,20 @@ def tf32(x):
 
 def tc_emulation(q, k, v, *, window, cap, scale, p_terms="split",
                  bq=128, bk=64):
-    """The tensor-core kernel's arithmetic on bf16 q (B,S,H,hd), k/v
-    (B,T,G,hd); returns bf16 (B,S,H,hd).  p_terms: "split" (P_hi + P_lo,
+    """The tensor-core kernel's arithmetic on bf16 q (B,S,H,hd), k
+    (B,T,G,hd), v (B,T,G,hd_v); returns bf16 (B,S,H,hd_v).  p_terms: "split" (P_hi + P_lo,
     the kernel), "hi" (one bf16 term) or "tf32" (P rounded to TF32)."""
     B, S, H, hd = q.shape
-    T = k.shape[1]
+    T, hdv = k.shape[1], v.shape[3]
     qf = q.float().transpose(1, 2)                                # B,H,S,hd
     kf = ref.expand_kv(k, H).float().transpose(1, 2)
     vf = ref.expand_kv(v, H).float().transpose(1, 2)
-    out = torch.empty((B, H, S, hd), dtype=torch.float32)
+    out = torch.empty((B, H, S, hdv), dtype=torch.float32)
     for q0 in range(0, S, bq):
         rows = torch.arange(q0, min(q0 + bq, S))
         m = torch.full((B, H, len(rows)), NEG_INF)
         l = torch.zeros((B, H, len(rows)))
-        o = torch.zeros((B, H, len(rows), hd))
+        o = torch.zeros((B, H, len(rows), hdv))
         k_first = max(0, q0 - window + 1) if window else 0
         k_end = min(int(rows[-1]) + 1, T)
         for k0 in range((k_first // bk) * bk, k_end, bk):
@@ -84,15 +86,15 @@ def tc_emulation(q, k, v, *, window, cap, scale, p_terms="split",
     return out.transpose(1, 2).bfloat16()
 
 
-def _case(B, S, H, G, hd, seed):
+def _case(B, S, H, G, hd, seed, hdv=None):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
             .bfloat16() for shape in ((B, S, H, hd), (B, S, G, hd),
-                                      (B, S, G, hd))]
+                                      (B, S, G, hdv or hd))]
 
 
-def _excess(hd, S, window, cap, p_terms, seed=0):
-    q, k, v = _case(1, S, 4, 2, hd, seed)
+def _excess(hd, S, window, cap, p_terms, seed=0, hdv=None):
+    q, k, v = _case(1, S, 4, 2, hd, seed, hdv)
     out = tc_emulation(q, k, v, window=window, cap=cap, scale=hd ** -0.5,
                        p_terms=p_terms)
     exact = ref.flash_attention_blockwise(q.float(), k.float(), v.float(),
@@ -144,3 +146,72 @@ def test_route_refuses_other_types_and_head_dims():
         kernel.route(torch.float16, 64)
     with pytest.raises(ValueError):
         kernel.route(torch.bfloat16, 96)
+    for hd, hd_v in ((192, 192), (128, 192), (192, 64), (256, 128),
+                     (128, 64)):
+        with pytest.raises(ValueError):
+            kernel.route(torch.bfloat16, hd, hd_v)
+
+
+# ---------------------------------------------------------------------------
+# q/k head dim 192 with v head dim 128 (DeepSeek-V2's MLA)
+# ---------------------------------------------------------------------------
+
+
+def test_route_of_the_mla_pair():
+    """bf16: Q and K in 3 panels of 64, V in 2 (not padded to 3): 48 KB of
+    Q + 2 stages x (24 KB of K + 16 KB of V) + 1 KB; fp32: V rows of 128
+    floats beside Q and K rows of 196."""
+    assert kernel.route(torch.bfloat16, 192, 128) == kernel.Route(
+        1, 128, 64, 2, 256, 3 * 128 * 128 + 2 * (3 + 2) * 64 * 128 + 1024)
+    assert kernel.route(torch.bfloat16, 192, 128).smem_bytes == 132096
+    assert kernel.route(torch.float32, 192, 128) == kernel.Route(
+        0, 64, 32, 1, 256, 4 * (64 * 196 + 32 * 196 + 32 * 128))
+    assert kernel.route(torch.bfloat16, 128) == kernel.route(
+        torch.bfloat16, 128, 128)
+
+
+@pytest.mark.parametrize("hd,hd_v", [(192, 192), (192, 64), (128, 64),
+                                     (256, 128)])
+def test_launcher_refuses_other_mixed_pairs_before_any_cuda_call(hd, hd_v):
+    q = torch.zeros((1, 8, 2, hd))
+    k = torch.zeros((1, 8, 2, hd))
+    v = torch.zeros((1, 8, 2, hd_v))
+    with mock.patch.object(kernel._build, "library",
+                           side_effect=AssertionError("built")):
+        with pytest.raises(ValueError, match="head dims"):
+            kernel.flash_attention_cuda(q, k, v, scale=1.0)
+
+
+def test_launcher_refuses_cpu_tensors_before_any_cuda_call():
+    q, k = torch.zeros((1, 8, 2, 192)), torch.zeros((1, 8, 2, 192))
+    v = torch.zeros((1, 8, 2, 128))
+    with mock.patch.object(kernel._build, "library",
+                           side_effect=AssertionError("built")):
+        with pytest.raises(ValueError, match="CUDA device"):
+            kernel.flash_attention_cuda(q, k, v, scale=1.0)
+
+
+def test_mla_pair_plain_version_matches_jax_blockwise():
+    """The plain blockwise version at q/k 192, v 128 against the JAX
+    model's blockwise `flash_attention` (which takes expanded K/V), fp32,
+    within 1e-5; the output has v's head dim."""
+    jax = pytest.importorskip("jax")
+    from repro.models.attention import flash_attention as jflash
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((2, 70, 4, 192)).astype(np.float32)
+    k = rng.standard_normal((2, 70, 4, 192)).astype(np.float32)
+    v = rng.standard_normal((2, 70, 4, 128)).astype(np.float32)
+    out = ref.flash_attention_blockwise(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        scale=192 ** -0.5, q_block=16, kv_block=16)
+    jout = jax.jit(lambda q, k, v: jflash(q, k, v, scale=192 ** -0.5,
+                                          q_block=16, kv_block=16))(q, k, v)
+    assert out.shape == (2, 70, 4, 128)
+    assert float(np.abs(out.numpy() - np.asarray(jout)).max()) < 1e-5
+
+
+@pytest.mark.parametrize("S,window,cap", [(203, None, 0.0), (256, 100, 50.0)])
+def test_split_p_emulation_at_the_mla_pair(S, window, cap):
+    """The tensor-core kernel's design at q/k 192, v 128 lies within
+    BF16_ATOL of one rounding of the plain version's fp32 result."""
+    assert _excess(192, S, window, cap, "split", hdv=128) <= BF16_ATOL
