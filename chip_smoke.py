@@ -41,7 +41,13 @@ Phases; any failure exits non-zero:
       if SDPA refuses the shape), and the 192/128 pair at a ragged GQA case
       (2, 203, 8/2) in bf16 and fp32; the WKV at (1, 4224, 32, 64), the SSD
       at (1, 4224, 80, 64) with its final state: "serve_b1" in the JSON
-      rows); then the SSD backward kernels (three chunk-parallel
+      rows); flash at whisper-base's three served shapes in bf16 and
+      fp32, each beside SDPA: the encoder (1, 1500, 16/8, 64) and the
+      cross-attention (432 queries against 1500 keys) with causal=False,
+      the decoder's self-attention (1, 432, 16/8, 64) causal; probs_bf16
+      at the encoder's shape against the plain version with the flag at
+      the kernel's 64-key tiles, and rows without an allowed key (not causal, a window) exactly 0; then
+      the SSD backward kernels (three chunk-parallel
       stages and the sum over head groups, the products in 3xTF32 on the
       tensor cores) against autograd through the plain version and against
       the plain backward `ssd_chunked_bwd` (fp32 at the main shape in three
@@ -51,7 +57,9 @@ Phases; any failure exits non-zero:
       the TF32 rate), each product's route, beside the recompute's ms
       (autograd of the plain version, the op's backward before it had a
       kernel); the gradients through the flash op against autograd through
-      its plain version, and its backward's ms;
+      its plain version, and its backward's ms, also not causal at 448
+      queries against 1500 keys and at q/k 192 with v 128, each also
+      against the plain version's fp64 autograd;
   (c) the main paths, each with the launch counts set to 0 just before and
       read just after: the paper's dwork scheduler running the METG ladder
       of A^T B tasks (launch.metg: n = 256 ... 4096, backlogs of up to
@@ -154,7 +162,19 @@ Phases; any failure exits non-zero:
       none differ), the served first tokens the bf16 prefill's argmax, the
       MoE's dropped choices over the served prefills, prefill ms, decode
       ms a token, p50/p95/p99, the peak memory (held under 80 GB).  Then
-      zamba2-2.7b
+      the same traffic at whisper-base's text context (432-token prompts,
+      16 new tokens) through full-width whisper-base (6 encoder and 6
+      decoder layers, zero frames as launch.serve gives them; 80,117,760
+      parameters): the front door's checks, 18 flash launches a prefill
+      batch (72), the first served batch's prefill kernel path against
+      plain path on seeded random frames (held in fp32, printed in bf16),
+      the served first tokens the bf16 prefill's argmax; prefill ms, decode
+      ms a token, p50/p95/p99, peak memory.  Then whisper-base trained 4
+      steps at batch 2 x 448 (18 flash op calls a step) and
+      deepseek-v2-lite-16b at full width and 2 layers trained 4 steps at
+      batch 2 x 1024 (2 flash op calls a step at q/k 192, v 128; every
+      step's router aux loss finite and > 0), through launch.train: step
+      ms, losses, peak memory.  Then zamba2-2.7b
       training:
       one fp32 train step at full width and one group of depth, kernel path
       against plain path (loss, grad norm, every gradient; 6 SSD forward and
@@ -205,7 +225,11 @@ Phases; any failure exits non-zero:
       rows' mean us a hop, hop_us, in front_door); the gemma2 flash row's
       pmake campaigns, campaign, and its served run's observability,
       serve_obs; the flash row with the served figures and the two
-      profiles, serve; the gemma2 flash row with deepseek-7b's serve,
+      profiles, serve; a third flash row, whisper-base's: its encoder
+      shape's figures, cross, decoder, fp32, probs_bf16, grad_cross, its
+      serve's launches and figures and its training's train_* keys; the
+      gemma2 flash row with grad_mla, deepseek_v2_lite_train and
+      deepseek-7b's serve,
       deepseek, and its batch-1 prefill shape's figures, deepseek_b1;
       deepseek-v2-lite-16b's and qwen2-vl-2b's serves, deepseek_v2_lite
       and qwen2_vl, and their prefill shapes' figures,
@@ -351,6 +375,50 @@ MATMUL_LADDER = [(n, n, n) for n in (256, 512, 1024, 2048, 4096)]
 # half a bf16 ulp of the plain version's fp32 result plus that fp32 bound
 # (bf16_excess); at the sweep's shapes also the sweep's 0.25 absolute.
 MATMUL_SWEEP_ATOL = {"float32": 1e-4, "bfloat16": 0.25}
+# whisper-base (6 encoder and 6 decoder layers, d_model 512, 8 heads of 64
+# padded to 16 on 8 KV heads, 1500 frames; 80,117,760 parameters) served
+# 4 requests of 432-token prompts and 16 new tokens (448, its text
+# context), 4 batches of 1.  Its flash shapes: the encoder (1, 1500, 16/8,
+# 64) and the cross-attention (432 queries against 1500 keys) without the
+# causal mask, the decoder's self-attention (1, 432, 16/8, 64) causal: 18
+# launches a prefill (6 + 6 + 6), none in decode
+WH_ARGV = ["--arch", "whisper-base", "--no-reduced", "--requests", "4",
+           "--prompt-len", "432", "--max-new", "16", "--device", "cuda",
+           "--workers", "1"]
+WHQ, WHG, WHD, WHF, WHS = 16, 8, 64, 1500, 432
+# (name, batch, queries, keys, q heads, KV heads, q/k head dim, v head
+# dim, causal): whisper's three served shapes, in bf16 and fp32, then in
+# bf16 with the backward's ms the training shapes of whisper at 2 x 448
+# and of deepseek-v2-lite's MLA at 2 x 1024
+WHISPER_CASES = (("encoder", 1, WHF, WHF, WHQ, WHG, WHD, WHD, False),
+                 ("cross", 1, WHS, WHF, WHQ, WHG, WHD, WHD, False),
+                 ("decoder", 1, WHS, WHS, WHQ, WHG, WHD, WHD, True))
+TRAIN_CASES = (("train_encoder", 2, WHF, WHF, WHQ, WHG, WHD, WHD, False),
+               ("train_cross", 2, 448, WHF, WHQ, WHG, WHD, WHD, False),
+               ("train_decoder", 2, 448, 448, WHQ, WHG, WHD, WHD, True),
+               ("train_mla", 2, 1024, 1024, 16, 16, 192, 128, True))
+WHISPER_TRAIN_ARGV = ["--arch", "whisper-base", "--no-reduced", "--steps",
+                      "4", "--global-batch", "2", "--seq", "448", "--device",
+                      "cuda"]
+# deepseek-v2-lite-16b trained at full width and 2 layers (the dense first
+# layer and one MoE layer; 1,085,287,424 parameters): MLA's flash at q/k
+# 192, v 128 with its backward recompute, the loss with the router's aux
+DSV2_TRAIN_ARGV = ["--arch", "deepseek-v2-lite-16b", "--no-reduced",
+                   "--layers", "2", "--steps", "4", "--global-batch", "2",
+                   "--seq", "1024", "--device", "cuda"]
+# probs_bf16: P is rounded to bf16 before P.V.  The plain version run at
+# the kernel's 64-key tiles (kv_block=64) keeps the kernel's running max
+# tile by tile, so both round P at the same points; only P's fp32 value
+# differs (exp2f against exp, the order of the score sums), which moves a
+# rare P across a rounding midpoint to the neighbouring bf16 value.  One
+# such flip moves an output by at most 2^-7 p_t |v_t| (p_t the key's final
+# probability), <= 2^-7 max_t p_t max|v| in its row: the row's flip unit.
+# Held: every element within BF16_ATOL beyond one bf16 rounding of the
+# plain fp32 result plus one flip unit of its row, and at most
+# PROBS_BF16_FLIP_SHARE of them beyond BF16_ATOL.  A fault moves most
+# elements: the kernel's output without the flag (P_hi + P_lo) is held to
+# the same check and must fail it
+PROBS_BF16_FLIP_SHARE = 1e-3
 # (c) the front door's schedulers: fp32 A^T B tasks a size, the sizes, and
 # mpi_list's rank blocks (one `Client.map` element a rank)
 FRONT_DOOR_TASKS, FRONT_DOOR_SIZES, FRONT_DOOR_RANKS = 2000, (256, 1024), 16
@@ -433,15 +501,52 @@ def bf16_excess(out, exact) -> float:
     return float(((out.float() - x).abs() - half_ulp).max())
 
 
-def attention_bound(b, s, hq, g, hd, window, itemsize, flops_peak, hd_v=None):
+def probs_bf16_excess(torch, fa_ref, outs, q, k, v, kw):
+    """Each bf16 output in `outs` against the plain version with
+    probs_bf16 at the kernel's 64-key tiles, in fp32 (q and k in fp32, v
+    bf16, so P is rounded to bf16): for each, (the worst of (excess -
+    BF16_ATOL) / the row's flip unit, the share of elements whose excess
+    passes BF16_ATOL, the worst excess), the excess beyond one bf16
+    rounding as in bf16_excess; see PROBS_BF16_FLIP_SHARE.  kw: causal and
+    scale."""
+    exact = fa_ref.flash_attention_blockwise(q.float(), k.float(), v,
+                                             probs_bf16=True, kv_block=64,
+                                             **kw)
+    _, e = torch.frexp(exact)
+    half_ulp = torch.where(exact == 0, torch.zeros_like(exact),
+                           torch.ldexp(torch.ones_like(exact), e - 9))
+    # each row's largest probability, exp(max_t s - logsumexp_t s)
+    s = torch.einsum("bshd,bthd->bhst", q.float(),
+                     fa_ref.expand_kv(k, q.shape[2]).float()) * kw["scale"]
+    if kw["causal"]:
+        S, T = s.shape[-2:]
+        s = s.masked_fill(torch.ones(S, T, dtype=torch.bool,
+                                     device=s.device).triu(1), -torch.inf)
+    p_max = torch.exp(s.amax(-1) - torch.logsumexp(s, -1)).transpose(1, 2)
+    unit = 2.0 ** -7 * p_max[..., None] * float(v.float().abs().max())
+    res = []
+    for out in outs:
+        excess = (out.float() - exact).abs() - half_ulp
+        res.append((float(((excess - BF16_ATOL) / unit).max()),
+                    float((excess > BF16_ATOL).float().mean()),
+                    float(excess.max())))
+    return res
+
+
+def attention_bound(b, s, hq, g, hd, window, itemsize, flops_peak, hd_v=None,
+                    t=None, causal=True):
     """Least time for the function: allowed (q, k) pairs x 2*(hd + hd_v)
     FLOPs (Q.K^T at the q/k head dim hd, P.V at the v head dim hd_v,
-    default hd), and q, k, v read once plus o written once."""
+    default hd), and q, k, v read once plus o written once.  s queries
+    against t keys (default s); query i sees key j < t where (not causal
+    or j <= i) and (no window or i - j < window)."""
     hd_v = hd if hd_v is None else hd_v
-    w = window or s + 1
-    pairs = sum(min(i + 1, w) for i in range(s)) * b * hq
+    t = s if t is None else t
+    pairs = sum(max(0, (min(i, t - 1) if causal else t - 1)
+                    - (max(0, i - window + 1) if window else 0) + 1)
+                for i in range(s)) * b * hq
     flops = 2.0 * (hd + hd_v) * pairs
-    nbytes = itemsize * (b * s * hq * (hd + hd_v) + b * s * g * (hd + hd_v))
+    nbytes = itemsize * (b * s * hq * (hd + hd_v) + b * t * g * (hd + hd_v))
     t_ops, t_bytes = flops / flops_peak, nbytes / H100_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes"), flops
@@ -2148,8 +2253,11 @@ def grad_check(torch, name, kernel_fn, plain_fn, ins, g, out_tol):
 
 def phase_grads(torch, fa_ops, fa_ref):
     """Gradients through the flash op at zamba2's training shape, fp32,
-    against autograd through the plain version; the backward ms per layer
-    in the type training runs (bf16)."""
+    against autograd through the plain version; then not causal at 448
+    queries against 1500 keys (whisper's cross-attention) and at q/k 192
+    with v 128 (MLA), each also against the plain version's fp64
+    autograd (flash_grad_fp64).  Returns the backward ms per layer in the
+    type training runs (bf16), and those two checks' figures."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     kw = dict(scale=ZHD ** -0.5, q_block=512, kv_block=512)
     qkv = [torch.randn((ZB, ZS, ZH, ZHD), generator=gen, device="cuda")
@@ -2159,6 +2267,24 @@ def phase_grads(torch, fa_ops, fa_ref):
                lambda *a: fa_ops.flash_attention(*a, **kw),
                lambda *a: fa_ref.flash_attention_blockwise(*a, **kw), qkv, g,
                FP32_TOL)
+    # whisper's cross-attention trained at batch 2 (448 queries against
+    # 1500 keys, not causal), and MLA's q/k 192 with v 128 at deepseek-v2-
+    # lite's training shape: each also against fp64
+    t0 = time.perf_counter()
+    extra = {}
+    for name, (b, s, t, hq, g_, hd, hd_v, causal) in (
+            ("whisper_cross", (2, 448, WHF, WHQ, WHG, WHD, WHD, False)),
+            ("mla", (2, 1024, 1024, MLAH, MLAH, MLAHD, MLAHDV, True))):
+        ins = [torch.randn(shape, generator=gen, device="cuda")
+               for shape in ((b, s, hq, hd), (b, t, g_, hd), (b, t, g_, hd_v))]
+        go = torch.randn((b, s, hq, hd_v), generator=gen, device="cuda")
+        extra[name] = flash_grad_fp64(
+            torch, f"flash_attention fp32 q{(b, s, hq, hd)} k{(b, t, g_, hd)} "
+            f"v{(b, t, g_, hd_v)} causal={causal}", fa_ops, fa_ref, ins, go,
+            dict(causal=causal, scale=hd ** -0.5, q_block=512, kv_block=512))
+        del ins, go
+    print(f"[b] the flash op's gradients not causal and at 192/128, against "
+          f"fp32 and fp64: {time.perf_counter() - t0:.1f}s")
     qkv = [t.bfloat16().requires_grad_() for t in qkv]
     out = fa_ops.flash_attention(*qkv, **kw)
     fa_bwd = cuda_ms(lambda: torch.autograd.grad(out, qkv, g.bfloat16(),
@@ -2167,7 +2293,7 @@ def phase_grads(torch, fa_ops, fa_ref):
           f"{fa_bwd:.2f} (recompute of the blockwise version, q/kv blocks 512)")
     del qkv, out
     torch.cuda.empty_cache()
-    return fa_bwd
+    return fa_bwd, extra
 
 
 def flex_yardstick(torch, q, k, v, window, cap, scale, compiled):
@@ -2403,6 +2529,198 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
     return row, zrow
 
 
+def phase_kernel_whisper(torch, fa_ops, fa_ref, fa_kernel):
+    """The flash kernel at whisper-base's three served shapes
+    (WHISPER_CASES), bf16 and fp32, against its plain version (BF16_ATOL
+    beyond one rounding, FP32_TOL), each with its ms, the plain version's,
+    the bound and SDPA's (the same function: is_causal as the shape,
+    enable_gqa); probs_bf16 at the encoder's shape in bf16 against the
+    plain version with the flag at the kernel's tiles (probs_bf16_excess,
+    PROBS_BF16_FLIP_SHARE), the kernel's output without the flag failing
+    that check; and not causal with a window that leaves rows without a
+    key: those rows exactly 0 in both types.  The training shapes (TRAIN_CASES) in bf16 likewise, each with
+    its backward's ms (the plain version's recompute at blocks of 512).
+    Returns the whisper row (the encoder's bf16 figures, the others under
+    "cross", "decoder", "fp32", "probs_bf16", "train_encoder",
+    "train_cross", "train_decoder") and the MLA training shape's figures."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    F = torch.nn.functional
+    row, fp32, mla = None, {}, None
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        cases = WHISPER_CASES + (TRAIN_CASES if dt == "bfloat16" else ())
+        for name, b, s, t, hq, g, hd, hd_v, causal in cases:
+            rt, crt = (fa_kernel.route(dtype, hd, hd_v),
+                       fa_kernel.c_route(dtype, hd, hd_v))
+            if name in ("encoder", "train_mla"):
+                print(f"[b] {dt} q/k {hd}, v {hd_v}: route() {rt}; the "
+                      f"library's c_route() {crt}")
+            if rt != crt:
+                raise SystemExit(f"flash_attention route: {rt} stated, "
+                                 f"{crt} taken")
+            q = torch.randn((b, s, hq, hd), generator=gen,
+                            device="cuda").to(dtype)
+            k = torch.randn((b, t, g, hd), generator=gen,
+                            device="cuda").to(dtype)
+            v = torch.randn((b, t, g, hd_v), generator=gen,
+                            device="cuda").to(dtype)
+            kw = dict(causal=causal, scale=hd ** -0.5)
+            out = fa_ops.flash_attention(q, k, v, **kw)
+            plain32 = fa_ref.flash_attention_blockwise(
+                q.float(), k.float(), v.float(), **kw)
+            err = float((out.float() - plain32.to(dtype).float()).abs().max())
+            if dt == "bfloat16":
+                excess = bf16_excess(out, plain32)
+                check = (f"beyond one bf16 rounding of the fp32 result: "
+                         f"{excess:.3e} (tol {BF16_ATOL:.0e})")
+                ok = excess <= BF16_ATOL
+            else:
+                check = f"(tol {FP32_TOL:.0e})"
+                ok = err < FP32_TOL
+            ok = ok and bool(torch.isfinite(out).all())
+            ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), 20)
+            plain_ms = cuda_ms(lambda: fa_ref.flash_attention_blockwise(
+                q, k, v, **kw), 5)
+            bound_ms, bound_by, flops = attention_bound(
+                b, s, hq, g, hd, None, q.element_size(),
+                H100_BF16_FLOPS if dt == "bfloat16" else H100_FP32_FLOPS,
+                hd_v, t=t, causal=causal)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt,
+                                     vt, is_causal=causal, scale=hd ** -0.5,
+                                     enable_gqa=g != hq)
+            sdpa_err = float((sdpa().transpose(1, 2).float() - out.float())
+                             .abs().max())
+            sdpa_ms = cuda_ms(sdpa, 20)
+            bwd = ""
+            if name.startswith("train"):
+                # the op's backward in training: the plain version
+                # recomputed at blocks of 512 and differentiated
+                a = [x.detach().requires_grad_() for x in (q, k, v)]
+                o = fa_ops.flash_attention(*a, q_block=512, kv_block=512,
+                                           **kw)
+                go = torch.randn(o.shape, generator=gen,
+                                 device="cuda").to(dtype)
+                bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                    o, a, go, retain_graph=True), 3)
+                bwd = f" backward_ms={bwd_ms:.3f}"
+                del a, o, go
+            print(f"[b] {name} {dt:8s} q{(b, s, hq, hd)} k{(b, t, g, hd)} "
+                  f"v{(b, t, g, hd_v)} causal={causal}: max_abs_err="
+                  f"{err:.3e} {check} kernel_ms={ms:.4f} plain_ms="
+                  f"{plain_ms:.3f} bound_ms={bound_ms:.4f} ({bound_by}, "
+                  f"{flops:.3e} FLOP) sdpa_ms={sdpa_ms:.4f} max_abs_err vs "
+                  f"sdpa={sdpa_err:.3e}{bwd} [{rt.describe()}] "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"flash_attention disagrees with its plain "
+                                 f"version at the {name} shape, {dt}: "
+                                 f"{check}")
+            sub = {"shape": [b, s, t, hq, g, hd, hd_v], "causal": causal,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": sdpa_ms,
+                   "library": "scaled_dot_product_attention",
+                   "tiling": rt.describe()}
+            if bwd:
+                sub["bwd_ms"] = bwd_ms
+            if name == "train_mla":
+                mla = {**sub, "bf16_excess": excess}
+            elif dt == "float32":
+                fp32[name] = sub
+            elif name == "encoder":
+                row = {"name": "flash_attention", "path": "whisper-base serve",
+                       "route": "cuda",
+                       "source": "src/repro_torch/csrc/flash_attention.cu",
+                       "replaces":
+                           "src/repro/kernels/flash_attention/kernel.py:24",
+                       "launches": None, **sub, "bf16_excess": excess}
+                enc = (q, k, v)
+            else:
+                row[name] = {**sub, "bf16_excess": excess}
+            del q, k, v, out, plain32, qt, kt, vt, sdpa
+    row["fp32"] = fp32
+
+    # probs_bf16 at the encoder's shape: P_hi . V alone
+    q, k, v = enc
+    kw = dict(causal=False, scale=WHD ** -0.5)
+    out = fa_ops.flash_attention(q, k, v, probs_bf16=True, **kw)
+    (units, share, worst), (c_units, c_share, _) = probs_bf16_excess(
+        torch, fa_ref, [out, fa_ops.flash_attention(q, k, v, **kw)], q, k,
+        v, kw)
+    ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, probs_bf16=True,
+                                                **kw), 20)
+    print(f"[b] whisper encoder bf16 probs_bf16=True vs the plain version "
+          f"with the flag at the kernel's 64-key tiles: beyond one bf16 "
+          f"rounding of its fp32 result {worst:.3e}, beyond BF16_ATOL "
+          f"{share:.3e} of the elements (tol {PROBS_BF16_FLIP_SHARE:g}), "
+          f"the worst {units:.3f} of its row's flip unit (tol 1); the "
+          f"kernel without the flag {c_share:.3e} and {c_units:.3f} (must "
+          f"fail); kernel_ms={ms:.4f} (without {row['ms']:.4f})")
+    ok = units <= 1 and share <= PROBS_BF16_FLIP_SHARE
+    if not ok or (c_units <= 1 and c_share <= PROBS_BF16_FLIP_SHARE):
+        raise SystemExit("flash_attention with probs_bf16 disagrees with "
+                         "its plain version, or the check cannot tell the "
+                         "flag's absence")
+    row["probs_bf16"] = {"bf16_excess": worst, "flip_units": units,
+                         "share_beyond_atol": share,
+                         "without_flag_share": c_share, "ms": ms}
+    del q, k, v, enc, out
+
+    # not causal with a window: query s sees t in (s - 200, 100), so rows
+    # s >= 299 see no key and give zeros
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, WHS, WHQ, WHD), generator=gen,
+                        device="cuda").to(dtype)
+        k, v = (torch.randn((1, 100, WHG, WHD), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        kw = dict(causal=False, window=200, scale=WHD ** -0.5)
+        out = fa_ops.flash_attention(q, k, v, **kw)
+        plain32 = fa_ref.flash_attention_blockwise(q.float(), k.float(),
+                                                   v.float(), **kw)
+        zero = bool((out[:, 299:] == 0).all())
+        err = (bf16_excess(out, plain32) if dtype == torch.bfloat16 else
+               float((out - plain32).abs().max()))
+        tol = BF16_ATOL if dtype == torch.bfloat16 else FP32_TOL
+        print(f"[b] whisper rows without a key ({dtype}, not causal, window "
+              f"200, 100 keys): rows 299.. all zero: {zero}; the rest "
+              f"{err:.3e} (tol {tol:.0e})")
+        if not zero or err > tol:
+            raise SystemExit("flash_attention: a row without an allowed key "
+                             "is not zero, or the others disagree")
+    row["phase_s"] = time.perf_counter() - t_phase
+    print(f"[b] whisper-base's and the training flash shapes: "
+          f"{row['phase_s']:.1f}s")
+    return row, mla
+
+
+def flash_grad_fp64(torch, name, fa_ops, fa_ref, ins, g, kw):
+    """grad_check of the flash op against its plain version's fp32
+    autograd, then the op's gradients (fp32) against the plain version's
+    autograd in fp64 on the same inputs, within GRAD_TOL of max(1, max
+    |fp64 grad|) each (ROADMAP.md Queue 3: fp32 autograd is not an exact
+    reference).  Returns the worst errors and the backward's ms."""
+    err32, ms = grad_check(
+        torch, name, lambda *a: fa_ops.flash_attention(*a, **kw),
+        lambda *a: fa_ref.flash_attention_blockwise(*a, **kw), ins, g,
+        FP32_TOL)
+    a = [t.clone().requires_grad_() for t in ins]
+    ga = torch.autograd.grad(fa_ops.flash_attention(*a, **kw), a, g)
+    d = [t.double().requires_grad_() for t in ins]
+    gd = torch.autograd.grad(fa_ref.flash_attention_blockwise(*d, **kw), d,
+                             g.double())
+    errs = [float((x.double() - y).abs().max()) / max(1.0,
+                                                      float(y.abs().max()))
+            for x, y in zip(ga, gd)]
+    print(f"[b] grad {name}: the op's fp32 gradients vs the plain version's "
+          f"fp64 autograd, per input {[float(f'{e:.3e}') for e in errs]} "
+          f"(tol {GRAD_TOL:.0e}) {'ok' if max(errs) <= GRAD_TOL else 'FAIL'}")
+    if max(errs) > GRAD_TOL:
+        raise SystemExit(f"{name}: gradients off fp64 by {errs}")
+    return {"grad_err_fp32": err32, "grad_err_fp64": max(errs), "bwd_ms": ms}
+
+
 def sdpa_yardstick(torch, q, k, v, out, scale, what):
     """The one PyTorch call that computes causal attention (no window, no
     softcap) on q (B,S,Hq,hd), k (B,T,G,hd), v (B,T,G,hd_v): SDPA with
@@ -2457,12 +2775,17 @@ def front_door_checks(res, name: str) -> list:
 
 def serve_batch(torch, cfg, toks):
     """The batch `launch.serve` makes of prompts `toks`: for an M-RoPE model
-    also the text positions on all 3 streams."""
+    also the text positions on all 3 streams; for an audio model zero bf16
+    encoder frames."""
     batch = {"tokens": toks}
     if cfg.mrope:
         b, s = toks.shape
         batch["mrope_positions"] = torch.arange(
             s, device=toks.device).expand(3, b, s)
+    if cfg.family == "audio":
+        batch["encoder_frames"] = torch.zeros(
+            (toks.shape[0], cfg.encoder.n_frames, cfg.d_model),
+            dtype=torch.bfloat16, device=toks.device)
     return batch
 
 
@@ -2879,16 +3202,17 @@ class RoutePin(RouteLog):
 
 
 def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
-                      dims, n_params):
-    """`arch` (a transformer: deepseek-7b, deepseek-v2-lite-16b,
-    qwen2-vl-2b) at full width and depth through `launch.serve` and
-    `Client.serve`, four batches of 1: the front door's checks, `dims`
-    (layers, d_model, heads, KV heads, head dim, vocab) and the parameter
-    count, the
-    flash kernel launched once a layer and prefill batch, 4 replies of 16
-    in-vocab tokens.  Then the first served batch's prefill on the kernel
-    path and the plain path (the params read through an fp32 cast), in
-    fp32 and bf16 (printed).  A MoE
+                      dims, n_params, argv=None, per_batch=None):
+    """`arch` (deepseek-7b, deepseek-v2-lite-16b, qwen2-vl-2b, whisper-base)
+    at full width and depth through `launch.serve` and `Client.serve`
+    (`argv`, by default ARGV: four batches of 1): the front door's checks,
+    `dims` (layers, d_model, heads, KV heads, head dim, vocab) and the
+    parameter count, the flash kernel launched `per_batch` times a prefill
+    batch (by default once a layer), 4 replies of 16 in-vocab tokens.
+    Then the first served batch's prefill on the kernel path and the plain
+    path (the params read through an fp32 cast), in fp32 and bf16
+    (printed); an audio model's on seeded random frames (the serve gave it
+    zeros).  A MoE
     model's router may pick another expert on the two paths where a token
     sits near a top-k tie (they sum attention in other orders): each
     layer's choices are recorded, the last position's printed per layer on
@@ -2902,11 +3226,12 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
     printed beside it.  The
     served first tokens are the bf16 kernel path's argmax.  Prints prefill
     ms, decode ms a token, p50/p95/p99, the peak memory (held under 80 GB)
-    and, for a MoE model, the choices dropped over the served prefills."""
+    and, for a MoE model, the choices dropped over the served prefills, and
+    the phase's seconds."""
     torch.cuda.reset_peak_memory_stats()
     fa_ops.flash_attention.launches = 0
     t0 = time.perf_counter()
-    res = serve.main(["--arch", arch, *ARGV])
+    res = serve.main(argv or ["--arch", arch, *ARGV])
     wall = time.perf_counter() - t0
     launches = fa_ops.flash_attention.launches
     peak = torch.cuda.max_memory_allocated()
@@ -2925,9 +3250,10 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
           f"{res['decode_s'] * 1e3 / res['decode_steps']:.2f} latency_ms "
           f"p50={p50:.1f} p95={p95:.1f} p99={p99:.1f} "
           f"max_memory_allocated_GB={peak / 1e9:.2f}")
-    want = cfg.n_layers * len(res["batches"])
+    per_batch = per_batch or cfg.n_layers
+    want = per_batch * len(res["batches"])
     print(f"[c] {arch} flash_attention launches={launches} (want "
-          f"{cfg.n_layers} layers x {len(res['batches'])} batches)")
+          f"{per_batch} a prefill x {len(res['batches'])} batches)")
     if launches != want:
         raise SystemExit(f"{arch}: flash launched {launches} times, want "
                          f"{want}")
@@ -2943,6 +3269,10 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
     toks = torch.as_tensor(np.stack(res["prompts"][:first]),
                            device="cuda").long()
     batch = serve_batch(torch, cfg, toks)
+    if cfg.family == "audio":
+        batch["encoder_frames"] = torch.randn(
+            (first, cfg.encoder.n_frames, cfg.d_model), device="cuda",
+            generator=torch.Generator("cuda").manual_seed(30))
     logits, routes = {}, {}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
@@ -2960,7 +3290,7 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
                     lg, _ = m.forward(params, batch, mode="prefill",
                                       dtype=dtype)
                 grew = fa_ops.flash_attention.launches - before
-                if grew != (cfg.n_layers if path == "kernel" else 0):
+                if grew != (per_batch if path == "kernel" else 0):
                     raise SystemExit(f"{arch}: the {path} path launched the "
                                      f"kernel {grew} times")
                 logits[dtype, path] = lg[:, :V].float()
@@ -3046,13 +3376,16 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
         moe_keys.update(dropped=dropped, choices=choices,
                         group=r0.idx.shape[1] // cfg.moe.top_k,
                         capacity=r0.capacity)
+    phase_s = time.perf_counter() - t0
+    print(f"[c] {arch} serve phase: {phase_s:.1f}s")
     return {"launches": launches,
             "launches_per_forward": launches // len(res["batches"]),
             "prefill_ms": res["prefill_s"] * 1e3,
             "decode_ms_per_token": res["decode_s"] * 1e3
             / res["decode_steps"],
             "latency_ms": [p50, p95, p99], "peak_gb": peak / 1e9,
-            "params": n, "fp32_logit_err": err, **moe_keys}
+            "params": n, "fp32_logit_err": err, "serve_phase_s": phase_s,
+            **moe_keys}
 
 
 def zamba_cache_rel(a, b):
@@ -3347,20 +3680,15 @@ def phase_train_step(torch, arch, n_layers, patches, counters, want):
     torch.cuda.empty_cache()
 
 
-def train_full_width(torch, train, argv, name, dims, want_params, counters,
-                     want_per_step):
+def train_run(torch, train, argv, name, dims, want_params, counters,
+              want_per_step):
     """Full-width training through `launch.train.main(argv)`, every count
     of `counters` ({label: (function, attribute)}) set to 0 just before and
-    read just after; then gradient and repeated-batch checks, one of whose
-    steps runs under the profiler.  Holds the config's (n_layers, d_model,
-    vocab) `dims`, the param count, each count at `want_per_step` a step
-    and finite losses.  Returns (counts over the run, steps, the run's
-    records, losses and peak bytes, the profiled step's summary); the model
-    is freed on return."""
-    from repro_torch.data.pipeline import Pipeline
-    from repro_torch.models.common import param_count, tree_leaves
-    from repro_torch.runtime.train_step import (make_loss_fn, make_train_step,
-                                                value_and_grad)
+    read just after.  Holds the config's (n_layers, d_model, vocab) `dims`,
+    the param count, each count at `want_per_step` a step and finite
+    losses; prints each step (a MoE model's with its aux loss).  Returns
+    (launch.train's result, counts over the run, steps)."""
+    from repro_torch.models.common import param_count
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3369,20 +3697,22 @@ def train_full_width(torch, train, argv, name, dims, want_params, counters,
         setattr(fn, attr, 0)
     res = train.main(argv)
     counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
-    model, params, opt_state = res["model"], res["params"], res["opt_state"]
-    cfg, steps = model.cfg, len(res["losses"])
-    n_params = param_count(params)
+    cfg, steps = res["model"].cfg, len(res["losses"])
+    n_params = param_count(res["params"])
     if (cfg.n_layers, cfg.d_model, cfg.vocab_size) != dims:
         raise SystemExit(f"not {name} at full width: {cfg}")
-    print(f"[c] {name} trained {steps} steps at batch {ZB} x {ZS}: "
+    batch, seq = (argv[argv.index(f) + 1] for f in ("--global-batch",
+                                                      "--seq"))
+    print(f"[c] {name} trained {steps} steps at batch {batch} x {seq}: "
           f"params={n_params:,}; losses={[round(x, 4) for x in res['losses']]}"
           f"; peak max_memory_allocated_GB="
           f"{res['peak_bytes'] / 1e9:.2f}")
     for r in res["records"]:
+        aux = f" moe_aux={r['moe_aux']:.6f}" if cfg.moe else ""
         print(f"[c]   step {r['step']}: step_ms={r['step_ms']:.1f} fwd_ms="
               f"{r['fwd_ms']:.1f} bwd_ms={r['bwd_ms']:.1f} opt_ms="
               f"{r['opt_ms']:.1f} tokens_per_s={r['tokens_per_s']:.0f} "
-              f"grad_norm={r['grad_norm']:.4f}")
+              f"grad_norm={r['grad_norm']:.4f}{aux}")
     print(f"[c] op calls per step: " + ", ".join(
         f"{k} {n / steps:g} (want {want_per_step[k]}; total {n})"
         for k, n in counts.items()))
@@ -3393,6 +3723,24 @@ def train_full_width(torch, train, argv, name, dims, want_params, counters,
                          f"{want_per_step} a step")
     if not np.isfinite(res["losses"]).all():
         raise SystemExit("non-finite training loss")
+    return res, counts, steps
+
+
+def train_full_width(torch, train, argv, name, dims, want_params, counters,
+                     want_per_step):
+    """`train_run`, then gradient and repeated-batch checks, one of whose
+    steps runs under the profiler.  Returns (counts over the run, steps,
+    the run's records, losses and peak bytes, the profiled step's
+    summary); the model is freed on return."""
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime.train_step import (make_loss_fn, make_train_step,
+                                                value_and_grad)
+
+    res, counts, steps = train_run(torch, train, argv, name, dims,
+                                   want_params, counters, want_per_step)
+    model, params, opt_state = res["model"], res["params"], res["opt_state"]
+    cfg = model.cfg
 
     # one repeated batch: every leaf's gradient, then 4 steps at warmup 0
     batch = train.to_device(next(Pipeline(cfg.vocab_size, ZS, ZB, seed=1)
@@ -3708,6 +4056,33 @@ def phase_ckpt(torch, train):
         raise SystemExit("non-finite loss after the resume")
 
 
+def phase_train_model(torch, fa_ops, train, argv, name, dims, n_params,
+                      per_step):
+    """`name` trained through `launch.train.main(argv)` (train_run) with
+    fp32 AdamW: `per_step` flash op calls a step (the backward is the plain
+    version's recompute), finite losses, and a MoE model's router aux loss
+    finite and > 0 at every step.  Returns the row's training keys and the
+    phase's seconds."""
+    t0 = time.perf_counter()
+    res, counts, steps = train_run(
+        torch, train, argv, name, dims, n_params,
+        {"flash_attention": (fa_ops.flash_attention, "launches")},
+        {"flash_attention": per_step})
+    keys = {"train_launches": counts["flash_attention"],
+            "train_launches_per_forward": counts["flash_attention"] // steps,
+            "train_step_ms": [r["step_ms"] for r in res["records"]],
+            "train_losses": res["losses"],
+            "train_peak_GB": res["peak_bytes"] / 1e9}
+    if res["model"].cfg.moe is not None:
+        keys["moe_aux"] = [r["moe_aux"] for r in res["records"]]
+        if not all(np.isfinite(x) and x > 0 for x in keys["moe_aux"]):
+            raise SystemExit(f"{name}: the router's aux loss is not finite "
+                             f"and > 0: {keys['moe_aux']}")
+    keys["train_phase_s"] = time.perf_counter() - t0
+    print(f"[c] {name} training phase: {keys['train_phase_s']:.1f}s")
+    return keys
+
+
 def device_profile(torch, what, fn, ref_ms, top=10):
     """fn() once under torch.profiler: its wall ms (host clock, the device
     synchronised, the profiler's own cost included), the device ms summed
@@ -3790,6 +4165,9 @@ def run(where: dict) -> int:
 
     where["phase"] = "(b) flash_attention"
     row, zrow = phase_kernel(torch, fa_ops, fa_ref, fa_kernel)
+    where["phase"] = "(b) flash_attention at whisper-base's shapes"
+    wrow, mla_train_shape = phase_kernel_whisper(torch, fa_ops, fa_ref,
+                                                 fa_kernel)
     where["phase"] = "(b) wkv6"
     wkv_row = phase_wkv(torch, wkv_ops, wkv_ref, wkv_kernel, regs["wkv6"])
     where["phase"] = "(b) mamba2_ssd"
@@ -3800,7 +4178,9 @@ def run(where: dict) -> int:
     ssd_row["bwd_regs"] = kernel_registers(regs["mamba2_ssd"],
                                            SSD_BWD_INSTANCES)
     where["phase"] = "(b) flash_attention gradients"
-    zrow["bwd_ms"] = phase_grads(torch, fa_ops, fa_ref)
+    zrow["bwd_ms"], grads_extra = phase_grads(torch, fa_ops, fa_ref)
+    wrow["grad_cross"] = grads_extra["whisper_cross"]
+    row["grad_mla"] = grads_extra["mla"]
     where["phase"] = "(b) tiled_matmul"
     mm_row = phase_matmul(torch, mm_ops, mm_ref, mm_kernel, metg)
     where["phase"] = "(c) dwork METG ladder"
@@ -3823,7 +4203,7 @@ def run(where: dict) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for r, lib in ((row, "flash_attention"), (zrow, "flash_attention"),
-                   (mm_row, "tiled_matmul")):
+                   (wrow, "flash_attention"), (mm_row, "tiled_matmul")):
         r["sass_hgmma"] = builds[lib]
     # "launches": the count over the path's run (a serve: its prefill
     # batches; training: its steps); "launches_per_forward": per prefill
@@ -3857,6 +4237,26 @@ def run(where: dict) -> int:
     row["qwen2_vl"] = phase_serve_model(
         torch, fa_ops, attention, fa_ref, moe, serve, "qwen2-vl-2b",
         (28, 1536, 12, 2, 128, 151936), 1_587_965_440)
+    gc.collect()
+    torch.cuda.empty_cache()
+    where["phase"] = "(c) whisper-base serve"
+    wrow.update(phase_serve_model(
+        torch, fa_ops, attention, fa_ref, moe, serve, "whisper-base",
+        (6, 512, 8, 8, 64, 51865), 80_117_760, WH_ARGV, 18))
+    gc.collect()
+    torch.cuda.empty_cache()
+    where["phase"] = "(c) whisper-base training"
+    wrow.update(phase_train_model(torch, fa_ops, train, WHISPER_TRAIN_ARGV,
+                                  "whisper-base", (6, 512, 51865),
+                                  80_117_760, 18))
+    gc.collect()
+    torch.cuda.empty_cache()
+    where["phase"] = "(c) deepseek-v2-lite-16b training at 2 layers"
+    row["deepseek_v2_lite_train"] = phase_train_model(
+        torch, fa_ops, train, DSV2_TRAIN_ARGV,
+        "deepseek-v2-lite-16b at 2 layers", (2, 2048, 102400),
+        1_085_287_424, 2)
+    row["deepseek_v2_lite_train"]["train_shape"] = mla_train_shape
     gc.collect()
     torch.cuda.empty_cache()
     where["phase"] = "(c) zamba2 one-group train step"
@@ -3904,7 +4304,8 @@ def run(where: dict) -> int:
     where["phase"] = "(d) results"
     print(f"[d] total {time.perf_counter() - t_start:.1f}s")
     print(card_line())
-    print(json.dumps({"kernels": [row, zrow, wkv_row, ssd_row, mm_row]}))
+    print(json.dumps({"kernels": [row, zrow, wrow, wkv_row, ssd_row,
+                                  mm_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

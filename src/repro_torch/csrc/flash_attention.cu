@@ -1,4 +1,5 @@
-// Causal, windowed, soft-capped flash attention forward for Hopper (sm_90a).
+// Causal or non-causal, windowed, soft-capped flash attention forward for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` in
 // src/repro/kernels/flash_attention/kernel.py (launched by
@@ -7,10 +8,15 @@
 //
 // Function: o[b,s,h] = softmax_t(mask(softcap(scale * q[b,s,h] . k[b,t,g])))
 // . v[b,t,g] with g = h / (Hq / G) (GQA without building the expanded K/V),
-// mask = (t <= s) && (window <= 0 || s - t < window) && (t < T).
-// m, l and the accumulator are fp32; Q.K^T accumulates in fp32 from the
-// input-typed operands; P.V multiplies fp32 P by V (the JAX default,
-// probs_bf16=False).  Inputs are bf16 or fp32, addressed by strides (last
+// mask = (!causal || t <= s) && (window <= 0 || s - t < window) && (t < T),
+// the Pallas kernel's; the key length T may differ from the query length S
+// (whisper's cross-attention: S decoder tokens against T = 1500 frames,
+// causal = 0).  causal and window are runtime values, so every layer of a
+// model shares one compiled kernel.  m, l and the accumulator are fp32;
+// Q.K^T accumulates in fp32 from the input-typed operands; P.V multiplies
+// fp32 P by V (the JAX default), or, with probs_bf16, P rounded to V's type
+// (the JAX model's `probs_bf16` knob; only the bf16 route rounds: fp32 P is
+// already V's type).  Inputs are bf16 or fp32, addressed by strides (last
 // dim contiguous, 16-byte-aligned rows); the output has q's type.  Head dims
 // 32, 64, 80 (zamba2-2.7b's shared block), 128 and 256 (gemma2-2b) for q, k
 // and v alike, and q/k head dim 192 with v head dim 128 (DeepSeek-V2's MLA:
@@ -27,9 +33,10 @@
 //
 // * bf16: `flash_fwd_tc`, on the tensor cores (sm90.cuh).  A block of two
 //   warpgroups owns 128 query rows (64 each) of one (batch row, q head) and
-//   walks the 64-key tiles inside the causal and window band (the Pallas
-//   kernel's `pl.when(needed)` skip; a warpgroup skips a tile none of its
-//   rows sees); the heaviest (last) query tiles launch first.
+//   walks the 64-key tiles inside the band (all T keys when not causal,
+//   less those below the window; the Pallas kernel's `pl.when(needed)`
+//   skip; a warpgroup skips a tile none of its rows sees); the heaviest
+//   (last) query tiles launch first (neutral when not causal).
 //   - Q is copied once; K/V tiles go through a ring of 2 shared-memory
 //     stages by 16-byte cp.async (zero fill past T), the next tile's copy in
 //     flight while the current one is computed (a third stage was slower
@@ -67,6 +74,7 @@
 //     significant bits of P: ~1e-6 beyond one bf16 rounding of the result,
 //     where P_hi alone is ~2e-3 off and P rounded to TF32 ~5e-4 (tolerance
 //     1e-5; tests/test_torch_flash_attention_tc.py emulates all three).
+//     With probs_bf16 the P_lo . V wgmma is skipped: bf16(P) is P_hi.
 //   - Register layouts: the S accumulator of thread t holds, for key group
 //     j (8 keys), s[4j], s[4j+1] at row r = 16 (t/32) + (t%32)/4, keys
 //     8j + 2 (t%4) + {0,1}, and s[4j+2], s[4j+3] at row r + 8.  The A
@@ -78,7 +86,8 @@
 //   - O (64 x hd fp32 per warpgroup) stays in registers: 128 a thread at
 //     hd 256, with S (32) and the split P (32).
 //
-// * fp32: `flash_fwd_cuda_cores`, the first version's kernel, unchanged:
+// * fp32: `flash_fwd_cuda_cores`, the first version's kernel (with the causal
+//   flag since):
 //   exact fp32 FMAs on the CUDA cores (tensor cores would round fp32 inputs
 //   to TF32).  No bf16 path runs it; it serves fp32 callers such as the
 //   fp32 training-step check.  One block per (64-query tile, q head, batch
@@ -88,9 +97,10 @@
 //   hd+4 floats; the next K/V tile's 16-byte loads issued before the
 //   current tile is computed.
 //
-// A query row with no allowed key (not reachable on the causal path) writes
-// zeros, guarded by max(l, 1e-37) as in the Pallas kernel.  Training
-// differentiates the plain blockwise version recomputed from q, k and v
+// A query row with no allowed key (reachable without causal and with a
+// window, where s - (T - 1) >= window) writes zeros, guarded by max(l,
+// 1e-37) as in the Pallas kernel.  Training differentiates the plain
+// blockwise version recomputed from q, k and v
 // (kernels/flash_attention/ops.py): this file is the forward only.
 
 #include <cuda_bf16.h>
@@ -123,6 +133,8 @@ struct Args {
   long long osb, oss, osh;
   float scale, softcap;
   int window;
+  int causal;       // 0: every key t < T may be seen
+  int probs_bf16;   // bf16 route: P rounded to bf16 before P.V
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -231,7 +243,7 @@ flash_fwd_cuda_cores(const Args a) {
 
   // The band of keys any row of this tile may see.
   const int q_last = min(q0 + BQ, a.S) - 1;
-  const int k_end = min(q_last + 1, a.T);
+  const int k_end = a.causal ? min(q_last + 1, a.T) : a.T;
   const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int row0 = q0 + warp * ROWS;
 
@@ -278,7 +290,7 @@ flash_fwd_cuda_cores(const Args a) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int qpos = row0 + r;
-      const bool ok = kpos < a.T && kpos <= qpos &&
+      const bool ok = kpos < a.T && (!a.causal || kpos <= qpos) &&
                       (a.window <= 0 || qpos - kpos < a.window);
       float x = s[r] * a.scale;
       if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
@@ -391,18 +403,19 @@ __device__ __forceinline__ void split_p(float p0, float p1, uint32_t& hi,
   lo = sm90::pack_bf16(p0 - h.x, p1 - h.y);
 }
 
-// O += P_hi . V + P_lo . V over one key tile: A (P) from registers, V as
+// O += P_hi . V + P_lo . V over one key tile (P_hi . V alone with
+// probs_bf16, a value uniform over the block): A (P) from registers, V as
 // an MN-major B operand from shared memory.  HD here is V's head dim.
 template <int HD>
 __device__ __forceinline__ void pv_tile(float (&o)[HD / 2],
                                         uint32_t (&phi)[BK / 16][4],
                                         uint32_t (&plo)[BK / 16][4],
-                                        const uint8_t* sV) {
+                                        const uint8_t* sV, bool probs_bf16) {
 #pragma unroll
   for (int kt = 0; kt < BK / 16; ++kt) {
     const uint64_t dv = sm90::desc(sV + kt * 2048, BK * 128, 1024);
     sm90::wgmma_rs<HD, 1>(o, phi[kt], dv, 1);
-    sm90::wgmma_rs<HD, 1>(o, plo[kt], dv, 1);   // P_lo . V
+    if (!probs_bf16) sm90::wgmma_rs<HD, 1>(o, plo[kt], dv, 1);   // P_lo . V
   }
 }
 
@@ -428,9 +441,10 @@ flash_fwd_tc(const Args a) {
                    + g * a.vsh;
   auto* op = static_cast<__nv_bfloat16*>(a.o) + b * a.osb + h * a.osh;
 
-  // The band of key tiles any row of the block may see.
+  // The band of key tiles any row of the block may see (none when the
+  // window leaves every row without a key: n_tiles <= 0).
   const int q_last = min(q0 + BQ, a.S) - 1;
-  const int k_end = min(q_last + 1, a.T);
+  const int k_end = a.causal ? min(q_last + 1, a.T) : a.T;
   const int k_first = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int j0 = k_first / BK;
   const int n_tiles = (k_end + BK - 1) / BK - j0;
@@ -475,7 +489,7 @@ flash_fwd_tc(const Args a) {
     __syncthreads();
     const uint8_t* sK = sKV + (it % Sh::STAGES) * Sh::STAGE_BYTES;
     const uint8_t* sV = sK + Sh::K_BYTES;
-    const bool seen = wq0 < a.S && k0 <= wq_last &&
+    const bool seen = wq0 < a.S && (!a.causal || k0 <= wq_last) &&
                       (a.window <= 0 || k0 + BK - 1 > wq0 - a.window);
     if (seen) {
       // S = Q . K^T
@@ -497,7 +511,10 @@ flash_fwd_tc(const Args a) {
       sm90::fence_regs(s);
 
       // Softcap, mask, online softmax; s becomes P.
-      const bool inside = k0 + BK - 1 <= wq0 && k0 + BK <= a.T &&
+      // no row of the warpgroup has a key of this tile masked: it lies
+      // below the diagonal (or nothing is causal), inside T and the window
+      const bool inside = (!a.causal || k0 + BK - 1 <= wq0) &&
+                          k0 + BK <= a.T &&
                           (a.window <= 0 || wq_last - k0 < a.window);
       float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -508,7 +525,7 @@ flash_fwd_tc(const Args a) {
         if (!inside) {
           const int kpos = k0 + 8 * (i / 4) + cq + i % 2;
           const int qpos = r0 + 8 * hh;
-          const bool ok = kpos < a.T && kpos <= qpos &&
+          const bool ok = kpos < a.T && (!a.causal || kpos <= qpos) &&
                           (a.window <= 0 || qpos - kpos < a.window);
           x = ok ? x : NEG_INF;
         }
@@ -539,7 +556,7 @@ flash_fwd_tc(const Args a) {
         for (int i = 0; i < NO; ++i) o[i] *= alpha[(i / 2) % 2];
       }
 
-      // O += P_hi . V + P_lo . V
+      // O += P_hi . V + P_lo . V (P_hi . V with probs_bf16)
       uint32_t phi[BK / 16][4], plo[BK / 16][4];
 #pragma unroll
       for (int kt = 0; kt < BK / 16; ++kt)
@@ -549,7 +566,7 @@ flash_fwd_tc(const Args a) {
                   plo[kt][r]);
       sm90::fence_regs(o);
       sm90::wgmma_fence();
-      pv_tile<DV>(o, phi, plo, sV);
+      pv_tile<DV>(o, phi, plo, sV, a.probs_bf16 != 0);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
@@ -561,6 +578,8 @@ flash_fwd_tc(const Args a) {
     }
     __syncthreads();   // this stage is free for tile it + STAGES
   }
+  // Q's copy is still in flight where the band holds no tile
+  sm90::cp_async_wait<0>();
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -638,8 +657,10 @@ extern "C" int flash_attention_route(int dtype, int hd, int hd_v, int* out) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  hd: q/k head dim; hd_v: v's and the
-// output's.  Strides are in elements.  Returns cudaGetLastError() after the
-// launch (0 on success).
+// output's.  Strides are in elements.  window <= 0: no window; causal 0:
+// no causal mask; probs_bf16 1: P rounded to bf16 before P.V (bf16 only:
+// the fp32 route's P is already V's type, so it changes nothing there).
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int hd,
     int hd_v, int B, int S, int T, int Hq, int G,
@@ -647,13 +668,14 @@ extern "C" int flash_attention_fwd(
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
     long long osb, long long oss, long long osh,
-    float scale, float softcap, int window, void* stream) {
+    float scale, float softcap, int window, int causal, int probs_bf16,
+    void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || G <= 0 || Hq % G != 0 ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, B, S, T, Hq, G,
                qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh,
-               scale, softcap, window};
+               scale, softcap, window, causal != 0, probs_bf16 != 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_hd(hd, hd_v, [&](auto c) {
     constexpr int HD = decltype(c)::HD, DV = decltype(c)::DV;

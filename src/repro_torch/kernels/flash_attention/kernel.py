@@ -68,7 +68,7 @@ def route(dtype, hd: int, hd_v: int = None) -> Route:
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I] + [_L] * 12 \
-    + [_F, _F, _I, _P]
+    + [_F, _F, _I, _I, _I, _P]
 
 
 def _fn():
@@ -91,10 +91,12 @@ def c_route(dtype, hd: int, hd_v: int = None) -> Route:
     return Route(*out)
 
 
-def flash_attention_cuda(q, k, v, *, window=None, logit_softcap: float = 0.0,
-                         scale: float):
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
+                         logit_softcap: float = 0.0, scale: float,
+                         probs_bf16: bool = False):
     """q (B,S,Hq,hd), k (B,T,G,hd), v (B,T,G,hd_v) on one CUDA device ->
-    (B,S,Hq,hd_v)."""
+    (B,S,Hq,hd_v).  causal, window and probs_bf16 are runtime values of
+    one compiled kernel (probs_bf16 changes only the bf16 route)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -130,6 +132,7 @@ def flash_attention_cuda(q, k, v, *, window=None, logit_softcap: float = 0.0,
                  _DTYPES[q.dtype], hd, hd_v, B, S, T, Hq, G,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3],
-                 float(scale), float(logit_softcap), int(window or 0), stream)
+                 float(scale), float(logit_softcap), int(window or 0),
+                 int(bool(causal)), int(bool(probs_bf16)), stream)
     _build.check(lib, err, "flash_attention_fwd launch")
     return out

@@ -17,23 +17,31 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_blockwise,
                                                      flash_attention_ref)
 
 
-def flash_attention(q, k, v, *, window=None, logit_softcap: float = 0.0,
-                    scale: float, q_block: int = 1024, kv_block: int = 1024):
-    """Causal attention. q (B,S,Hq,hd), k/v (B,T,G,hd) -> (B,S,Hq,hd).
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    logit_softcap: float = 0.0, scale: float,
+                    q_block: int = 1024, kv_block: int = 1024,
+                    probs_bf16: bool = False):
+    """Attention. q (B,S,Hq,hd), k (B,T,G,hd), v (B,T,G,hd_v) ->
+    (B,S,Hq,hd_v); T may differ from S (cross-attention).
 
-    window: None (causal only) or an int > 0, a runtime value, so local and
-    global layers share one compiled kernel.  q_block / kv_block size the
-    plain version's blocks, on the CPU and in the card's backward.
-    `flash_attention.launches` counts kernel launches."""
-    kw = dict(window=window, logit_softcap=logit_softcap, scale=scale,
-              q_block=q_block, kv_block=kv_block)
+    causal: the mask t <= s (False: every key, as whisper's encoder and
+    cross-attention).  window: None or an int > 0 (s - t < window).  Both
+    are runtime values, so every layer shares one compiled kernel.
+    probs_bf16: P rounded to V's type before P.V, the JAX model's knob.
+    q_block / kv_block size the plain version's blocks, on the CPU and in
+    the card's backward.  `flash_attention.launches` counts kernel
+    launches."""
+    kw = dict(causal=causal, window=window, logit_softcap=logit_softcap,
+              scale=scale, q_block=q_block, kv_block=kv_block,
+              probs_bf16=probs_bf16)
     if q.device.type == "cpu":
         return flash_attention_blockwise(q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     out = recompute(
-        functools.partial(flash_attention_cuda, window=window,
-                          logit_softcap=logit_softcap, scale=scale),
+        functools.partial(flash_attention_cuda, causal=causal,
+                          window=window, logit_softcap=logit_softcap,
+                          scale=scale, probs_bf16=probs_bf16),
         functools.partial(flash_attention_blockwise, **kw), q, k, v)
     count_launch(flash_attention)
     return out

@@ -11,6 +11,8 @@ and greedy decode.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-lite-16b --no-reduced --requests 4 \
         --prompt-len 4200 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --no-reduced --requests 4 --prompt-len 432 --max-new 16
 
 The session rides the same front door as the JAX package's driver
 (`repro_torch.client.Client`): `client.serve(execute_batch)` attaches a
@@ -24,7 +26,12 @@ Runs on the card unless --device cpu.  Weights are random, made from --seed
 on the device, each matrix cast to bf16 as soon as it is drawn, except the
 leaves the model reads in fp32 (norms; the MoE router; rwkv's decay and
 bonus params; the Mamba2 layers' A_log, dt_bias and D_skip).  A text prompt
-of an M-RoPE model (qwen2-vl-2b) carries its positions on all 3 streams.
+of an M-RoPE model (qwen2-vl-2b) carries its positions on all 3 streams; a
+batch of an audio model (whisper-base) carries zero encoder frames (B,
+n_frames, d_model) in bf16, as the JAX package's driver gives them.
+--probs-bf16 rounds the attention probabilities to V's type before P.V
+(`Options.probs_bf16`, the flash kernel's flag), where the model family
+reads it (transformer, MLA, zamba2).
 """
 from __future__ import annotations
 
@@ -62,6 +69,9 @@ def parse_args(argv=None):
     ap.add_argument("--trace-out", default=None,
                     help="write the session as a Perfetto-loadable "
                          "Chrome trace (.trace.json) at exit")
+    ap.add_argument("--probs-bf16", action="store_true",
+                    help="round the attention probabilities to V's type "
+                         "before P.V (Options.probs_bf16)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -79,7 +89,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    model = build_model(cfg, Options(q_block=64, kv_block=64, moe_group=64))
+    model = build_model(cfg, Options(q_block=64, kv_block=64, moe_group=64,
+                                     probs_bf16=args.probs_bf16))
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_serving_params(model, gen, device)
     totals = {"prefill_s": 0.0, "decode_s": 0.0}
@@ -93,6 +104,10 @@ def main(argv=None):
             B, S = toks.shape
             batch["mrope_positions"] = torch.arange(
                 S, device=device).expand(3, B, S)
+        if cfg.family == "audio":
+            batch["encoder_frames"] = torch.zeros(
+                (toks.shape[0], cfg.encoder.n_frames, cfg.d_model),
+                dtype=torch.bfloat16, device=device)
         timings: dict = {}
         out = greedy_generate(model, params, batch, args.max_new,
                               args.prompt_len + args.max_new + 1, timings)

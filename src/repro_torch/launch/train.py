@@ -8,19 +8,29 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --no-reduced --steps 4 --global-batch 2 --seq 1024 --remat full \
         --ckpt-dir ckpts --ckpt-every 2 [--resume]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+        --no-reduced --steps 4 --global-batch 2 --seq 448
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v2-lite-16b --no-reduced --layers 2 --steps 4 \
+        --global-batch 2 --seq 1024
 
 The flags and `build` of the JAX package's `launch/train.py`; runs on the
 card unless --device cpu.
 Weights are random, made from --seed on the device; batches come from the
-synthetic pipeline.  Each step prints loss, grad norm, step ms (forward,
-backward, optimizer) and tokens/s; the run ends with the peak device
-memory and the kernel ops' calls (`[train] kernel op calls flash=...
-wkv=... ssd=...`, the ops' `.launches` counters).  --remat
+synthetic pipeline; an audio model's (whisper's) batches carry zero
+encoder frames (B, n_frames, d_model) in bf16, as the JAX package's driver
+gives them.  The loss is the cross-entropy plus a MoE model's router aux
+loss.  Each step prints loss (and a MoE model's aux loss), grad norm, step
+ms (forward, backward, optimizer) and tokens/s; the run ends with the peak
+device memory and the kernel ops' calls (`[train] kernel op calls
+flash=... wkv=... ssd=...`, the ops' `.launches` counters).  --remat
 none|dots|full checkpoints the transformer's blocks
 (`models.common.maybe_remat`).  --ckpt-dir saves {"params", "opt"} every
 --ckpt-every steps and at the last, in the JAX package's format
 (`checkpoint.ckpt`), so either framework resumes the other's run;
 --resume restores the latest step there and trains up to --steps.
+--probs-bf16 rounds the attention probabilities to V's type before P.V
+(`Options.probs_bf16`), where the model family reads it.
 """
 from __future__ import annotations
 
@@ -56,7 +66,7 @@ def build(args):
                           d_ff=args.d_ff or 4 * args.d_model,
                           head_dim=max(32, args.d_model // cfg.n_heads))
     opts = Options(q_block=min(512, args.seq), kv_block=min(512, args.seq),
-                   remat=args.remat)
+                   remat=args.remat, probs_bf16=args.probs_bf16)
     model = build_model(cfg, opts)
     rc = RunConfig(remat=args.remat, microbatches=args.microbatches,
                    lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
@@ -77,6 +87,9 @@ def parse_args(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--remat", default="none")
+    ap.add_argument("--probs-bf16", action="store_true",
+                    help="round the attention probabilities to V's type "
+                         "before P.V (Options.probs_bf16)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="")
@@ -87,9 +100,16 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def to_device(batch: dict, device) -> dict:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+def to_device(batch: dict, device, cfg=None) -> dict:
+    """The pipeline's numpy batch as tensors on `device`; for an audio
+    `cfg`, with zero bf16 encoder frames (B, n_frames, d_model)."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+           for k, v in batch.items()}
+    if cfg is not None and cfg.family == "audio":
+        out["encoder_frames"] = torch.zeros(
+            (out["tokens"].shape[0], cfg.encoder.n_frames, cfg.d_model),
+            dtype=torch.bfloat16, device=device)
+    return out
 
 
 def main(argv=None):
@@ -132,7 +152,7 @@ def main(argv=None):
     with (open(args.metrics_out, "a") if args.metrics_out
           else contextlib.nullcontext()) as logf:
         params, opt_state, records, losses = _train(
-            args, step_fn, pipe, params, opt_state, device, logf,
+            args, cfg, step_fn, pipe, params, opt_state, device, logf,
             start_step, ckpter)
     if ckpter:
         ckpter.wait()
@@ -153,7 +173,7 @@ def main(argv=None):
             "peak_bytes": peak, "start_step": start_step}
 
 
-def _train(args, step_fn, pipe, params, opt_state, device, logf,
+def _train(args, cfg, step_fn, pipe, params, opt_state, device, logf,
            start_step, ckpter):
     """The step loop from `start_step`, saving through `ckpter` (or None).
     Returns (params, opt_state, records, losses)."""
@@ -162,7 +182,7 @@ def _train(args, step_fn, pipe, params, opt_state, device, logf,
     t_start = time.perf_counter()
     for i, batch in enumerate(pipe.batches(args.steps - start_step)):
         step = start_step + i + 1
-        tb = to_device(batch, device)
+        tb = to_device(batch, device, cfg)
         timings: dict = {}
         t0 = time.perf_counter()
         params, opt_state, m = step_fn(params, opt_state, tb, timings)
@@ -170,6 +190,7 @@ def _train(args, step_fn, pipe, params, opt_state, device, logf,
         step_s = time.perf_counter() - t0
         losses.append(loss)
         rec = {"step": step, "loss": loss,
+               "moe_aux": float(m["moe_aux"]),
                "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
                "step_ms": step_s * 1e3,
                "fwd_ms": timings["fwd_s"] * 1e3,
@@ -181,7 +202,8 @@ def _train(args, step_fn, pipe, params, opt_state, device, logf,
         if logf:
             logf.write(json.dumps(rec) + "\n")
             logf.flush()
-        print(f"[train] step {step} loss {loss:.4f} gnorm "
+        aux = f" (moe_aux {rec['moe_aux']:.6f})" if cfg.moe else ""
+        print(f"[train] step {step} loss {loss:.4f}{aux} gnorm "
               f"{rec['grad_norm']:.3f} step_ms {rec['step_ms']:.1f} (fwd "
               f"{rec['fwd_ms']:.1f} bwd {rec['bwd_ms']:.1f} opt "
               f"{rec['opt_ms']:.1f}) tokens/s {rec['tokens_per_s']:.0f}")

@@ -6,8 +6,11 @@ the padded heads' context is masked before W_o, so the math is exact.
 Keeping that layout lets the parity tests load JAX params unchanged.
 
 `flash_attention` is the kernel wrapper: the hand-written CUDA kernel on the
-card, the plain blockwise version on the CPU.  It reads K/V by group, so the
-expanded K/V copy is never built on the card.
+card, the plain blockwise version on the CPU, causal or not (whisper's
+encoder and cross-attention), with the key length free of the query
+length.  It reads K/V by group, so the expanded K/V copy is never built on
+the card.  `attend_once` is the one-shot softmax whisper's decode runs its
+cross-attention through, as the JAX model does.
 """
 from __future__ import annotations
 
@@ -89,6 +92,26 @@ def project_out(p, ctx, cfg):
     B, S = ctx.shape[:2]
     mask = head_mask(cfg, ctx.device)[None, None, :, None].to(ctx.dtype)
     return (grad_cast(ctx) * mask).reshape(B, S, -1) @ p["wo"].to(ctx.dtype)
+
+
+# ---------------------------------------------------------------------------
+# One-shot attention (decode / small cross-attention) — plain torch
+# ---------------------------------------------------------------------------
+
+
+def attend_once(q, k, v, *, scale: float):
+    """q (B,S,Hq,hd); k, v (B,T,G,hd) with G dividing Hq (head h reads
+    group h // (Hq/G), as `expand_kv` lays them out).  A full softmax over
+    every key in fp32, no blocks and no mask: the JAX model's `attend_once`
+    as whisper's cross-attention calls it, on K/V read by group instead of
+    expanded."""
+    B, S, H, hd = q.shape
+    G = k.shape[2]
+    qg = q.float().reshape(B, S, G, H // G, hd)
+    s = torch.einsum("bsgmh,btgh->bgmst", qg, k.float()) * scale
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgmst,btgh->bsgmh", p, v.float())
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -87,18 +87,23 @@ def unstack(tree, n: int) -> list:
 
 
 def tree_leaves(tree) -> list:
-    """Leaves of a nested dict tree (a param tree), in insertion order."""
+    """Leaves of a param tree of dicts and tuples (a MoE model's "first"
+    layers), in insertion order."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
 def tree_map(fn, tree, *rest):
-    """fn over the leaves of a nested dict tree (and of same-shaped trees
-    `rest`)."""
+    """fn over the leaves of a param tree of dicts and tuples (and of
+    same-shaped trees `rest`)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)
 
 
@@ -200,21 +205,25 @@ class Options:
     path tensors on the CPU take; the CUDA kernel tiles on its own.  remat
     is `maybe_remat`'s policy for the transformer's training blocks.
     mla_absorb picks MLA decode's absorbed branch (attention against the
-    compressed cache); moe_group is the MoE's largest token group."""
+    compressed cache); moe_group is the MoE's largest token group.
+    probs_bf16 rounds the attention probabilities to V's dtype before
+    P.V, in the kernel and the plain version alike (`launch.serve` and
+    `launch.train` take it as --probs-bf16)."""
 
     def __init__(self, *, q_block: int = 1024, kv_block: int = 1024,
                  remat: str = "none", mla_absorb: bool = False,
-                 moe_group: int = 1024):
+                 moe_group: int = 1024, probs_bf16: bool = False):
         self.q_block = q_block
         self.kv_block = kv_block
         self.remat = remat
         self.mla_absorb = mla_absorb
         self.moe_group = moe_group
+        self.probs_bf16 = probs_bf16
 
     def replace(self, **kw):
         cur = dict(q_block=self.q_block, kv_block=self.kv_block,
                    remat=self.remat, mla_absorb=self.mla_absorb,
-                   moe_group=self.moe_group)
+                   moe_group=self.moe_group, probs_bf16=self.probs_bf16)
         cur.update(kw)
         return Options(**cur)
 

@@ -55,7 +55,8 @@ def _scale(cfg) -> float:
     return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
 
 
-def mla_forward(p, x, cfg, sin, cos, *, q_block=1024, kv_block=1024):
+def mla_forward(p, x, cfg, sin, cos, *, q_block=1024, kv_block=1024,
+                probs_bf16=False):
     """Training / prefill: full-sequence causal MLA.  Returns (out (B,S,D),
     (ckv (B,S,r), krope (B,S,dr)))."""
     m = cfg.mla
@@ -69,7 +70,8 @@ def mla_forward(p, x, cfg, sin, cos, *, q_block=1024, kv_block=1024):
     q = torch.cat([qn, qr], dim=-1)
     k = torch.cat([kn, krope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
     ctx = attn.flash_attention(q, k, v, scale=_scale(cfg), q_block=q_block,
-                               kv_block=kv_block)           # (B,S,H,dv)
+                               kv_block=kv_block,
+                               probs_bf16=probs_bf16)      # (B,S,H,dv)
     out = ctx.reshape(B, S, H * dv) @ p["wo"].to(x.dtype)
     return out, (ckv, krope)
 

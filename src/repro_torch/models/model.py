@@ -3,6 +3,7 @@
     model = build_model(cfg)
     params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
     logits = model.forward(params, batch)                         # train
+    logits, aux = model.forward(params, batch, return_aux=True)   # train
     logits, cache = model.forward(params, batch, mode="prefill")
     logits, cache = model.decode_step(params, tokens, pos, cache)
     cache = model.init_cache(batch, max_len, device="cuda")
@@ -14,7 +15,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import rwkv, transformer, zamba
+from repro_torch.models import rwkv, transformer, whisper, zamba
 from repro_torch.models.common import Options
 
 
@@ -30,13 +31,26 @@ class Model:
         return self._mod.init_lm(generator, self.cfg, device)
 
     def forward(self, params, batch: dict, mode: str = "train", cache=None,
-                dtype=torch.bfloat16):
+                dtype=torch.bfloat16, return_aux: bool = False):
+        """Train: logits, or with return_aux (logits, aux loss), the aux
+        loss the MoE layers' router loss (an fp32 0 for every other
+        model).  Prefill: (last-position logits, cache).  An audio model
+        (whisper) reads batch["encoder_frames"] (B, F, d_model)."""
         kw = {}
         if self.cfg.mrope and "mrope_positions" in batch:
             kw["mrope_positions"] = batch["mrope_positions"]
-        return self._mod.forward(params, self.cfg, batch["tokens"],
-                                 opts=self.opts, mode=mode, dtype=dtype,
-                                 cache=cache, **kw)
+        if self.cfg.family == "audio":
+            kw["encoder_frames"] = batch["encoder_frames"]
+        train_aux = return_aux and mode == "train"
+        if train_aux and self.cfg.moe is not None:
+            kw["return_aux"] = True                  # the transformer's
+        out = self._mod.forward(params, self.cfg, batch["tokens"],
+                                opts=self.opts, mode=mode, dtype=dtype,
+                                cache=cache, **kw)
+        if train_aux and self.cfg.moe is None:
+            return out, torch.zeros((), dtype=torch.float32,
+                                    device=out.device)
+        return out
 
     def decode_step(self, params, tokens, positions, cache,
                     dtype=torch.bfloat16):
@@ -47,8 +61,9 @@ class Model:
                    device="cuda"):
         """KV cache on `device`: for a dense model its K/V; for a hybrid
         one the shared block's K/V and each Mamba2 layer's fp32 SSM state
-        and conv ring; for an ssm model its fp32 recurrent state (max_len
-        and dtype unused)."""
+        and conv ring; for an audio one the decoder's K/V and the encoder's
+        memory; for an ssm model its fp32 recurrent state (max_len and
+        dtype unused)."""
         if self.cfg.family == "ssm":
             return self._mod.init_state(self.cfg, batch, device=device)
         return self._mod.init_cache(self.cfg, batch, max_len, dtype=dtype,
@@ -59,7 +74,8 @@ class Model:
 
 
 _FAMILY_MODULES = {"dense": transformer, "moe": transformer,
-                   "vlm": transformer, "ssm": rwkv, "hybrid": zamba}
+                   "vlm": transformer, "ssm": rwkv, "hybrid": zamba,
+                   "audio": whisper}
 
 
 def build_model(cfg, opts: Options = None) -> Model:

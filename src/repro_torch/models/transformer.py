@@ -9,8 +9,10 @@ by a Python loop over their `unstack`ed views; MoE configs with
 `params["first"]`.  In training each stacked block runs under
 `maybe_remat(opts.remat)`, as the JAX scan body does; the JAX package
 applies remat in the transformer only, so the rwkv and hybrid families
-accept the option and ignore it there too.  The MoE's aux loss is not
-returned: `runtime.train_step` refuses MoE configs.
+accept the option and ignore it there too.  In training, `forward(...,
+return_aux=True)` also returns the sum over the MoE layers of
+`apply_moe`'s router aux loss, which `runtime.train_step` adds to the
+loss, as the JAX package's train mode returns and adds it.
 """
 from __future__ import annotations
 
@@ -98,7 +100,8 @@ def _attention(bp, h, cfg, sin, cos, *, opts: Options, window, cache,
                                       positions, absorb=opts.mla_absorb)
         return mla_mod.mla_forward(bp["attn"], h, cfg, sin, cos,
                                    q_block=opts.q_block,
-                                   kv_block=opts.kv_block)
+                                   kv_block=opts.kv_block,
+                                   probs_bf16=opts.probs_bf16)
     q, k, v = attn.project_qkv(bp["attn"], h, cfg)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
@@ -114,14 +117,16 @@ def _attention(bp, h, cfg, sin, cos, *, opts: Options, window, cache,
         ctx = attn.flash_attention(
             q, k, v, window=window, logit_softcap=cfg.attn_logit_softcap,
             scale=_attn_scale(cfg), q_block=opts.q_block,
-            kv_block=opts.kv_block)
+            kv_block=opts.kv_block, probs_bf16=opts.probs_bf16)
     return attn.project_out(bp["attn"], ctx, cfg), (k, v)
 
 
 def apply_block(bp, x, cfg, sin, cos, *, opts: Options, window=None,
                 cache=None, positions=None):
-    """One transformer block; returns (x, the block's new cache entry):
-    (k, v) (B,S,G,hd), or MLA's (ckv (B,S,r), krope (B,S,dr)).
+    """One transformer block; returns (x, the block's new cache entry,
+    the MoE's aux loss): the entry (k, v) (B,S,G,hd), or MLA's (ckv (B,S,r),
+    krope (B,S,dr)); the aux loss an fp32 scalar, None without a MoE (so
+    that a dense decode step launches nothing for it).
 
     Without `cache`: causal attention over x itself (train / prefill).
     With `cache`, views of one layer of the decode cache, (k, v) (B,T,G,hd)
@@ -138,19 +143,20 @@ def apply_block(bp, x, cfg, sin, cos, *, opts: Options, window=None,
 
     h = _norm(x, bp["ln2"], cfg)
     if "router" in bp["mlp"]:
-        f_out, _ = moe_mod.apply_moe(bp["mlp"], h, cfg,
-                                     group_size=opts.moe_group)
+        f_out, aux = moe_mod.apply_moe(bp["mlp"], h, cfg,
+                                       group_size=opts.moe_group)
     else:
-        f_out = apply_ffn(bp["mlp"], h, cfg)
+        f_out, aux = apply_ffn(bp["mlp"], h, cfg), None
     if cfg.post_norms:
         f_out = _norm(f_out, bp["pn2"], cfg)
-    return x + f_out, entry
+    return x + f_out, entry, aux
 
 
 def _train_block(bp, x, sin, cos, *, cfg, opts: Options, window):
-    """apply_block in training: the residual stream alone, so that remat
-    keeps nothing of the block but its inputs."""
-    return apply_block(bp, x, cfg, sin, cos, opts=opts, window=window)[0]
+    """apply_block in training: the residual stream and the aux loss
+    alone, so that remat keeps nothing of the block but its inputs."""
+    x, _, aux = apply_block(bp, x, cfg, sin, cos, opts=opts, window=window)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -220,8 +226,10 @@ def _angles(cfg, positions, mrope_positions=None):
 
 
 def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
-            dtype=torch.bfloat16, cache=None, mrope_positions=None):
-    """tokens (B,S) -> logits (B,S,Vp)  (train), or
+            dtype=torch.bfloat16, cache=None, mrope_positions=None,
+            return_aux: bool = False):
+    """tokens (B,S) -> logits (B,S,Vp)  (train; with return_aux, (logits,
+    the MoE layers' summed aux loss, an fp32 scalar)), or
     (last-position logits (B,Vp), cache) (prefill).
 
     Prefill returns {"layers": entries stacked over the stacked blocks,
@@ -235,9 +243,10 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
                        mrope_positions)
     L = cfg.n_layers - _n_first(cfg)
     windows = _layer_windows(cfg, L, S)
-    firsts = []
+    firsts, auxes = [], []
     for i, fb in enumerate(params.get("first", ())):
-        x, entry = apply_block(fb, x, cfg, sin, cos, opts=opts)
+        x, entry, aux_l = apply_block(fb, x, cfg, sin, cos, opts=opts)
+        auxes.append(aux_l)
         if mode == "prefill" and cache is None:
             firsts.append(entry)
         elif mode == "prefill":
@@ -247,10 +256,12 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
     block = maybe_remat(_train_block, opts.remat)
     for i, bp in enumerate(unstack(params["blocks"], L)):
         if mode == "train":
-            x = block(bp, x, sin, cos, cfg=cfg, opts=opts, window=windows[i])
+            x, aux_l = block(bp, x, sin, cos, cfg=cfg, opts=opts,
+                             window=windows[i])
+            auxes.append(aux_l)
             continue
-        x, entry = apply_block(bp, x, cfg, sin, cos, opts=opts,
-                               window=windows[i])
+        x, entry, _ = apply_block(bp, x, cfg, sin, cos, opts=opts,
+                                  window=windows[i])
         if mode == "prefill" and cache is None:
             entries.append(entry)
         elif mode == "prefill":
@@ -266,7 +277,14 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
                      "first": tuple(firsts)}
         return logits, cache
     x = _norm(x, params["final_norm"], cfg)
-    return _head(params, cfg, x)
+    logits = _head(params, cfg, x)
+    if not return_aux:
+        return logits
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for a in auxes:
+        if a is not None:
+            aux = aux + a
+    return logits, aux
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -302,15 +320,15 @@ def decode_step(params, cfg, tokens, positions, cache, *, opts: Options = None,
     mpos = pos2d[None].expand(3, B, 1) if cfg.mrope else None
     sin, cos = _angles(cfg, pos2d, mpos)
     for fb, fc in zip(params.get("first", ()), cache["first"]):
-        x, _ = apply_block(fb, x, cfg, sin, cos, opts=opts, cache=fc,
-                           positions=positions)
+        x, _, _ = apply_block(fb, x, cfg, sin, cos, opts=opts, cache=fc,
+                              positions=positions)
     layers = cache["layers"]
     L = cfg.n_layers - _n_first(cfg)
     windows = _layer_windows(cfg, L, layers[0].shape[2])
     for i in range(L):
-        x, _ = apply_block(layer_params(params["blocks"], i), x, cfg, sin,
-                           cos, opts=opts, window=windows[i],
-                           cache=tuple(c[i] for c in layers),
-                           positions=positions)
+        x, _, _ = apply_block(layer_params(params["blocks"], i), x, cfg,
+                              sin, cos, opts=opts, window=windows[i],
+                              cache=tuple(c[i] for c in layers),
+                              positions=positions)
     x = _norm(x, params["final_norm"], cfg)
     return _head(params, cfg, x)[:, 0], cache

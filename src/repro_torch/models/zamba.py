@@ -72,7 +72,8 @@ def _shared_block(params, cfg, x, x0, sin, cos, adapter, *, opts, kv=None,
     if positions is None:
         ctx = attn.flash_attention(q, k, v, scale=scale,
                                    q_block=opts.q_block,
-                                   kv_block=opts.kv_block)
+                                   kv_block=opts.kv_block,
+                                   probs_bf16=opts.probs_bf16)
         if kv is not None:
             S = x.shape[1]
             kv[0][:, :S] = k                                    # in place

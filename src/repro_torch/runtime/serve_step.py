@@ -11,7 +11,10 @@ branch: its preallocated cache holds the shared block's K/V and every
 Mamba2 layer's SSM state and conv ring, which the chunked prefill fills in
 place.  JAX's `greedy_generate` prefills both recurrent families token by
 token through `decode_step` instead: the same function up to rounding, but
-one that never runs the chunked-WKV or the SSD kernel."""
+one that never runs the chunked-WKV or the SSD kernel.  An audio model
+(whisper) takes the transformer's branch too: its cache holds the
+decoder's K/V and the encoder's memory, which prefill writes in place from
+the batch's "encoder_frames"."""
 from __future__ import annotations
 
 import itertools
@@ -87,10 +90,12 @@ def _cast_only_leaves(model, dtype=torch.bfloat16) -> set:
     tiny = build_model(model.cfg.reduced(), model.opts)
     params = tiny.init(torch.Generator().manual_seed(0), "cpu")
     probe = _LeafReads(dict(_leaves(params)), dtype)
-    tokens = torch.ones((1, 2), dtype=torch.long)
+    batch = {"tokens": torch.ones((1, 2), dtype=torch.long)}
+    if tiny.cfg.family == "audio":
+        batch["encoder_frames"] = torch.zeros(
+            (1, tiny.cfg.encoder.n_frames, tiny.cfg.d_model), dtype=dtype)
     with probe:
-        greedy_generate(tiny, params, {"tokens": tokens}, max_new=2,
-                        cache_len=4)
+        greedy_generate(tiny, params, batch, max_new=2, cache_len=4)
     return probe.cast - probe.other
 
 

@@ -1,12 +1,10 @@
 """Train step: loss -> grads (optionally microbatched) -> AdamW.
 
-The port's `forward` returns logits only; the dense and hybrid models have
-no auxiliary loss, so the loss function takes aux = 0 as the JAX versions
-of those models return it.  A MoE model's loss would add the router's aux
-loss (the JAX package's `loss + aux`), and its MLA prefill would need the
-flash backward at head dims 192/128: the loss function refuses MoE and MLA
-configs until that training is ported (ROADMAP.md Queue 1, "MoE and MLA
-training").
+The loss is the JAX package's `loss + aux`: the cross-entropy plus the
+router's aux loss summed over a MoE model's layers (`Model.forward(...,
+return_aux=True)`; an fp32 0 for every other model), reported as "xent"
+and "moe_aux".  As in the JAX package, the microbatched path reports the
+mean total loss as "xent" and 0 as "moe_aux".
 """
 from __future__ import annotations
 
@@ -20,16 +18,10 @@ from repro_torch.optim.adamw import OptState, adamw_update, init_opt
 
 def make_loss_fn(model):
     cfg = model.cfg
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA training is not ported (ROADMAP.md "
-            f"Queue 1, \"MoE and MLA training\"): the MoE aux loss would "
-            f"be dropped")
 
     def loss_fn(params, batch):
-        logits = model.forward(params, batch)
+        logits, aux = model.forward(params, batch, return_aux=True)
         loss = softmax_xent(logits, batch["labels"], cfg.vocab_size)
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss + aux, {"xent": loss, "moe_aux": aux}
 
     return loss_fn

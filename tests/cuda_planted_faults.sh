@@ -37,7 +37,7 @@ FILES[tf32_inputs]=$MM
 FAULTS[tf32_inputs]='s|return \*reinterpret_cast<const float4\*>(p);   // operands as stored|float4 v = *reinterpret_cast<const float4*>(p); float* f = \&v.x; for (int i = 0; i < 4; ++i) f[i] = __uint_as_float((__float_as_uint(f[i]) + 0x1000u) \& 0xffffe000u); return v;|'
 # flash bf16: P.V with P_hi only (the P_lo term dropped)
 FILES[drop_p_lo]=$FA
-FAULTS[drop_p_lo]='s|sm90::wgmma_rs<HD, 1>(o, plo\[kt\], dv, 1);   // P_lo . V||'
+FAULTS[drop_p_lo]='s|if (!probs_bf16) sm90::wgmma_rs<HD, 1>(o, plo\[kt\], dv, 1);   // P_lo . V||'
 # flash bf16: the softcap through tanh.approx.f32 (~2^-11 relative error)
 FILES[tanh_approx]=$FA
 FAULTS[tanh_approx]='s|x = cap \* tanhf(x \* inv_cap);|{ float th; asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(x * inv_cap)); x = cap * th; }|'

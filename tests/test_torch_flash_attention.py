@@ -101,3 +101,152 @@ def test_expand_kv_matches_jax():
     out = expand_kv(torch.from_numpy(k), 16)
     assert np.array_equal(out.numpy(), np.asarray(jattn.expand_kv(
         jnp.asarray(k), 16)))
+
+
+# ---------------------------------------------------------------------------
+# causal=False at T != S, probs_bf16, rows without a key, the one-shot
+# oracle at T != S
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "B,S,T,H,G,hd,window,cap,qb,kb",
+    [(2, 24, 100, 16, 4, 32, None, 0.0, 16, 32),   # cross-attention, GQA,
+                                                   # T not a block multiple
+     (1, 100, 100, 8, 8, 64, None, 0.0, 32, 32),   # the encoder, S == T
+     (2, 40, 70, 4, 2, 32, 30, 50.0, 16, 16),      # window, softcap
+     (1, 130, 45, 4, 1, 32, None, 0.0, 64, 16)])   # S > T, one KV group
+def test_plain_non_causal_matches_jax_blockwise(B, S, T, H, G, hd, window,
+                                                cap, qb, kb):
+    q, k, v = _qkv(B, S, H, G, hd, seed=6, T=T)
+    scale = hd ** -0.5
+    out = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=False,
+                              window=window, logit_softcap=cap, scale=scale,
+                              q_block=qb, kv_block=kb)
+    jout = jattn.flash_attention(
+        jnp.asarray(q), jnp.asarray(_expand(k, H)), jnp.asarray(_expand(v, H)),
+        causal=False, window=window, logit_softcap=cap, scale=scale,
+        q_block=qb, kv_block=kb)
+    assert out.shape == (B, S, H, hd)
+    assert float(np.max(np.abs(out.numpy() - np.asarray(jout)))) < TOL
+
+
+def test_plain_causal_at_t_ne_s_matches_jax_blockwise():
+    """Causal with more keys than queries: query s sees keys t <= s."""
+    q, k, v = _qkv(2, 30, 4, 2, 32, seed=7, T=50)
+    out = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), scale=0.2, q_block=16,
+                              kv_block=16)
+    jout = jattn.flash_attention(
+        jnp.asarray(q), jnp.asarray(_expand(k, 4)), jnp.asarray(_expand(v, 4)),
+        causal=True, scale=0.2, q_block=16, kv_block=16)
+    assert float(np.max(np.abs(out.numpy() - np.asarray(jout)))) < TOL
+
+
+# probs_bf16 in bf16: both sides round P and the output to bf16; their fp32
+# sums differ in order only, so the outputs lie within one bf16 ulp of
+# |out| <= 4 (2^-6), and P rounded moves them far more than that from the
+# unrounded path (held below)
+BF16_TOL = 2.0 ** -6
+
+
+@pytest.mark.parametrize("causal,S,T", [(True, 64, 64), (False, 24, 90)])
+def test_plain_probs_bf16_matches_jax_blockwise(causal, S, T):
+    q, k, v = _qkv(2, S, 8, 2, 64, seed=8, T=T)
+    kw = dict(causal=causal, scale=0.125, q_block=16, kv_block=32)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, probs_bf16=True, **kw)
+    plain = ops.flash_attention(tq, tk, tv, **kw)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in
+                  (q, _expand(k, 8), _expand(v, 8)))
+    jout = jattn.flash_attention(jq, jk, jv, probs_bf16=True, **kw)
+    assert out.dtype == torch.bfloat16
+    err = float(np.max(np.abs(out.float().numpy()
+                              - np.asarray(jout, np.float32))))
+    assert err <= BF16_TOL, err
+    assert float((out.float() - plain.float()).abs().max()) > 0
+    # fp32 inputs: the rounding to V's type changes nothing
+    f32 = [torch.from_numpy(a) for a in (q, k, v)]
+    assert torch.equal(ops.flash_attention(*f32, probs_bf16=True, **kw),
+                       ops.flash_attention(*f32, **kw))
+
+
+def test_plain_row_without_a_key_gives_zeros():
+    """Not causal, window 6, 10 keys: a query s sees t in (s - 6, 10), so
+    rows s >= 15 see none and give zeros; the others equal the one-shot
+    oracle."""
+    q, k, v = _qkv(2, 24, 4, 2, 32, seed=9, T=10)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    kw = dict(causal=False, window=6, scale=0.2)
+    out = ops.flash_attention(tq, tk, tv, q_block=8, kv_block=4, **kw)
+    assert torch.equal(out[:, 15:], torch.zeros_like(out[:, 15:]))
+    one = ref.flash_attention_ref(tq.transpose(1, 2),
+                                  expand_kv(tk, 4).transpose(1, 2),
+                                  expand_kv(tv, 4).transpose(1, 2),
+                                  **kw).transpose(1, 2)
+    assert float((out[:, :15] - one[:, :15]).abs().max()) < TOL
+    assert float(out[:, :15].abs().min(dim=-1).values.max()) > 0
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 9), (False, 9)])
+def test_oneshot_oracle_at_t_ne_s(causal, window):
+    """flash_attention_ref at S = 40 queries and T = 56 keys (its mask is
+    S x T) against the blockwise version."""
+    q, k, v = _qkv(2, 40, 4, 4, 32, seed=10, T=56)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    kw = dict(causal=causal, window=window, logit_softcap=50.0, scale=0.2)
+    blk = ref.flash_attention_blockwise(tq, tk, tv, q_block=16, kv_block=16,
+                                        **kw)
+    one = ref.flash_attention_ref(*(a.transpose(1, 2) for a in (tq, tk, tv)),
+                                  **kw).transpose(1, 2)
+    assert one.shape == (2, 40, 4, 32)
+    assert float((blk - one).abs().max()) < TOL
+
+
+def test_non_causal_gradients_match_autograd_of_the_oracle():
+    """The plain version's gradients (the card's backward recomputes it)
+    with causal=False at T != S against the one-shot oracle's.  Both
+    compute in fp32, so they differ in summation order only: within 1e-5
+    of max(1, max |oracle grad|)."""
+    q, k, v = _qkv(1, 20, 4, 2, 32, seed=11, T=35)
+    ins = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    g = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (1, 20, 4, 32)).astype(np.float32))
+    blk = ref.flash_attention_blockwise(*ins, causal=False, scale=0.2,
+                                        q_block=8, kv_block=16)
+    ga = torch.autograd.grad(blk, ins, g)
+    ins2 = [t.detach().clone().requires_grad_() for t in ins]
+    one = ref.flash_attention_ref(ins2[0].transpose(1, 2),
+                                  expand_kv(ins2[1], 4).transpose(1, 2),
+                                  expand_kv(ins2[2], 4).transpose(1, 2),
+                                  causal=False, scale=0.2).transpose(1, 2)
+    gb = torch.autograd.grad(one, ins2, g)
+    for a, b in zip(ga, gb):
+        assert float((a - b).abs().max()) < 1e-5 * max(
+            1.0, float(b.abs().max()))
+
+
+def test_plain_runs_fp64_inputs_in_fp64():
+    """fp64 inputs are computed in fp64 (the reference the card's gradient
+    checks hold fp32 to): the output is fp64, and the fp32 run's output and
+    gradients lie within 1e-5 of max(1, max |fp64|) of it, at q/k head dim
+    48 with v head dim 32, causal=False and T != S."""
+    q, k, _ = _qkv(1, 30, 4, 2, 48, seed=13, T=70)
+    v = np.random.default_rng(14).standard_normal((1, 70, 2, 32)).astype(
+        np.float32)
+    g = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (1, 30, 4, 32)).astype(np.float32))
+    kw = dict(causal=False, scale=0.15, q_block=16, kv_block=32)
+    outs, grads = [], []
+    for dt in (torch.float64, torch.float32):
+        ins = [torch.from_numpy(a).to(dt).requires_grad_() for a in (q, k, v)]
+        out = ref.flash_attention_blockwise(*ins, **kw)
+        assert out.dtype == dt
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, ins, g.to(dt)))
+    assert float((outs[1] - outs[0]).abs().max()) < 1e-5
+    for a, b in zip(grads[1], grads[0]):
+        assert float((a - b).abs().max()) < 1e-5 * max(1.0,
+                                                       float(b.abs().max()))

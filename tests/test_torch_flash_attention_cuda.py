@@ -174,3 +174,126 @@ def test_cuda_window_inside_one_key_tile(dtype, hd, window):
         assert float((out - plain).abs().max()) < 1e-4
     else:
         assert _bf16_excess(out, plain) <= 1e-5
+
+
+def _qkv_t(B, S, T, H, G, hd, hd_v, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, hd)).astype(np.float32),
+            rng.standard_normal((B, T, G, hd)).astype(np.float32),
+            rng.standard_normal((B, T, G, hd_v)).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,hd_v", [(64, 64), (192, 128)])
+@pytest.mark.parametrize("S,T,causal,window", [
+    (203, 203, False, None),     # the encoder: every key, S == T ragged
+    (100, 1500, False, None),    # cross-attention: 1500 keys, not a tile
+                                 # multiple
+    (203, 77, False, 50),        # rows s >= 126 see no key: zeros
+    (130, 300, True, None),      # causal with more keys than queries
+    (300, 130, True, 40)])       # causal, fewer keys, a window
+def test_cuda_non_causal_and_t_ne_s_match_plain(dtype, hd, hd_v, S, T,
+                                                causal, window):
+    """On the card: the causal flag (a runtime value) and a key length
+    unlike the query length, a GQA case: the tolerances above, and a row
+    with no allowed key gives exactly zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to("cuda", dt)
+               for a in _qkv_t(2, S, T, 8, 2, hd, hd_v, seed=10))
+    kw = dict(causal=causal, window=window, logit_softcap=30.0,
+              scale=hd ** -0.5)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    assert ops.flash_attention.launches == before + 1
+    assert out.shape == (2, S, 8, hd_v)
+    plain = ref.flash_attention_blockwise(q.float(), k.float(), v.float(),
+                                          **kw)
+    if dt == torch.float32:
+        assert float((out - plain).abs().max()) < 1e-4
+    else:
+        assert _bf16_excess(out, plain) <= 1e-5
+    if not causal and window is not None:
+        empty = T - 1 + window
+        assert empty < S and bool((out[:, empty:] == 0).all())
+        assert bool((plain[:, empty:] == 0).all())
+
+
+# probs_bf16: P is rounded to bf16 before P.V.  The plain version at the
+# kernel's 64-key tiles (kv_block=64) keeps the kernel's running max tile
+# by tile, so both round P at the same points; P's fp32 value differs only
+# in its last bits (exp2f against exp, the order of the score sums), which
+# moves a rare P to the neighbouring bf16 value.  One such flip moves an
+# output by at most 2^-7 p_t |v_t|, <= 2^-7 max_t p_t max|v| in its row
+# (the row's flip unit).  Held: every element within 1e-5 beyond one bf16
+# rounding of the plain fp32 result plus one flip unit, and at most
+# FLIP_SHARE of them beyond 1e-5.  A fault moves most elements: the
+# kernel's output without the flag (P_hi + P_lo) must fail the check
+FLIP_SHARE = 1e-3
+
+
+def _probs_bf16_excess(out, q, k, v, causal, scale):
+    """(worst (excess - 1e-5) / the row's flip unit, share of elements
+    whose excess passes 1e-5), the excess as in _bf16_excess against the
+    plain version with the flag in fp32 at the kernel's 64-key tiles."""
+    exact = ref.flash_attention_blockwise(q.float(), k.float(), v,
+                                          causal=causal, scale=scale,
+                                          probs_bf16=True, kv_block=64)
+    _, e = torch.frexp(exact)
+    half_ulp = torch.where(exact == 0, torch.zeros_like(exact),
+                           torch.ldexp(torch.ones_like(exact), e - 9))
+    excess = (out.float() - exact).abs() - half_ulp
+    s = torch.einsum("bshd,bthd->bhst", q.float(),
+                     ref.expand_kv(k, q.shape[2]).float()) * scale
+    if causal:
+        S, T = s.shape[-2:]
+        s = s.masked_fill(torch.ones(S, T, dtype=torch.bool,
+                                     device=s.device).triu(1), -torch.inf)
+    p_max = torch.exp(s.amax(-1) - torch.logsumexp(s, -1)).transpose(1, 2)
+    unit = 2.0 ** -7 * p_max[..., None] * float(v.float().abs().max())
+    return (float(((excess - 1e-5) / unit).max()),
+            float((excess > 1e-5).float().mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,S,T", [(True, 203, 203), (False, 96, 1500)])
+def test_cuda_probs_bf16_matches_plain(causal, S, T):
+    """On the card, bf16: the kernel with probs_bf16 (P_lo . V skipped)
+    against the plain version with the flag at its tiles, which the
+    kernel's output without the flag fails; fp32 inputs ignore it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+               for a in _qkv_t(2, S, T, 8, 2, 64, 64, seed=11))
+    kw = dict(causal=causal, scale=0.125)
+    out = ops.flash_attention(q, k, v, probs_bf16=True, **kw)
+    units, share = _probs_bf16_excess(out, q, k, v, **kw)
+    assert units <= 1 and share <= FLIP_SHARE, (units, share)
+    units, share = _probs_bf16_excess(ops.flash_attention(q, k, v, **kw),
+                                      q, k, v, **kw)
+    assert units > 1 or share > FLIP_SHARE, (units, share)
+    f32 = [t.float() for t in (q, k, v)]
+    assert torch.equal(ops.flash_attention(*f32, probs_bf16=True, **kw),
+                       ops.flash_attention(*f32, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_non_causal_backward_matches_plain_autograd():
+    """fp32 gradients through the op with causal=False at T != S (the
+    recompute passes the flag) against autograd of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    kw = dict(causal=False, scale=0.125, q_block=64, kv_block=64)
+    ins = [torch.from_numpy(a).cuda()
+           for a in _qkv_t(2, 75, 203, 8, 2, 64, 64, seed=12)]
+    g = torch.randn((2, 75, 8, 64), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(13))
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    (ops.flash_attention(*a, **kw) * g).sum().backward()
+    (ref.flash_attention_blockwise(*b, **kw) * g).sum().backward()
+    for x, y in zip(a, b):
+        err = float((x.grad - y.grad).abs().max())
+        assert err <= 1e-5 * max(1.0, float(y.grad.abs().max())), err

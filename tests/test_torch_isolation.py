@@ -1,5 +1,5 @@
-"""The port stands alone: no file of src/repro_torch/ nor chip_smoke.py
-imports jax or anything of the JAX package, nor yaml (the card's machine may
+"""The port stands alone: no file of src/repro_torch/ nor chip_smoke.py nor
+chip_flash_ab.py imports jax or anything of the JAX package, nor yaml (the card's machine may
 not have it: pmake reads its files with its own reader), and its entry
 points default to the card.  No string of the port names a module of the
 JAX package, and a worker process the port spawns loads neither it nor
@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_flash_ab.py"]
 
 
 def _imported_roots(path):

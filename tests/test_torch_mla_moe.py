@@ -12,8 +12,14 @@ package's params loaded through the bridge.  fp32 on both sides.
 - The whole models: train logits, prefill logits and the full cache
   (`layers` and `first`), and one decode step's logits within 1e-4.
 - The served params made leaf by leaf equal `serving_params` of the whole
-  fp32 tree bit for bit, for every served family.
-- `launch.serve` answers on the CPU; a MoE train step raises."""
+  fp32 tree bit for bit, for every served family (whisper-base's too).
+- `launch.serve` answers on the CPU.
+- Training: the loss (cross-entropy + the router's aux loss) and every
+  gradient of both models in fp32 against `jax.value_and_grad` of the
+  reference's `make_loss_fn`, within 1e-4 of max(1, max |JAX|); one
+  `make_train_step` step against the reference's (loss, xent, moe_aux,
+  grad norm within 1e-4 relative, the params within 2 lr); the
+  microbatched step reports the reference's aux (0) and mean loss."""
 import types
 from unittest import mock
 
@@ -29,20 +35,29 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import mla as jmla  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
+from repro.configs import RunConfig as JRunConfig  # noqa: E402
 from repro.models.common import Options as JOptions  # noqa: E402
+from repro.models.model import build_model as jax_build_model  # noqa: E402
+from repro.optim import adamw as jadamw  # noqa: E402
+from repro.runtime.train_step import make_loss_fn as jax_loss_fn  # noqa: E402
+from repro.runtime.train_step import (  # noqa: E402
+    make_train_step as jax_train_step)
 from repro.models.rope import rope_angles as jrope_angles  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import RunConfig, get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import mla, moe  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.common import Options  # noqa: E402
-from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.models.model import Model, build_model  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.models.rope import rope_angles  # noqa: E402
 from repro_torch.runtime.serve_step import (_leaves,  # noqa: E402
                                             init_serving_params,
                                             serving_params)
-from repro_torch.runtime.train_step import make_train_step  # noqa: E402
+from repro_torch.runtime.train_step import (make_loss_fn,  # noqa: E402
+                                            make_train_step,
+                                            value_and_grad)
 
 MOE_TOL, MLA_TOL, TOL = 1e-5, 1e-5, 1e-4
 ARCHS = ["deepseek-v2-lite-16b", "arctic-480b"]
@@ -350,7 +365,7 @@ def test_model_decode_absorbed_mla():
 # ---------------------------------------------------------------------------
 
 SERVED = ["gemma2-2b", "rwkv6-1.6b", "zamba2-2.7b", "deepseek-7b",
-          "deepseek-v2-lite-16b", "qwen2-vl-2b"]
+          "deepseek-v2-lite-16b", "qwen2-vl-2b", "whisper-base"]
 
 
 @pytest.mark.parametrize("arch", SERVED)
@@ -386,16 +401,130 @@ def test_serve_reduced_on_the_cpu(arch, capsys):
 
 
 def test_build_model_takes_the_moe_and_vlm_families():
-    """The three configs build at full width (no params made); the audio
-    family (whisper) alone still raises."""
+    """The three configs build at full width (no params made), and so
+    does the audio family's whisper-base; a family the port lacks
+    raises."""
+    from repro_torch.models import whisper
     for arch in ("deepseek-v2-lite-16b", "qwen2-vl-2b", "arctic-480b"):
         assert build_model(get_config(arch)).cfg.name == arch
-    with pytest.raises(NotImplementedError, match="audio"):
-        build_model(get_config("gemma2-2b").replace(family="audio"))
+    model = build_model(get_config("whisper-base"))
+    assert model.cfg.family == "audio" and model._mod is whisper
+    with pytest.raises(NotImplementedError, match="speech"):
+        build_model(get_config("gemma2-2b").replace(family="speech"))
 
 
-def test_moe_train_step_raises():
-    from repro_torch.configs import RunConfig
-    model = build_model(get_config("deepseek-v2-lite-16b").reduced())
-    with pytest.raises(NotImplementedError, match="MoE and MLA training"):
-        make_train_step(model, RunConfig())
+# ---------------------------------------------------------------------------
+# Training: the loss with the router's aux loss, gradients, one step
+# ---------------------------------------------------------------------------
+
+LR = 3e-4
+# the first step's update against JAX's (see test_moe_train_step_matches_jax;
+# measured 5.0e-05 LR where |g| >= UPD_G_MIN, 0.038 LR anywhere)
+UPD_G_MIN, UPD_TOL, UPD_TOL_SMALL_G = 1e-6, 1e-3, 0.1
+
+
+def _fp32_models(name):
+    """Reduced `name` on both sides as models whose forward runs in fp32
+    (each package's `make_loss_fn` calls the forward without a dtype), the
+    JAX params, the port's copy and a seeded batch."""
+    jcfg, cfg = jax_get_config(name).reduced(), get_config(name).reduced()
+    jmodel = jax_build_model(jcfg, OPTS_J)
+    jmodel._mod = types.SimpleNamespace(forward=lambda *a, **kw: jtf.forward(
+        *a, **kw, dtype=jnp.float32))
+    model = Model(cfg, OPTS_T, types.SimpleNamespace(
+        forward=lambda *a, **kw: tf.forward(*a, **{**kw,
+                                                   "dtype": torch.float32})))
+    jparams = jax.jit(lambda k: jtf.init_lm(k, jcfg))(jax.random.PRNGKey(3))
+    params = bridge.from_jax(_np_tree(jparams), "cpu")
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(4, 16)).astype(np.int32)
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, 1)}
+    return jmodel, model, jparams, params, batch
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_loss_and_gradients_match_jax(arch):
+    jmodel, model, jparams, params, batch = _fp32_models(arch)
+    (jloss, jaux), jgrads = jax.jit(jax.value_and_grad(
+        jax_loss_fn(jmodel), has_aux=True))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    (loss, aux), grads = value_and_grad(make_loss_fn(model), params,
+                                        _torch_batch(batch))
+    assert float(aux["moe_aux"]) > 0
+    for ours, theirs in ((loss, jloss), (aux["xent"], jaux["xent"]),
+                         (aux["moe_aux"], jaux["moe_aux"])):
+        assert abs(float(ours) - float(theirs)) <= TOL * abs(float(theirs))
+    assert abs(float(loss) - float(aux["xent"]) - float(aux["moe_aux"])) \
+        <= 1e-6 * float(loss)
+    ours, theirs = dict(_leaves(bridge.to_numpy(grads))), dict(
+        _leaves(_np_tree(jgrads)))
+    assert set(ours) == set(theirs)
+    for p in ours:
+        assert _maxerr(ours[p], theirs[p]) <= TOL * max(
+            1.0, float(np.abs(theirs[p]).max())), p
+    # the router's gradient carries the aux loss's: without it, it moves
+    (_, _), g_no_aux = value_and_grad(
+        lambda p_, b_: (aux_free_loss(model, p_, b_), {}), params,
+        _torch_batch(batch))
+    router = ("blocks", "mlp", "router")
+    assert _maxerr(dict(_leaves(bridge.to_numpy(g_no_aux)))[router],
+                   ours[router]) > 0
+
+
+def aux_free_loss(model, params, batch):
+    from repro_torch.models.common import softmax_xent
+    logits = model.forward(params, batch)
+    return softmax_xent(logits, batch["labels"], model.cfg.vocab_size)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_train_step_matches_jax(arch):
+    """One fp32 step of each package's make_train_step from the same
+    params and batch, then the microbatched path's report."""
+    jmodel, model, jparams, params, batch = _fp32_models(arch)
+    jrc = JRunConfig(total_steps=10, warmup_steps=0, lr=LR)
+    rc = RunConfig(total_steps=10, warmup_steps=0, lr=LR)
+    jp, js, jm = jax.jit(jax_train_step(jmodel, jrc))(
+        jparams, jadamw.init_opt(jparams, jrc),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    tp, _, tm = make_train_step(model, rc)(params, adamw.init_opt(params, rc),
+                                           _torch_batch(batch))
+    assert float(tm["moe_aux"]) > 0
+    for key in ("loss", "xent", "moe_aux", "grad_norm"):
+        assert abs(float(tm[key]) - float(jm[key])) \
+            <= TOL * abs(float(jm[key])), key
+    # the update each package made, tp - p0 against jp - p0.  Adam's first
+    # step moves an element by lr * g / (|g| + eps) plus the decay, g the
+    # clipped gradient (JAX's m / (1 - beta1)): where |g| >= UPD_G_MIN
+    # (100 eps) that is well conditioned and the updates agree within
+    # UPD_TOL * LR; where g is near eps the gradients' rounding moves it by
+    # a fraction of lr, so there within UPD_TOL_SMALL_G * LR.  A step that
+    # skipped the update is off by ~LR, one of the wrong sign by ~2 LR.
+    p0 = jax.tree_util.tree_leaves(_np_tree(jparams))
+    g = [np.abs(m) / (1 - jrc.beta1) for m in
+         jax.tree_util.tree_leaves(_np_tree(js.m))]
+    worst = worst_small = 0.0
+    for t, j, p, gi in zip(jax.tree_util.tree_leaves(bridge.to_numpy(tp)),
+                           jax.tree_util.tree_leaves(_np_tree(jp)), p0, g):
+        d = np.abs((t - p) - (j - p))
+        big = gi >= UPD_G_MIN
+        worst = max(worst, float(d[big].max(initial=0.0)))
+        worst_small = max(worst_small, float(d.max()))
+    assert worst <= UPD_TOL * LR, worst / LR
+    assert worst_small <= UPD_TOL_SMALL_G * LR, worst_small / LR
+
+    rc2 = rc.replace(microbatches=2)
+    _, _, tm2 = make_train_step(model, rc2)(
+        bridge.from_jax(_np_tree(jparams), "cpu"),
+        adamw.init_opt(params, rc2), _torch_batch(batch))
+    _, _, jm2 = jax.jit(jax_train_step(jmodel, jrc.replace(
+        microbatches=2)))(jparams, jadamw.init_opt(jparams, jrc),
+                          {k: jnp.asarray(v) for k, v in batch.items()})
+    assert float(tm2["moe_aux"]) == 0.0 == float(jm2["moe_aux"])
+    assert float(tm2["xent"]) == float(tm2["loss"])
+    assert abs(float(tm2["loss"]) - float(jm2["loss"])) \
+        <= TOL * abs(float(jm2["loss"]))
