@@ -106,7 +106,10 @@ Phases; any failure exits non-zero:
       version, `straggler_crosscheck()` and the mean sync gap printed);
       the DFM bridge `mesh_ops` on a seeded fp32 DFM of 2^26 rows and a
       pytree, against numpy (map, sum, reduce, scan, group into 7 buckets
-      exactly against a stable argsort; each operation's ms); the
+      exactly against a stable argsort; each operation's ms), then the
+      same DFMs (the fp32 one's first 2^22 rows) through the bridge on a
+      1x1 mesh on the card (a world-size-1 group made and destroyed
+      there), every result equal to the one-device path's bit for bit; the
       `ElasticPool` crash drill (256 A^T B shards, a worker crashing after
       3: all complete, at least one requeued, one launch a shard run,
       `remesh` at the live counts) and `run_pool` over a TaskServer of
@@ -122,7 +125,12 @@ Phases; any failure exits non-zero:
       kernel of the path must have launched once per layer and prefill
       batch, the kernel path's prefill must agree with the plain path's,
       and the served first tokens are the prefill's argmax in the batches
-      they were served in.  The gemma2-2b serve runs with its observability
+      they were served in.  After the gemma2-2b serve, one served prefill
+      batch (1 x 4200, into the cache serve gives it) runs under
+      `launch.hlo_analysis.analyze`: 26 flash launches inside, its FLOPs
+      and HBM bytes equal exactly to the same call counted on meta
+      tensors, and its roofline's compute and memory terms (H100 data-sheet
+      rates) printed beside the measured prefill ms.  The gemma2-2b serve runs with its observability
       on (`--stats-port P --trace-out build/chip_trace/gemma2.trace.json`):
       a thread scrapes /health, /stats and /metrics at least 3 times while
       it serves (every scrape ok, /metrics Prometheus text whose
@@ -208,7 +216,13 @@ Phases; any failure exits non-zero:
       to step 6: it resumes from step 4, the params and moments it restored
       onto the card equal step 4's arrays.npz bit for bit, in the tensors
       the run initialised (restored in place, the device memory grown by
-      no more than its largest leaf), its losses are finite;
+      no more than its largest leaf), its losses are finite; step 4's
+      params restored again onto a 1x1 mesh on the card with the port's
+      `param_specs` (DTensors with their specs' placements, bit for bit);
+      (c) `python -m repro_torch.launch.dryrun --arch gemma2-2b --shape
+      decode_32k` in a subprocess (a fake group of 256 ranks on the CPU):
+      it must end ok within 120 s, its roofline terms and seconds printed;
+      then the four new checks' seconds and their total;
   (d) last lines: the card, a JSON line of per-kernel results (flash
       attention once per path; A^T B at the ladder's top, with every shape
       it was held at; the WKV row with its stages' ms, scratch bytes,
@@ -224,7 +238,8 @@ Phases; any failure exits non-zero:
       mpi_list, mesh_ops_ms, elastic, run_pool, metg_schedulers (the tree
       rows' mean us a hop, hop_us, in front_door); the gemma2 flash row's
       pmake campaigns, campaign, and its served run's observability,
-      serve_obs; the flash row with the served figures and the two
+      serve_obs (with the analysed prefill, analysis), and the dry run's
+      cell, dryrun; the flash row with the served figures and the two
       profiles, serve; a third flash row, whisper-base's: its encoder
       shape's figures, cross, decoder, fp32, probs_bf16, grad_cross, its
       serve's launches and figures and its training's train_* keys; the
@@ -271,10 +286,12 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-H100_BF16_FLOPS = 989e12     # dense tensor-core peak, H100 SXM data sheet
+# dense bf16 tensor-core peak and the HBM3 rate, H100 SXM data sheet:
+# `repro_torch.launch.mesh`'s PEAK_FLOPS_BF16 and HBM_BW, which `run` reads
+# into H100_BF16_FLOPS and H100_BYTES_S once src/ is importable
+H100_BF16_FLOPS = H100_BYTES_S = None
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores, same sheet
 H100_TF32_FLOPS = 495e12     # dense TF32 on the tensor cores, same sheet
-H100_BYTES_S = 3.35e12       # HBM3 rate, same sheet
 # exp issue rate: 16 results per clock per SM for the special-function unit's
 # base-2 exponential, which expf runs once (CUDA C++ Programming Guide,
 # arithmetic instruction throughput, compute capability 9.0), x 132 SMs x
@@ -298,6 +315,8 @@ VLH, VLG, VLHD = 16, 2, 128
 # dropped key block would (those move them by O(0.1) and more)
 DS_FP32_LOGIT_TOL = 1e-3
 FP32_TOL = 1e-4       # fp32 output vs plain version: summation order only
+DRYRUN_TIMEOUT_S = 120   # the gemma2-2b x decode_32k dry-run cell
+MESH_ON_MESH_ROWS = 1 << 22   # the DFM bridge's rows on a 1x1 mesh
 BF16_ATOL = 1e-5      # bf16 output: one rounding of the fp32 result, see below
 LOGIT_TOL = 0.15               # prefill logits, kernel path vs plain path
 # rwkv6-1.6b prefill WKV: 4200 tokens padded to 66 chunks of 64
@@ -540,13 +559,10 @@ def attention_bound(b, s, hq, g, hd, window, itemsize, flops_peak, hd_v=None,
     default hd), and q, k, v read once plus o written once.  s queries
     against t keys (default s); query i sees key j < t where (not causal
     or j <= i) and (no window or i - j < window)."""
-    hd_v = hd if hd_v is None else hd_v
-    t = s if t is None else t
-    pairs = sum(max(0, (min(i, t - 1) if causal else t - 1)
-                    - (max(0, i - window + 1) if window else 0) + 1)
-                for i in range(s)) * b * hq
-    flops = 2.0 * (hd + hd_v) * pairs
-    nbytes = itemsize * (b * s * hq * (hd + hd_v) + b * t * g * (hd + hd_v))
+    from repro_torch.kernels import cost
+    flops, nbytes = cost.flash_attention(
+        b, s, hq, g, hd, window=window, itemsize=itemsize, hd_v=hd_v, t=t,
+        causal=causal)[:2]
     t_ops, t_bytes = flops / flops_peak, nbytes / H100_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes"), flops
@@ -625,13 +641,8 @@ def wkv_bound(b, s, h, hd, q, with_state):
     products, A.v, the bonus, r.S, the state update) at the fp32 rate; r, k,
     v, logw, u and the initial state read once, y and the final state
     written once.  Returns (ms, bound_by, exps, flops, bytes)."""
-    pairs, n = q * (q - 1) // 2, (s // q) * b * h
-    exps = n * (pairs * hd + (q - 1) * hd + q * hd + hd)
-    flops = n * (q * hd + pairs * hd * 4 + pairs * hd * 2 + q * hd * 5
-                 + (q - 1) * hd + q * hd * 2 + q * hd * hd * 2
-                 + hd * hd * 2 + q * hd * hd * 2)
-    nbytes = 4 * (5 * b * s * h * hd + h * hd
-                  + (2 if with_state else 1) * b * h * hd * hd)
+    from repro_torch.kernels import cost
+    flops, nbytes, exps, _ = cost.wkv6(b, s, h, hd, q, with_state)
     t_ops = max(exps / H100_EXP_S, flops / H100_FP32_FLOPS)
     t_bytes = nbytes / H100_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -775,16 +786,10 @@ def ssd_bound(b, s, h, hd, n, q, itemsize=4, with_state=False,
     tensor cores, three TF32 products each at the TF32 rate, beside the
     rest at the fp32 rate (the two units run at once, so the larger).  Exps
     at the exp rate.  Returns (ms, bound_by, exps, flops, bytes, tc_ms)."""
-    pairs, chunks = q * (q + 1) // 2, (s // q) * b
-    nblk = chunks * h
-    exps = nblk * (pairs + 2 * q)
-    prod = chunks * pairs * n * 2 + nblk * (
-        pairs * hd * 2 + q * n * hd * 2 + q * hd * n * 2)
-    rest = nblk * (q + pairs * 2 + q * hd * 2 + q * hd + hd * n * 2)
-    flops = prod + rest
-    nbytes = (itemsize * (2 * b * s * h * hd + b * s * h + 2 * b * s * n)
-              + (8 if with_state else 4 if final_state else 0)
-              * b * h * hd * n)
+    from repro_torch.kernels import cost
+    flops, nbytes, exps, prod = cost.ssd(b, s, h, hd, n, q, itemsize,
+                                         with_state, final_state)
+    rest = flops - prod
     t_exp = exps / H100_EXP_S
     t_ops = max(t_exp, flops / H100_FP32_FLOPS)
     t_bytes = nbytes / H100_BYTES_S
@@ -993,24 +998,9 @@ def ssd_bwd_bound(b, s, h, hd, n, q, itemsize=4):
     cores, three TF32 products each at the TF32 rate, beside the rest at
     the fp32 rate (the two units run at once, so the larger).  Exps at the
     exp rate.  Returns (ms, bound_by, exps, flops, bytes, tc_ms)."""
-    pairs, chunks = q * (q + 1) // 2, (s // q) * b
-    strict, nblk = q * (q - 1) // 2, chunks * h
-    exps = nblk * (pairs + 2 * q)
-    prod = chunks * pairs * n * 2 + nblk * (
-        q * hd * n * 2 * 5 + pairs * hd * 2 * 2 + pairs * n * 2 * 2)
-    rest = 2 * b * s * n * (h - 1) + nblk * (
-        q + q * hd + hd * n * 2                         # cumsum, state walk
-        + pairs * 3 + strict * 2                        # M, dG, P; sums
-        + q * hd * 2                                    # dx
-        + q * hd * 2 + q                                # R
-        + q * n * 2                                     # dC
-        + q * n * 2 + q                                 # inter-chunk term
-        + q * n * 2                                     # dB
-        + hd * n * 2                                    # <dS, S_in>
-        + q * hd + hd * n * 2                           # dS update
-        + q * 5)                                        # dcum, reverse cumsum
-    flops = prod + rest
-    nbytes = itemsize * (3 * b * s * h * hd + 2 * b * s * h + 4 * b * s * n)
+    from repro_torch.kernels import cost
+    flops, nbytes, exps, prod = cost.ssd_bwd(b, s, h, hd, n, q, itemsize)
+    rest = flops - prod
     t_exp = exps / H100_EXP_S
     t_ops = max(t_exp, flops / H100_FP32_FLOPS)
     t_bytes = nbytes / H100_BYTES_S
@@ -1224,8 +1214,8 @@ def matmul_bound(k, m, n, itemsize, flops_peak):
     """Least time for C = A^T B: 2 K M N FLOPs at the type's rate (fp32
     outside the tensor cores, bf16 on them), A and B read once and C
     written once.  Returns (ms, bound_by, flops, bytes)."""
-    flops = 2.0 * k * m * n
-    nbytes = itemsize * (k * m + k * n + m * n)
+    from repro_torch.kernels import cost
+    flops, nbytes = cost.tiled_matmul(k, m, n, itemsize)[:2]
     t_ops, t_bytes = flops / flops_peak, nbytes / H100_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
@@ -2117,7 +2107,92 @@ def phase_mesh_ops(torch, card, dev="cuda"):
     bad = [k for k, ok in held if not ok]
     if bad:
         raise SystemExit(f"mesh_ops disagrees with numpy: {bad}")
+    cut = MESH_ON_MESH_ROWS
+    ms["mesh_s"] = mesh_ops_on_mesh(torch, mo, x[:cut], dest[:cut], tree)
     return ms
+
+
+def mesh_ops_on_mesh(torch, mo, x, dest, tree):
+    """The same DFMs (the first MESH_ON_MESH_ROWS rows of the fp32 one)
+    through the bridge on a 1x1 mesh on the card: every operation's
+    result equal to the one-device path's, bit for bit."""
+    t0 = time.perf_counter()
+    dev = "cuda"
+    add = lambda a, b: a + b  # noqa: E731
+    f = lambda v: v * v + 1.0  # noqa: E731
+    tf = lambda t: {"x": t["x"] * 2.0 + 1.0, "y": t["y"] * 3}  # noqa: E731
+    ops = {
+        "iterates": lambda w: mo.iterates(w, x.shape[0]),
+        "map": lambda w: mo.dfm_map(w, f, x),
+        "sum": lambda w: mo.dfm_sum(w, mo.dfm_map(w, f, x)),
+        "reduce": lambda w: mo.dfm_reduce(w, add, mo.dfm_map(w, f, x)),
+        "scan": lambda w: mo.dfm_scan(w, add, x),
+        "group": lambda w: mo.group(w, dest, x),
+        "repartition": lambda w: mo.repartition(w, x),
+        "map tree": lambda w: mo.dfm_map(w, tf, tree),
+        "sum tree": lambda w: mo.dfm_sum(w, tree),
+        "scan tree": lambda w: mo.dfm_scan(w, add, tree),
+        "group tree": lambda w: mo.group(w, tree["y"] % 7, tree),
+    }
+    held = {}
+    with host_mesh(torch) as mesh:
+        for k, op in ops.items():
+            one, on_mesh = mo.collect(op(dev)), mo.collect(op(mesh))
+            a = one if isinstance(one, dict) else {"": one}
+            b = on_mesh if isinstance(on_mesh, dict) else {"": on_mesh}
+            held[k] = a.keys() == b.keys() and all(
+                np.asarray(a[j]).dtype == np.asarray(b[j]).dtype
+                and np.asarray(a[j]).tobytes() == np.asarray(b[j]).tobytes()
+                for j in a)
+    secs = time.perf_counter() - t0
+    print(f"[c] mpi-list DFM bridge on a 1x1 mesh on the card (DTensors "
+          f"split over data): " + ", ".join(
+              f"{k} {'equal' if ok else 'DIFFERS'}" for k, ok in held.items())
+          + f" to the one-device path bit for bit; phase {secs:.1f}s")
+    bad = [k for k, ok in held.items() if not ok]
+    if bad:
+        raise SystemExit(f"mesh_ops on a mesh differs from one device: {bad}")
+    return secs
+
+
+def phase_dryrun():
+    """`python -m repro_torch.launch.dryrun --arch gemma2-2b --shape
+    decode_32k` as a subprocess (a fake group of 256 ranks on the CPU):
+    it must end ok within DRYRUN_TIMEOUT_S; prints its roofline terms (counts
+    over the H100 data-sheet rates, not times measured on the card) and
+    its seconds."""
+    out_dir = ROOT / "build" / "chip_dryrun"
+    rec_path = out_dir / "gemma2-2b__decode_32k__16x16.json"
+    if rec_path.exists():
+        rec_path.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "gemma2-2b", "--shape", "decode_32k", "--out-dir",
+             str(out_dir)], env=env, capture_output=True, text=True,
+            timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"the dry run did not end within "
+                         f"{DRYRUN_TIMEOUT_S} s") from None
+    secs = time.perf_counter() - t0
+    rec = json.loads(rec_path.read_text()) if rec_path.exists() else {}
+    print(f"[c] dry run gemma2-2b x decode_32k on a fake 16x16 mesh: "
+          f"ok={rec.get('ok')} rc={r.returncode} in {secs:.1f}s (the cell "
+          f"itself {rec.get('seconds')}s); per device flops="
+          f"{rec.get('hlo_flops_per_device')} hbm_bytes="
+          f"{rec.get('hlo_bytes_per_device')} collective bytes="
+          f"{rec.get('collective_bytes', {}).get('total')}; roofline terms "
+          f"(counts over H100 SXM data-sheet rates) {rec.get('roofline')}; "
+          f"error {rec.get('error')}")
+    if r.returncode != 0 or rec.get("ok") is not True:
+        print(r.stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"the dry run failed: {rec.get('error')}")
+    return {"seconds": secs, "roofline": rec["roofline"],
+            "flops_per_device": rec["hlo_flops_per_device"],
+            "bytes_per_device": rec["hlo_bytes_per_device"],
+            "collective_bytes": rec["collective_bytes"]["total"]}
 
 
 def phase_elastic(torch, mm_ops, metg, card, dev="cuda"):
@@ -3046,7 +3121,67 @@ def phase_serve(torch, fa_ops, attention, fa_ref, serve):
           f"where margin > tol: {int(sure.sum())}/{len(sure)}")
     if err >= LOGIT_TOL or not bool(same.all()) or not bool(same_served.all()):
         raise SystemExit("kernel path and plain path disagree")
+    obs["analysis"] = serve_analysis(torch, fa_ops, res)
     return launches, launches // len(res["batches"]), obs
+
+
+def _meta_like(torch, tree):
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def serve_analysis(torch, fa_ops, res):
+    """One served prefill batch (the first prompt, 1 x prompt length, into
+    the cache `launch.serve` gives it) on the card under
+    `launch.hlo_analysis.analyze`: the flash kernel launched once a layer
+    inside it, and its FLOPs and HBM bytes equal exactly the same call
+    counted on meta tensors (both counts come from shapes).  Prints the
+    roofline's compute and memory terms over the H100 data-sheet constants
+    beside the measured prefill ms (CUDA events) and their ratio."""
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.runtime.serve_step import make_prefill_step
+    t0 = time.perf_counter()
+    model, params = res["model"], res["params"]
+    cfg = model.cfg
+    toks = torch.as_tensor(np.stack(res["prompts"][:1]), device="cuda").long()
+    S = toks.shape[1]
+    cache_len = S + 16 + 1              # ARGV's --max-new 16, as serve sizes it
+    step = make_prefill_step(model)
+
+    def one(p, batch, dev):
+        return step(p, batch, model.init_cache(1, cache_len, device=dev))
+
+    batch = serve_batch(torch, cfg, toks)
+    with torch.inference_mode():
+        n0 = fa_ops.flash_attention.launches
+        card = hlo_analysis.analyze(one, params, batch, "cuda")
+        launched = fa_ops.flash_attention.launches - n0
+        meta = hlo_analysis.analyze(one, _meta_like(torch, params),
+                                    _meta_like(torch, batch), "meta")
+        ms = cuda_ms(lambda: one(params, batch, "cuda"), 3)
+    compute_s = card["flops"] / PEAK_FLOPS_BF16
+    memory_s = card["hbm_bytes"] / HBM_BW
+    secs = time.perf_counter() - t0
+    same = (card["flops"], card["hbm_bytes"]) == (meta["flops"],
+                                                   meta["hbm_bytes"])
+    print(f"[c] gemma2-2b served prefill 1 x {S} under hlo_analysis on "
+          f"{card_line()}: flash_attention launches={launched} (want "
+          f"{cfg.n_layers}); flops={card['flops']:.6e} hbm_bytes="
+          f"{card['hbm_bytes']:.6e} (meta count: flops={meta['flops']:.6e} "
+          f"hbm_bytes={meta['hbm_bytes']:.6e}; equal={same}); kernel ops "
+          f"{card['kernels']}; compute_s={compute_s:.6e} memory_s="
+          f"{memory_s:.6e} (H100 SXM data-sheet rates) vs measured "
+          f"prefill_ms={ms:.3f}: ratio max(terms)/measured="
+          f"{max(compute_s, memory_s) * 1e3 / ms:.4f}; phase {secs:.1f}s")
+    if launched != cfg.n_layers:
+        raise SystemExit(f"the analysed prefill launched the kernel "
+                         f"{launched} times, want {cfg.n_layers}")
+    if not same:
+        raise SystemExit("the card's count differs from the meta count")
+    return {"flops": card["flops"], "hbm_bytes": card["hbm_bytes"],
+            "compute_s": compute_s, "memory_s": memory_s, "prefill_ms": ms,
+            "launches": launched, "seconds": secs}
 
 
 def wkv6_rechunked(fn, q, *args, chunk, initial_state=None):
@@ -3987,6 +4122,55 @@ def phase_train_rwkv6(torch, wkv_ops, train):
             "train_peak_GB": run["peak_bytes"] / 1e9}, profiled
 
 
+@contextlib.contextmanager
+def host_mesh(torch):
+    """A 1x1 (data, model) mesh on the card over a world-size-1 group that
+    is created here and destroyed on leaving."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    if dist.is_initialized():
+        raise SystemExit("a process group is already running")
+    mesh = make_host_mesh("cuda")
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def ckpt_onto_mesh(torch, d, step):
+    """The params saved at `step` restored onto a 1x1 mesh on the card with
+    the port's `param_specs`: every leaf a DTensor on the card with its
+    spec's placements, equal to the saved array bit for bit."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime.sharding import param_specs, placements
+    t0 = time.perf_counter()
+    cfg = get_config("gemma2-2b").reduced()
+    template = {"params": build_model(cfg).init(torch.Generator(), "meta")}
+    specs = {"params": param_specs(template["params"], cfg)}
+    with host_mesh(torch) as mesh:
+        back = ckpt.restore(d, step, template, mesh=mesh, spec_tree=specs)
+        spec_of = dict(ckpt._items(specs))
+        bad, n = [], 0
+        with np.load(Path(d) / f"step_{step:08d}" / "arrays.npz") as data:
+            for k, t in ckpt._items(back):
+                n += 1
+                loc = t.to_local()
+                if (not hasattr(t, "device_mesh") or loc.device.type != "cuda"
+                        or tuple(t.placements) != placements(mesh, spec_of[k])
+                        or loc.cpu().numpy().tobytes() != data[k].tobytes()):
+                    bad.append(k)
+    secs = time.perf_counter() - t0
+    print(f"[c] checkpoint step {step} restored onto a 1x1 mesh on the card "
+          f"with param_specs: {n} leaves, {n - len(bad)} DTensors on the "
+          f"card with their specs' placements and equal to arrays.npz bit "
+          f"for bit; phase {secs:.1f}s")
+    if bad or not n:
+        raise SystemExit(f"restore onto the mesh differs: {bad}")
+    return secs
+
+
 def phase_ckpt(torch, train):
     """Reduced gemma2-2b on the card, 4 steps saving every 2 into a
     temporary directory under build/, then --resume --steps 6: the run
@@ -4036,6 +4220,7 @@ def phase_ckpt(torch, train):
                     if dev != "cuda" or t.numpy().tobytes()
                     != data[k].tobytes()]
         n_saved = sorted(p.name for p in Path(d).glob("step_*"))
+        mesh_s = ckpt_onto_mesh(torch, d, 4)
     said = "[train] resumed from step 4" in out.getvalue()
     n = len(got["leaves"])
     print(f"[c] checkpoint on the card: resumed={said}; {n} leaves restored "
@@ -4054,6 +4239,7 @@ def phase_ckpt(torch, train):
                          "place, or allocated more than one leaf on the card")
     if not np.isfinite(res["losses"]).all():
         raise SystemExit("non-finite loss after the resume")
+    return mesh_s
 
 
 def phase_train_model(torch, fa_ops, train, argv, name, dims, n_params,
@@ -4131,6 +4317,7 @@ def device_profile(torch, what, fn, ref_ms, top=10):
 def run(where: dict) -> int:
     """Every phase in order; where["phase"] names the one running, for the
     failure line."""
+    global H100_BF16_FLOPS, H100_BYTES_S
     import torch
     if not torch.cuda.is_available():
         why = "chip_smoke: no CUDA device; this script runs only on the card"
@@ -4151,7 +4338,9 @@ def run(where: dict) -> int:
     from repro_torch.kernels.tiled_matmul import ops as mm_ops
     from repro_torch.kernels.tiled_matmul import ref as mm_ref
     from repro_torch.launch import metg, serve, train
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
     from repro_torch.models import attention, moe, rwkv
+    H100_BF16_FLOPS, H100_BYTES_S = PEAK_FLOPS_BF16, HBM_BW
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -4300,7 +4489,15 @@ def run(where: dict) -> int:
                                                             train)
     wkv_row.update(keys)
     where["phase"] = "(c) checkpoint on the card"
-    phase_ckpt(torch, train)
+    new_s = {"ckpt_onto_mesh": phase_ckpt(torch, train)}
+    new_s["serve_analysis"] = row["serve_obs"]["analysis"]["seconds"]
+    new_s["mesh_ops_on_mesh"] = mm_row["mesh_ops_ms"].pop("mesh_s")
+    where["phase"] = "(c) the dry run of gemma2-2b x decode_32k"
+    row["dryrun"] = phase_dryrun()
+    new_s["dryrun"] = row["dryrun"]["seconds"]
+    print(f"[c] new phases' seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in new_s.items())
+          + f"; total {sum(new_s.values()):.1f}s")
     where["phase"] = "(d) results"
     print(f"[d] total {time.perf_counter() - t_start:.1f}s")
     print(card_line())

@@ -14,7 +14,9 @@ manifest, and are read back through the manifest's dtype (numpy has no
 bfloat16 of its own).  The same tree gives the same `arrays.npz` bytes as
 JAX's `ckpt.save` and the same manifest keys, shapes, dtypes and metadata
 (the treedef string, which nothing reads, and the time apart).
-Restoring onto another mesh (JAX's `mesh` / `spec_tree`) is not ported.
+`restore(..., mesh=, spec_tree=)` places each leaf on a `DeviceMesh` as a
+DTensor by its spec (elastic: the mesh need not be the one used at save
+time).
 """
 from __future__ import annotations
 
@@ -29,14 +31,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.runtime.sharding import P, placements
+
 # numpy's header type for JAX's bfloat16 (ml_dtypes), whose arrays numpy
 # itself reads back as raw 2-byte void
 _BF16_DESCR = "<V2"
 
 
 def _items(tree, prefix=()):
-    """(path, leaf) pairs in JAX's flattening order."""
-    if isinstance(tree, dict):
+    """(path, leaf) pairs in JAX's flattening order; a spec (`P`) is a
+    leaf."""
+    if isinstance(tree, P):
+        yield "/".join(prefix), tree
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _items(tree[k], prefix + (str(k),))
     elif hasattr(tree, "_fields"):
@@ -132,14 +139,19 @@ def restore(directory: str, step: int, template, *, mesh=None,
             spec_tree=None):
     """The tree saved at `step`, copied into `template` (a tree of tensors)
     in place, each leaf cast to its template's dtype on its device, so no
-    second copy of the tree is allocated; returns `template`.  The JAX
-    package's resharding onto a mesh is not ported: `mesh` / `spec_tree`
-    raise."""
-    if mesh is not None or spec_tree is not None:
-        raise NotImplementedError("restoring onto a mesh is not ported yet "
-                                  "(ROADMAP Queue 1, distribution)")
+    second copy of the tree is allocated; returns `template`.
+
+    With `mesh` (a `DeviceMesh`) and `spec_tree` (the template's tree of
+    `runtime.sharding.P`), each leaf is read as above and placed on the
+    mesh's device type by its spec, each rank keeping its own shard of the
+    whole leaf it read (no communication); returns a new tree of DTensors,
+    `template` giving only shapes and dtypes (meta tensors will do)."""
+    if (mesh is None) != (spec_tree is None):
+        raise ValueError("restore: give both mesh and spec_tree, or neither")
     d = Path(directory) / f"step_{step:08d}"
     dtypes = json.loads((d / "manifest.json").read_text())["dtypes"]
+    specs = dict(_items(spec_tree)) if mesh is not None else None
+    placed = []
     with np.load(d / "arrays.npz") as data, torch.no_grad():
         for key, leaf in _items(template):
             arr = np.array(data[key])       # writable, owned by the tensor
@@ -150,8 +162,14 @@ def restore(directory: str, step: int, template, *, mesh=None,
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            leaf.copy_(t)
-    return template
+            if mesh is None:
+                leaf.copy_(t)
+                continue
+            from torch.distributed.tensor import distribute_tensor
+            t = t.to(device=mesh.device_type, dtype=leaf.dtype)
+            placed.append(distribute_tensor(
+                t, mesh, placements(mesh, specs[key]), src_data_rank=None))
+    return template if mesh is None else _rebuild(template, iter(placed))
 
 
 def retain(directory: str, keep: int = 3):

@@ -13,6 +13,7 @@ from repro_torch.configs.base import (
     RWKVConfig,
     ShapeConfig,
     SSMConfig,
+    applicable_shapes,
     input_specs,
 )
 from repro_torch.configs.arctic_480b import CONFIG as _arctic_480b
@@ -46,6 +47,7 @@ def get_config(name: str) -> ModelConfig:
 
 __all__ = [
     "ARCH_IDS", "REGISTRY", "get_config", "input_specs", "SHAPES",
+    "applicable_shapes",
     "ShapeConfig", "ModelConfig", "RunConfig", "MLAConfig", "MoEConfig",
     "SSMConfig", "RWKVConfig", "EncoderConfig",
 ]

@@ -186,6 +186,21 @@ SHAPES: dict[str, ShapeConfig] = {
 }
 
 
+def applicable_shapes(cfg: ModelConfig) -> dict[str, str]:
+    """shape name -> "run" or "skip:<reason>" per the assignment rules."""
+    out = {}
+    for name, sh in SHAPES.items():
+        if name == "long_500k":
+            # sub-quadratic attention required: run for SSM / hybrid / linear-attn
+            if cfg.family in ("ssm", "hybrid"):
+                out[name] = "run"
+            else:
+                out[name] = "skip:full-attention arch; 500k decode out of family spec (DESIGN.md §6)"
+        else:
+            out[name] = "run"
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Run-time (training/serving) config
 # ---------------------------------------------------------------------------

@@ -10,12 +10,15 @@ backward kernel; its training differentiates the chunked scan by autodiff,
 whose gradient both compute.  That gradient is Y's from a zero initial
 state: with an initial state or the final state asked for, the op carries
 no gradient and raises while autograd records (serving runs under
-`torch.no_grad()`)."""
+`torch.no_grad()`).  A meta tensor takes the plain versions, forward and
+backward; on DTensors the op runs shard by shard over the batch and the
+heads (`kernels/_dist.py`), B and C (one group) replicated over the
+heads."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import count_launch
+from repro_torch.kernels import _dist, cost, count_launch
 from repro_torch.kernels.mamba2_ssd import ref
 from repro_torch.kernels.mamba2_ssd.kernel import ssd_bwd_cuda, ssd_cuda
 
@@ -26,7 +29,7 @@ def ssd_plain(xdt, dA, B_, C_, *, chunk: int = 64, initial_state=None,
     dtype, or (Y, final_state) with `return_state`."""
     y, state = ref.ssd_chunked(xdt, dA, B_, C_, chunk=chunk,
                                initial_state=initial_state)
-    y = y.to(xdt.dtype)
+    y, state = y.to(xdt.dtype).contiguous(), state.contiguous()
     return (y, state) if return_state else y
 
 
@@ -36,19 +39,28 @@ class _SSD(torch.autograd.Function):
     def forward(ctx, xdt, dA, B_, C_, chunk):
         ctx.save_for_backward(xdt, dA, B_, C_)
         ctx.chunk = chunk
-        if xdt.device.type == "cpu":
-            return ssd_plain(xdt, dA, B_, C_, chunk=chunk)
-        y, _ = ssd_cuda(xdt, dA, B_, C_, chunk=chunk)
+        with _call(xdt, B_, chunk):
+            if xdt.device.type != "cuda":
+                return ssd_plain(xdt, dA, B_, C_, chunk=_plain_chunk(
+                    xdt, chunk))
+            y, _ = ssd_cuda(xdt, dA, B_, C_, chunk=chunk)
         count_launch(ssd)
         return y
 
     @staticmethod
     def backward(ctx, dY):
         ins = ctx.saved_tensors
-        if dY.device.type == "cpu":
-            grads = ref.ssd_chunked_bwd(*ins, dY, chunk=ctx.chunk)
-        else:
-            grads = ssd_bwd_cuda(*ins, dY, chunk=ctx.chunk)
+        b, s, h, hd = ins[0].shape
+        call = cost.kernel_call("mamba2_ssd_bwd", lambda: cost.ssd_bwd(
+            b, s, h, hd, ins[2].shape[-1], min(ctx.chunk, s),
+            ins[0].element_size()))
+        with call:
+            if dY.device.type != "cuda":
+                grads = ref.ssd_chunked_bwd(*ins, dY, chunk=_plain_chunk(
+                    dY, ctx.chunk))
+            else:
+                grads = ssd_bwd_cuda(*ins, dY, chunk=ctx.chunk)
+        if dY.device.type == "cuda":
             count_launch(ssd, "bwd_launches")
         return (*(g if need else None
                   for g, need in zip(grads, ctx.needs_input_grad)), None)
@@ -65,7 +77,9 @@ def ssd(xdt, dA, B_, C_, *, chunk: int = 64, initial_state=None,
     `initial_state` or `return_state` it raises while autograd records a
     graph through an input: the backward kernel takes a zero initial state
     and no cotangent of the final state."""
-    if xdt.device.type not in ("cpu", "cuda"):
+    if _dist.is_dtensor(xdt):
+        return _sharded(xdt, dA, B_, C_, chunk, initial_state, return_state)
+    if xdt.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"ssd: no kernel for device {xdt.device}")
     if initial_state is None and not return_state:
         return _SSD.apply(xdt, dA, B_, C_, chunk)
@@ -75,14 +89,57 @@ def ssd(xdt, dA, B_, C_, *, chunk: int = 64, initial_state=None,
         raise RuntimeError("ssd: no gradient through an initial state or the "
                            "final state; call it under torch.no_grad(), or "
                            "without them for training")
-    if xdt.device.type == "cpu":
-        return ssd_plain(xdt, dA, B_, C_, chunk=chunk,
-                         initial_state=initial_state,
-                         return_state=return_state)
-    y, state = ssd_cuda(xdt, dA, B_, C_, chunk=chunk,
-                        initial_state=initial_state)
+    with _call(xdt, B_, chunk, initial_state is not None, return_state):
+        if xdt.device.type != "cuda":
+            return ssd_plain(xdt, dA, B_, C_, chunk=_plain_chunk(xdt, chunk),
+                             initial_state=initial_state,
+                             return_state=return_state)
+        y, state = ssd_cuda(xdt, dA, B_, C_, chunk=chunk,
+                            initial_state=initial_state)
     count_launch(ssd)
     return (y, state) if return_state else y
+
+
+def _plain_chunk(x, chunk: int) -> int:
+    """The plain version's chunk: the op's on the CPU; on meta one chunk
+    of the whole sequence, which gives the shapes in a few ops."""
+    return x.shape[1] if x.device.type == "meta" else chunk
+
+
+def _call(xdt, B_, chunk, with_state=False, final_state=False):
+    """The forward's `cost.kernel_call`."""
+    b, s, h, hd = xdt.shape
+    return cost.kernel_call("mamba2_ssd", lambda: cost.ssd(
+        b, s, h, hd, B_.shape[-1], min(chunk, s), xdt.element_size(),
+        with_state, final_state))
+
+
+def _sharded(xdt, dA, B_, C_, chunk, initial_state, return_state):
+    """ssd on DTensors, shard by shard over batch and heads."""
+    op = "ssd"
+    mesh = xdt.device_mesh
+    rs = _dist.roles(xdt, {0: "batch", 2: "heads"}, op)
+    if B_.shape[2] > 1 and "heads" in rs:
+        raise ValueError(f"{op}: heads split over {B_.shape[2]} groups")
+    x_want = _dist.want(rs, {0: "batch", 2: "heads"})
+    bc_want = _dist.want(rs, {0: "batch"})
+    s_want = _dist.want(rs, {0: "batch", 1: "heads"})
+    ins = [_dist.place(xdt, x_want, op, mesh),
+           _dist.place(dA, x_want, op, mesh),
+           _dist.place(B_, bc_want, op, mesh),
+           _dist.place(C_, bc_want, op, mesh)]
+    places = [x_want, x_want, bc_want, bc_want]
+    if initial_state is not None:
+        ins.append(_dist.place(initial_state, s_want, op, mesh))
+        places.append(s_want)
+
+    def local(*ts):
+        return ssd(*ts[:4], chunk=chunk,
+                   initial_state=ts[4] if len(ts) > 4 else None,
+                   return_state=return_state)
+
+    outs = (x_want, s_want) if return_state else x_want
+    return _dist.run(local, mesh, ins, tuple(places), outs)
 
 
 ssd.launches = 0

@@ -14,13 +14,14 @@ cross-attention through, as the JAX model does.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
 from repro_torch.kernels.flash_attention.ref import NEG_INF, expand_kv  # noqa: F401
-from repro_torch.models.common import dense_init, grad_cast, softcap
+from repro_torch.models.common import dense_init, grad_cast, shard_hint, softcap
 
 MODEL_AXIS_SIZE = 16          # the JAX package's production model-axis width
 
@@ -33,6 +34,10 @@ def head_padding(cfg, model_size: int = MODEL_AXIS_SIZE):
     while (G * m_pad) % model_size:
         m_pad += 1
     return G * m_pad, m_pad
+
+
+def kv_shardable(cfg, model_size: int = MODEL_AXIS_SIZE) -> bool:
+    return cfg.n_kv_heads % model_size == 0
 
 
 def head_mask(cfg, device="cuda"):
@@ -70,18 +75,55 @@ def init_attention(gen, cfg, n_layers: int, *, device="cuda",
     return p
 
 
+def _gather_weights(x, w) -> bool:
+    """On a DTensor x: whether a (D, N) weight is no larger than the
+    (tokens, N) rows of this device's tokens.  False on a plain tensor."""
+    if not hasattr(x, "device_mesh"):
+        return False
+    return w.shape[0] <= math.prod(x.to_local().shape[:-1])
+
+
+def _softmax_keys(s):
+    """Softmax over the last dim (the keys).  On a DTensor split over the
+    keys, each shard's max and sum reduce across the shards
+    (flash-decoding), where `torch.softmax` would gather the scores."""
+    if not (hasattr(s, "device_mesh")
+            and any(p.is_shard(s.dim() - 1) for p in s.placements)):
+        return torch.softmax(s, dim=-1)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
 def project_qkv(p, x, cfg):
     """x (B,S,D) -> q (B,S,Hq_pad,hd), k/v (B,S,G,hd)."""
     hd = cfg.resolved_head_dim
     hq_pad, _ = head_padding(cfg)
     B, S, _ = x.shape
+    wk, wv = p["wk"].to(x.dtype), p["wv"].to(x.dtype)
+    bk, bv = (p["bk"].to(x.dtype), p["bv"].to(x.dtype)) if "bq" in p \
+        else (None, None)
+    if not kv_shardable(cfg) and _gather_weights(x, wk):
+        # K/V too few to split over the model axis: each model shard
+        # computes them whole, from gathered weights where those are no
+        # larger than the K/V it would gather, as XLA's partitioner
+        # chooses for the reference
+        wk, wv = shard_hint(wk, None, None), shard_hint(wv, None, None)
+        if bk is not None:
+            bk, bv = shard_hint(bk, None), shard_hint(bv, None)
     q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    k = x @ wk
+    v = x @ wv
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        k = k + bk
+        v = v + bv
+    q = shard_hint(q, "batch", None, "model_ff")
+    if kv_shardable(cfg):
+        k = shard_hint(k, "batch", None, "model_ff")
+        v = shard_hint(v, "batch", None, "model_ff")
+    else:
+        k = shard_hint(k, "batch", None, None)
+        v = shard_hint(v, "batch", None, None)
     return (grad_cast(q.reshape(B, S, hq_pad, hd)),
             grad_cast(k.reshape(B, S, cfg.n_kv_heads, hd)),
             grad_cast(v.reshape(B, S, cfg.n_kv_heads, hd)))
@@ -91,7 +133,8 @@ def project_out(p, ctx, cfg):
     """ctx (B,S,Hq_pad,hd) -> (B,S,d_out); masks padded heads first."""
     B, S = ctx.shape[:2]
     mask = head_mask(cfg, ctx.device)[None, None, :, None].to(ctx.dtype)
-    return (grad_cast(ctx) * mask).reshape(B, S, -1) @ p["wo"].to(ctx.dtype)
+    out = (grad_cast(ctx) * mask).reshape(B, S, -1) @ p["wo"].to(ctx.dtype)
+    return shard_hint(out, "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -107,6 +150,7 @@ def attend_once(q, k, v, *, scale: float):
     expanded."""
     B, S, H, hd = q.shape
     G = k.shape[2]
+    q = shard_hint(q, "batch", None, None, None)     # as decode_attention's
     qg = q.float().reshape(B, S, G, H // G, hd)
     s = torch.einsum("bsgmh,btgh->bgmst", qg, k.float()) * scale
     p = torch.softmax(s, dim=-1)
@@ -130,14 +174,20 @@ def decode_attention(q, k_cache, v_cache, positions, *, window=None,
     as the JAX version does."""
     B, T, G, hd = k_cache.shape
     hq_pad = q.shape[2]
+    # q whole over the heads (one token's: tiny); the cache is split over
+    # its sequence instead
+    q = shard_hint(q, "batch", None, None, None)
     qg = q.reshape(B, G, hq_pad // G, hd).to(k_cache.dtype).float()
     kpos = torch.arange(T, device=q.device)
     allow = kpos[None, :] <= positions[:, None]                 # (B,T)
     if window is not None:
         allow &= (positions[:, None] - kpos[None, :]) < window
-    s = torch.einsum("bgmh,btgh->bgmt", qg, k_cache.float()) * scale
+    kc = shard_hint(k_cache, "batch", "kv_seq", None, None)
+    vc = shard_hint(v_cache, "batch", "kv_seq", None, None)
+    s = torch.einsum("bgmh,btgh->bgmt", qg, kc.float()) * scale
     s = softcap(s, logit_softcap)
     s = torch.where(allow[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(v_cache.dtype).float()
-    ctx = torch.einsum("bgmt,btgh->bgmh", p, v_cache.float())
+    s = shard_hint(s, "batch", None, None, "kv_seq")
+    p = _softmax_keys(s).to(vc.dtype).float()
+    ctx = torch.einsum("bgmt,btgh->bgmh", p, vc.float())
     return ctx.reshape(B, 1, hq_pad, hd).to(q.dtype)

@@ -1,5 +1,5 @@
 """Shared building blocks: init helpers, norms, activations, softcap, the
-loss, and the cotangent cast at the attention boundary.
+loss, the cotangent cast at the attention boundary, and sharding hints.
 
 Parameters are plain nested dicts of tensors.  Layer-stacked parameters carry
 a leading ``(L, ...)`` dim, as in the JAX package, and the model loops over it.
@@ -9,11 +9,107 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint as ckpt
+
+# ---------------------------------------------------------------------------
+# Ambient mesh for sharding hints (no-op when absent or on a plain tensor)
+# ---------------------------------------------------------------------------
+
+_STATE = threading.local()
+
+
+def current_mesh():
+    return getattr(_STATE, "mesh", None)
+
+
+def current_rules():
+    return getattr(_STATE, "rules", None)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh, rules=None):
+    """Install an ambient `DeviceMesh` (+ logical sharding rules, see
+    `runtime.sharding.logical_rules`) for `shard_hint`."""
+    prev = (getattr(_STATE, "mesh", None), getattr(_STATE, "rules", None))
+    _STATE.mesh, _STATE.rules = mesh, rules
+    try:
+        yield mesh
+    finally:
+        _STATE.mesh, _STATE.rules = prev
+
+
+def shard_hint(x, *logical_axes):
+    """Redistribute a DTensor to the placements that the logical axis
+    names ("batch", "model_ff", "vocab", "expert", ...) take under the
+    ambient rules: the port's `with_sharding_constraint`.  A dimension
+    that the named axes do not divide stays whole (XLA pads an uneven
+    shard; DTensor could not reshape one).  Returns `x` itself when no
+    mesh is installed or `x` is a plain tensor."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.runtime.sharding import placements
+    if not isinstance(x, DTensor):
+        return x
+    rules = current_rules() or {}
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    spec = []
+    for d, a in enumerate(logical_axes):
+        e = rules.get(a) if isinstance(a, str) else a
+        n = math.prod(sizes[ax] for ax in
+                      (e if isinstance(e, tuple) else (e,)) if ax)
+        spec.append(e if x.shape[d] % n == 0 else None)
+    return x.redistribute(mesh, placements(mesh, spec))
+
+
+def embed_rows(table, tokens):
+    """table[tokens].  On a DTensor table split over its rows (the vocab),
+    `F.embedding`, which DTensor runs as a masked lookup on each shard and
+    a sum of the rows, where indexing would gather the whole table."""
+    if hasattr(table, "device_mesh"):
+        return F.embedding(tokens, table)
+    return table[tokens]
+
+
+def write_rows(cache, new, positions):
+    """cache[b, positions[b]] = new[b] for every row b, in place: a decode
+    step's entry (new (B, ...)) into a cache (B, T, ...).  On a DTensor
+    cache, shard by shard with no communication: `new` and `positions`
+    follow the cache's batch split, and a shard of the sequence writes the
+    rows whose position falls in it (the others write back what they
+    read)."""
+    if not hasattr(cache, "device_mesh"):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, positions] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = cache.device_mesh
+    follow = tuple(Shard(0) if p == Shard(0) else Replicate()
+                   for p in cache.placements)
+    if any(p.is_shard() and p.dim > 1 for p in cache.placements):
+        raise ValueError(f"write_rows: cache {cache.placements}")
+    new_l = new.redistribute(mesh, follow).to_local().to(cache.dtype)
+    pos_l = (positions.redistribute(mesh, follow).to_local()
+             if hasattr(positions, "device_mesh") else positions)
+    cache_l = cache.to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, cache.placements)
+    idx = pos_l - offset[1]
+    inside = (idx >= 0) & (idx < cache_l.shape[1])
+    idx = idx.clamp(0, cache_l.shape[1] - 1)
+    rows = torch.arange(cache_l.shape[0], device=cache_l.device)
+    keep = inside.reshape((-1,) + (1,) * (new_l.dim() - 1))
+    cache_l[rows, idx] = torch.where(keep, new_l, cache_l[rows, idx])
+
 
 # ---------------------------------------------------------------------------
 # Initializers (fp32 params, as the JAX package keeps them)
@@ -159,7 +255,10 @@ def softcap(x, cap: float):
 
 def softmax_xent(logits, labels, vocab_size: int, z_loss: float = 1e-4):
     """Cross-entropy with optional z-loss; logits in fp32.  labels == -1 are
-    masked out.  `vocab_size` masks the padded vocab columns."""
+    masked out.  `vocab_size` masks the padded vocab columns.  On a logits
+    DTensor split over the vocab, the log-sum-exp's max and sum and the
+    gold logit (a masked sum) reduce across the shards, where `logsumexp`
+    and `gather` would gather the logits."""
     logits = logits.float()
     if vocab_size < logits.shape[-1]:
         vmask = torch.arange(logits.shape[-1], device=logits.device) \
@@ -167,8 +266,14 @@ def softmax_xent(logits, labels, vocab_size: int, z_loss: float = 1e-4):
         logits = torch.where(vmask, logits, -1e9)
     valid = labels >= 0
     labels = torch.where(valid, labels, 0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if hasattr(logits, "device_mesh"):
+        m = logits.amax(dim=-1).detach()
+        lse = torch.log(torch.exp(logits - m[..., None]).sum(-1)) + m
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(col == labels[..., None], logits, 0.0).sum(-1)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * torch.square(lse)
@@ -208,22 +313,34 @@ class Options:
     compressed cache); moe_group is the MoE's largest token group.
     probs_bf16 rounds the attention probabilities to V's dtype before
     P.V, in the kernel and the plain version alike (`launch.serve` and
-    `launch.train` take it as --probs-bf16)."""
+    `launch.train` take it as --probs-bf16).
+
+    skip_masked_blocks and fused_xent are the JAX model's knobs, kept so
+    that the dry run records them as the reference does; they change no
+    number in the port.  The CUDA kernel and the plain blockwise version
+    always skip the tiles outside the band (the JAX model computes them
+    unless skip_masked_blocks), and nothing in the port has a fused
+    cross-entropy to switch to."""
 
     def __init__(self, *, q_block: int = 1024, kv_block: int = 1024,
-                 remat: str = "none", mla_absorb: bool = False,
-                 moe_group: int = 1024, probs_bf16: bool = False):
+                 skip_masked_blocks: bool = False, mla_absorb: bool = False,
+                 remat: str = "none", moe_group: int = 1024,
+                 fused_xent: bool = False, probs_bf16: bool = False):
         self.q_block = q_block
         self.kv_block = kv_block
-        self.remat = remat
+        self.skip_masked_blocks = skip_masked_blocks
         self.mla_absorb = mla_absorb
+        self.remat = remat
         self.moe_group = moe_group
+        self.fused_xent = fused_xent
         self.probs_bf16 = probs_bf16
 
     def replace(self, **kw):
         cur = dict(q_block=self.q_block, kv_block=self.kv_block,
-                   remat=self.remat, mla_absorb=self.mla_absorb,
-                   moe_group=self.moe_group, probs_bf16=self.probs_bf16)
+                   skip_masked_blocks=self.skip_masked_blocks,
+                   mla_absorb=self.mla_absorb, remat=self.remat,
+                   moe_group=self.moe_group, fused_xent=self.fused_xent,
+                   probs_bf16=self.probs_bf16)
         cur.update(kw)
         return Options(**cur)
 

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
 from repro_torch.models.common import (dense_init, ones_init, rms_norm,
-                                       zeros_init)
+                                       shard_hint, zeros_init)
 
 
 def dims(cfg):
@@ -49,6 +49,14 @@ def init_mamba(gen, cfg, n_layers: int, *, device="cuda"):
         "norm": ones_init(L + (d_inner,), device=device),
         "out_proj": dense_init(gen, L + (d_inner, D), d_inner, device),
     }
+
+
+def _softplus(x):
+    """F.softplus; on a DTensor, which has no rule for softplus's
+    backward, the same function as max(x, 0) + log1p(exp(-|x|))."""
+    if hasattr(x, "device_mesh"):
+        return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return F.softplus(x)
 
 
 def _split_proj(zxbcdt, cfg):
@@ -129,7 +137,8 @@ def mamba_forward(p, x, cfg, *, initial_state=None, return_state=False,
                       p["conv_b"])
     xin, Bc, Cc = (xBC[..., :d_inner], xBC[..., d_inner:d_inner + G * N],
                    xBC[..., d_inner + G * N:])
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    xin = shard_hint(xin, "batch", None, "model_ff")
+    dt = _softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())                            # (H,)
     dA = dt * A                                                   # (B,S,H)
     xdt = xin.reshape(B_, S, H, hd).float() * dt[..., None]       # (B,S,H,hd)
@@ -149,7 +158,7 @@ def mamba_forward(p, x, cfg, *, initial_state=None, return_state=False,
     Y = Y + p["D_skip"].float()[:, None] * xin.reshape(B_, S, H, hd).float()
     y = Y.reshape(B_, S, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(x.dtype)
+    out = shard_hint(y @ p["out_proj"].to(x.dtype), "batch", None, None)
     if return_cache:
         return out, {"ssm": S_fin, "conv": ring}
     return (out, S_fin) if return_state else out
@@ -170,7 +179,7 @@ def mamba_decode(p, x, cfg, state):
                       p["conv_b"], conv_state=state["conv"])
     xin, Bc, Cc = (xBC[..., :d_inner], xBC[..., d_inner:d_inner + G * N],
                    xBC[..., d_inner + G * N:])
-    dt = F.softplus(dt.float() + p["dt_bias"].float())            # (B,1,H)
+    dt = _softplus(dt.float() + p["dt_bias"].float())             # (B,1,H)
     A = -torch.exp(p["A_log"].float())
     dA = torch.exp(dt[:, 0] * A)                                  # (B,H)
     xh = xin.reshape(B_, G, Hg, hd).float()

@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import NEG_INF
-from repro_torch.models.common import dense_init, ones_init, rms_norm
+from repro_torch.models.common import (dense_init, ones_init, rms_norm,
+                                       shard_hint, write_rows)
 from repro_torch.models.rope import apply_rope
 
 
@@ -38,7 +39,8 @@ def _project_q(p, x, cfg, sin, cos):
     m = cfg.mla
     H, dn, dr = cfg.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
     B, S, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, dn + dr)
+    q = shard_hint(x @ p["wq"].to(x.dtype), "batch", None, "model_ff")
+    q = q.reshape(B, S, H, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], sin, cos)
 
 
@@ -65,15 +67,16 @@ def mla_forward(p, x, cfg, sin, cos, *, q_block=1024, kv_block=1024,
     B, S, _ = x.shape
     qn, qr = _project_q(p, x, cfg, sin, cos)
     ckv, krope = _compress_kv(p, x, cfg, sin, cos)
-    kn = (ckv @ p["wuk"].to(x.dtype)).reshape(B, S, H, dn)
-    v = (ckv @ p["wuv"].to(x.dtype)).reshape(B, S, H, dv)
+    kn = shard_hint(ckv @ p["wuk"].to(x.dtype), "batch", None, "model_ff")
+    v = shard_hint(ckv @ p["wuv"].to(x.dtype), "batch", None, "model_ff")
+    kn, v = kn.reshape(B, S, H, dn), v.reshape(B, S, H, dv)
     q = torch.cat([qn, qr], dim=-1)
     k = torch.cat([kn, krope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
     ctx = attn.flash_attention(q, k, v, scale=_scale(cfg), q_block=q_block,
                                kv_block=kv_block,
                                probs_bf16=probs_bf16)      # (B,S,H,dv)
     out = ctx.reshape(B, S, H * dv) @ p["wo"].to(x.dtype)
-    return out, (ckv, krope)
+    return shard_hint(out, "batch", None, None), (ckv, krope)
 
 
 def mla_decode(p, x, cfg, sin, cos, cache, positions, *, absorb=False):
@@ -89,9 +92,8 @@ def mla_decode(p, x, cfg, sin, cos, cache, positions, *, absorb=False):
     T = ckv_c.shape[1]
     qn, qr = _project_q(p, x, cfg, sin, cos)                 # (B,1,H,dn/dr)
     ckv_new, krope_new = _compress_kv(p, x, cfg, sin, cos)
-    rows = torch.arange(B, device=x.device)
-    ckv_c[rows, positions] = ckv_new[:, 0].to(ckv_c.dtype)   # in place
-    krope_c[rows, positions] = krope_new[:, 0].to(krope_c.dtype)
+    write_rows(ckv_c, ckv_new[:, 0], positions)              # in place
+    write_rows(krope_c, krope_new[:, 0], positions)
 
     kpos = torch.arange(T, device=x.device)
     allow = (kpos[None, :] <= positions[:, None])[:, None, None, :]

@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import activation, dense_init
+from repro_torch.models.common import activation, dense_init, shard_hint
 
 
 def shared_width(cfg) -> int:
@@ -90,6 +90,49 @@ def route(router, xg, cfg) -> Routing:
                    vals.transpose(1, 2).reshape(G, k * g), C, aux)
 
 
+def _dispatch(xg, idx, slot, keep, *, E: int, C: int):
+    """(G, E, C, D): each kept choice's token row at (group, expert, slot);
+    a dropped choice adds zeros at slot 0, as the reference's scatter
+    does."""
+    G, g, D = xg.shape
+    tok = torch.arange(g, device=xg.device).repeat(idx.shape[1] // g)
+    upd = torch.where(keep[..., None], xg[:, tok], 0)               # (G,kg,D)
+    base = (torch.arange(G, device=xg.device)[:, None] * E + idx) * C
+    ein = torch.zeros((G * E * C, D), dtype=xg.dtype, device=xg.device)
+    ein.index_add_(0, (base + torch.where(keep, slot, 0)).reshape(-1),
+                   upd.reshape(-1, D))
+    return ein.reshape(G, E, C, D)
+
+
+def _combine(eout, idx, slot, keep, gate, *, k: int, C: int):
+    """(G, g, D): each choice's expert row, weighted by gate * keep (a
+    dropped choice reads a clamped slot and weighs 0), summed over the k
+    choices (entry j*g + t of a group is token t's (j+1)-th choice)."""
+    G, E, _, D = eout.shape
+    kg = idx.shape[1]
+    base = (torch.arange(G, device=eout.device)[:, None] * E + idx) * C
+    rows = eout.reshape(G * E * C, D)[
+        (base + slot.clamp(max=C - 1)).reshape(-1)].reshape(G, kg, D)
+    w = gate.to(eout.dtype) * keep.to(eout.dtype)
+    return (rows * w[..., None]).reshape(G, k, kg // k, D).sum(1)
+
+
+def _by_group(fn, *ts, **kw):
+    """fn(*ts, **kw), each tensor's dim 0 the group.  On DTensors, group
+    by group on each shard of the groups (fn's indices are the shard's
+    own): the inputs are first replicated over every other mesh dim."""
+    if not hasattr(ts[0], "device_mesh"):
+        return fn(*ts, **kw)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ts[0].device_mesh
+    want = [Shard(0) if p == Shard(0) else Replicate()
+            for p in ts[0].placements]
+    ts = [t.redistribute(mesh, want) for t in ts]
+    return local_map(lambda *ls: fn(*ls, **kw), out_placements=want,
+                     in_placements=(want,) * len(ts), device_mesh=mesh)(*ts)
+
+
 def apply_moe(p, x, cfg, *, group_size: int = 1024):
     """x: (B, S, D) -> (out (B, S, D), aux_loss fp32 scalar)."""
     m = cfg.moe
@@ -98,34 +141,25 @@ def apply_moe(p, x, cfg, *, group_size: int = 1024):
     T = B * S
     g = token_group(T, group_size)
     G = T // g
-    xg = x.reshape(G, g, D)
+    xg = shard_hint(x.reshape(G, g, D), "moe_groups", None, None)
     r = route(p["router"], xg, cfg)
     C = r.capacity
 
-    # dispatch: each kept choice's token row into (group, expert, slot); a
-    # dropped choice adds zeros at slot 0, as the reference's scatter does
-    tok = torch.arange(g, device=x.device).repeat(k)                # (k*g,)
-    upd = torch.where(r.keep[..., None], xg[:, tok], 0)             # (G,kg,D)
-    base = (torch.arange(G, device=x.device)[:, None] * E + r.idx) * C
-    ein = torch.zeros((G * E * C, D), dtype=x.dtype, device=x.device)
-    ein.index_add_(0, (base + torch.where(r.keep, r.slot, 0)).reshape(-1),
-                   upd.reshape(-1, D))
-    ein = ein.reshape(G, E, C, D)
+    ein = _by_group(_dispatch, xg, r.idx, r.slot, r.keep, E=E, C=C)
+    ein = shard_hint(ein, "moe_groups", "expert", None, "moe_ff")
 
     act = activation(cfg.act)
     h = torch.einsum("gecd,edf->gecf", ein, p["w1"].to(x.dtype))
     h = act(h) * torch.einsum("gecd,edf->gecf", ein, p["w3"].to(x.dtype))
+    h = shard_hint(h, "moe_groups", "expert", None, "moe_ff")
     eout = torch.einsum("gecf,efd->gecd", h, p["w2"].to(x.dtype))
+    eout = shard_hint(eout, "moe_groups", "expert", None, None)
     del ein, h
-
-    # combine: each choice's expert row, weighted by gate * keep (a dropped
-    # choice reads a clamped slot and weighs 0), summed over the k choices
-    rows = eout.reshape(G * E * C, D)[
-        (base + r.slot.clamp(max=C - 1)).reshape(-1)].reshape(G, k * g, D)
-    w = r.gate.to(x.dtype) * r.keep.to(x.dtype)
-    y = (rows * w[..., None]).reshape(G, k, g, D).sum(1).reshape(B, S, D)
+    y = _by_group(_combine, eout, r.idx, r.slot, r.keep, r.gate, k=k,
+                  C=C).reshape(B, S, D)
 
     if "ws1" in p:
         hs = act(x @ p["ws1"].to(x.dtype)) * (x @ p["ws3"].to(x.dtype))
+        hs = shard_hint(hs, "batch", None, "model_ff")
         y = y + hs @ p["ws2"].to(x.dtype)
-    return y, r.aux
+    return shard_hint(y, "batch", None, None), r.aux

@@ -29,7 +29,8 @@ def mrope_angles(mpositions, sections, head_dim: int, theta: float):
     inv_freq = 1.0 / (theta ** exponent)
     stream = torch.repeat_interleave(
         torch.arange(len(sections), device=mpositions.device),
-        torch.tensor(sections, device=mpositions.device))      # (half,)
+        torch.tensor(sections, device=mpositions.device),
+        output_size=sum(sections))                             # (half,)
     pos = mpositions[stream].movedim(0, -1).float()            # (B, S, half)
     ang = pos * inv_freq
     return torch.sin(ang), torch.cos(ang)

@@ -18,8 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan.ops import wkv6
-from repro_torch.models.common import (dense_init, embed_init, layer_norm,
-                                       ones_init, unstack, zeros_init)
+from repro_torch.models.common import (dense_init, embed_init, embed_rows,
+                                       layer_norm, ones_init, shard_hint,
+                                       unstack, zeros_init)
 
 
 def dims(cfg):
@@ -82,6 +83,9 @@ def _ddlerp(p, x, xx):
     dxx = xx - x
     xxx = x + dxx * p["maa_x"].to(x.dtype)
     k = torch.tanh(xxx @ p["maa_w1"].to(x.dtype))             # (B,S,5*tsl)
+    # whole over the model axis (a no-op without a mesh): DTensor cannot
+    # reshape a split of the 5 * tsl columns into (5, tsl)
+    k = shard_hint(k, "batch", None, None)
     k = k.reshape(B, S, 5, k.shape[-1] // 5)
     off = torch.einsum("bstl,tld->bstd", k, p["maa_w2"].to(x.dtype))
     mix = p["maa"].to(x.dtype)[None, None] + off              # (B,S,5,D)
@@ -133,7 +137,7 @@ def time_mix(p, x, cfg, *, state=None, chunk=None):
                     initial_state=None if state is None else state[1])
     y = _group_norm(y[:, :S], p["ln_x"])
     out = (y.to(x.dtype) * g) @ p["out"].to(x.dtype)
-    return out, (x[:, -1], S_fin)
+    return shard_hint(out, "batch", None, None), (x[:, -1], S_fin)
 
 
 def time_mix_decode(p, x, cfg, state):
@@ -164,8 +168,9 @@ def channel_mix(p, x, cfg, *, state=None):
     xk = x + dxx * p["maa_k"].to(x.dtype)
     xr = x + dxx * p["maa_r"].to(x.dtype)
     h = torch.square(F.relu(xk @ p["ck"].to(x.dtype)))
+    h = shard_hint(h, "batch", None, "model_ff")
     out = torch.sigmoid(xr @ p["cr"].to(x.dtype)) * (h @ p["cv"].to(x.dtype))
-    return out, x[:, -1]
+    return shard_hint(out, "batch", None, None), x[:, -1]
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +206,8 @@ def forward(params, cfg, tokens, *, opts=None, mode: str = "train",
     (B,Vp), state) (prefill), the state in init_state's layout with tm_x and
     cm_x in the compute dtype.  `opts` and `cache` are accepted for the
     uniform model API and unused: prefill makes the state."""
-    x = params["embed"][tokens].to(dtype)
+    x = shard_hint(embed_rows(params["embed"], tokens).to(dtype), "batch",
+                   None, None)
     x = layer_norm(x, params["ln0"]["s"], params["ln0"]["b"])
     states = {"tm_x": [], "S": [], "cm_x": []}
     for lp in _blocks(params, cfg):
@@ -220,7 +226,7 @@ def forward(params, cfg, tokens, *, opts=None, mode: str = "train",
         logits = x @ params["head"].to(x.dtype)
         return logits, {k: torch.stack(v) for k, v in states.items()}
     x = layer_norm(x, params["ln_out"]["s"], params["ln_out"]["b"])
-    return x @ params["head"].to(x.dtype)
+    return shard_hint(x @ params["head"].to(x.dtype), "batch", None, "vocab")
 
 
 def init_state(cfg, batch: int, device="cuda"):
@@ -236,7 +242,8 @@ def decode_step(params, cfg, tokens, positions, state, *, opts=None,
                 dtype=torch.bfloat16):
     """tokens (B,) -> (logits (B,Vp), new state).  RWKV needs no positions
     (kept for API uniformity)."""
-    x = params["embed"][tokens][:, None].to(dtype)
+    x = shard_hint(embed_rows(params["embed"], tokens)[:, None].to(dtype),
+                   "batch", None, None)
     x = layer_norm(x, params["ln0"]["s"], params["ln0"]["b"])
     new = {"tm_x": [], "S": [], "cm_x": []}
     for i, lp in enumerate(_blocks(params, cfg)):

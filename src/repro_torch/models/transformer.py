@@ -24,8 +24,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (Options, activation, dense_init,
-                                       embed_init, layer_params, maybe_remat,
-                                       ones_init, rms_norm, softcap, unstack)
+                                       embed_init, embed_rows, layer_params,
+                                       maybe_remat, ones_init, rms_norm,
+                                       shard_hint, softcap, unstack,
+                                       write_rows)
 from repro_torch.models.rope import apply_rope, mrope_angles, rope_angles
 
 
@@ -52,7 +54,8 @@ def apply_ffn(p, x, cfg):
         h = act(h) * (x @ p["w3"].to(x.dtype))
     else:
         h = act(h)
-    return h @ p["w2"].to(x.dtype)
+    h = shard_hint(h, "batch", None, "model_ff")
+    return shard_hint(h @ p["w2"].to(x.dtype), "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -107,9 +110,8 @@ def _attention(bp, h, cfg, sin, cos, *, opts: Options, window, cache,
     k = apply_rope(k, sin, cos)
     if cache is not None:
         k_c, v_c = cache
-        rows = torch.arange(h.shape[0], device=h.device)
-        k_c[rows, positions] = k[:, 0].to(k_c.dtype)     # in place
-        v_c[rows, positions] = v[:, 0].to(v_c.dtype)
+        write_rows(k_c, k[:, 0], positions)                 # in place
+        write_rows(v_c, v[:, 0], positions)
         ctx = attn.decode_attention(
             q, k_c.to(q.dtype), v_c.to(q.dtype), positions, window=window,
             logit_softcap=cfg.attn_logit_softcap, scale=_attn_scale(cfg))
@@ -199,10 +201,10 @@ def _layer_windows(cfg, n_layers: int, seq_len: int):
 
 
 def _embed(params, cfg, tokens, dtype):
-    x = params["embed"][tokens].to(dtype)
+    x = embed_rows(params["embed"], tokens).to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
-    return x
+    return shard_hint(x, "batch", None, None)
 
 
 def _head(params, cfg, x):
@@ -210,7 +212,8 @@ def _head(params, cfg, x):
         logits = x @ params["embed"].to(x.dtype).T
     else:
         logits = x @ params["head"].to(x.dtype)
-    return softcap(logits, cfg.final_logit_softcap)
+    return shard_hint(softcap(logits, cfg.final_logit_softcap), "batch", None,
+                      "vocab")
 
 
 def _angles(cfg, positions, mrope_positions=None):

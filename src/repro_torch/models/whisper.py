@@ -23,8 +23,9 @@ import math
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (Options, embed_init, layer_norm,
-                                       layer_params, unstack)
+from repro_torch.models.common import (Options, embed_init, embed_rows,
+                                       layer_norm, layer_params, shard_hint,
+                                       unstack, write_rows)
 from repro_torch.models.transformer import apply_ffn, init_ffn
 
 _ENC_KEYS = ("ln1", "attn", "ln2", "mlp")
@@ -85,6 +86,7 @@ def encode(params, cfg, frames, *, opts: Options):
     ep = params["enc"]
     x = frames + sinusoid(torch.arange(frames.shape[1], device=frames.device),
                           cfg.d_model).to(frames.dtype)
+    x = shard_hint(x, "batch", None, None)
     for lp in unstack({k: ep[k] for k in _ENC_KEYS}, cfg.encoder.n_layers):
         h = _norm(x, lp["ln1"])
         q, k, v = attn.project_qkv(lp["attn"], h, cfg)
@@ -108,11 +110,15 @@ def _cross_kv(lp, memory, cfg):
     """The memory's cross-attention K/V, each (B,F,G,hd)."""
     hd = cfg.resolved_head_dim
     B, F, _ = memory.shape
-    k = (memory @ lp["cross_attn"]["wk"].to(memory.dtype)).reshape(
-        B, F, cfg.n_kv_heads, hd)
-    v = (memory @ lp["cross_attn"]["wv"].to(memory.dtype)).reshape(
-        B, F, cfg.n_kv_heads, hd)
-    return k, v
+    k = memory @ lp["cross_attn"]["wk"].to(memory.dtype)
+    v = memory @ lp["cross_attn"]["wv"].to(memory.dtype)
+    if not attn.kv_shardable(cfg):
+        # too few groups to split over the model axis (a no-op without a
+        # mesh): whole before the reshape, as project_qkv's K/V
+        k = shard_hint(k, "batch", None, None)
+        v = shard_hint(v, "batch", None, None)
+    return (k.reshape(B, F, cfg.n_kv_heads, hd),
+            v.reshape(B, F, cfg.n_kv_heads, hd))
 
 
 def _logits(params, x):
@@ -131,9 +137,10 @@ def forward(params, cfg, tokens, *, encoder_frames, opts: Options = None,
     B, S = tokens.shape
     memory = encode(params, cfg, encoder_frames.to(dtype), opts=opts)
     dp = params["dec"]
-    x = params["embed"][tokens].to(dtype)
+    x = embed_rows(params["embed"], tokens).to(dtype)
     x = x + sinusoid(torch.arange(S, device=tokens.device),
                      cfg.d_model).to(dtype)
+    x = shard_hint(x, "batch", None, None)
     kw = dict(scale=_scale(cfg), q_block=opts.q_block, kv_block=opts.kv_block)
     entries = []
     for i, lp in enumerate(unstack({k: dp[k] for k in _DEC_KEYS},
@@ -164,7 +171,7 @@ def forward(params, cfg, tokens, *, encoder_frames, opts: Options = None,
         else:
             cache["memory"][...] = memory                     # in place
         return logits, cache
-    return _logits(params, x)
+    return shard_hint(_logits(params, x), "batch", None, "vocab")
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -187,16 +194,16 @@ def decode_step(params, cfg, tokens, positions, cache, *, opts: Options = None,
     B = tokens.shape[0]
     dp = params["dec"]
     memory = cache["memory"].to(dtype)
-    x = params["embed"][tokens[:, None]].to(dtype)
+    x = embed_rows(params["embed"], tokens[:, None]).to(dtype)
     x = x + sinusoid(positions[:, None], cfg.d_model).to(dtype)
-    rows = torch.arange(B, device=tokens.device)
+    x = shard_hint(x, "batch", None, None)
     for i in range(cfg.n_layers):
         lp = layer_params({k: dp[k] for k in _DEC_KEYS}, i)
         h = _norm(x, lp["ln1"])
         q, k_new, v_new = attn.project_qkv(lp["self_attn"], h, cfg)
         k_c, v_c = (c[i] for c in cache["kv"])
-        k_c[rows, positions] = k_new[:, 0].to(k_c.dtype)       # in place
-        v_c[rows, positions] = v_new[:, 0].to(v_c.dtype)
+        write_rows(k_c, k_new[:, 0], positions)                # in place
+        write_rows(v_c, v_new[:, 0], positions)
         ctx = attn.decode_attention(q, k_c.to(q.dtype), v_c.to(q.dtype),
                                     positions, scale=_scale(cfg))
         x = x + attn.project_out(lp["self_attn"], ctx, cfg)

@@ -21,7 +21,8 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.common import (Options, dense_init, embed_init,
-                                       ones_init, rms_norm, unstack)
+                                       embed_rows, ones_init, rms_norm,
+                                       shard_hint, unstack, write_rows)
 from repro_torch.models.rope import apply_rope, rope_angles
 from repro_torch.models.transformer import apply_ffn, init_ffn
 
@@ -80,9 +81,8 @@ def _shared_block(params, cfg, x, x0, sin, cos, adapter, *, opts, kv=None,
             kv[1][:, :S] = v
     else:
         k_c, v_c = kv
-        rows = torch.arange(x.shape[0], device=x.device)
-        k_c[rows, positions] = k[:, 0].to(k_c.dtype)            # in place
-        v_c[rows, positions] = v[:, 0].to(v_c.dtype)
+        write_rows(k_c, k[:, 0], positions)                     # in place
+        write_rows(v_c, v[:, 0], positions)
         ctx = attn.decode_attention(q, k_c.to(q.dtype), v_c.to(q.dtype),
                                     positions, scale=scale)
     a = attn.project_out(sp["attn"], ctx, cfg)
@@ -114,7 +114,8 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
     prefill = mode == "prefill"
     if prefill and cache is None:
         cache = init_cache(cfg, B, S, dtype=dtype, device=tokens.device)
-    x = params["embed"][tokens].to(dtype)
+    x = shard_hint(embed_rows(params["embed"], tokens).to(dtype), "batch",
+                   None, None)
     x0 = x
     sin, cos = rope_angles(torch.arange(S, device=tokens.device),
                            cfg.resolved_head_dim, cfg.rope_theta)
@@ -138,7 +139,7 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
         x = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
         return x @ params["head"].to(x.dtype), cache
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["head"].to(x.dtype)
+    return shard_hint(x @ params["head"].to(x.dtype), "batch", None, "vocab")
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -161,7 +162,8 @@ def decode_step(params, cfg, tokens, positions, cache, *, opts: Options = None,
     in place.  Returns (logits (B,Vp), cache)."""
     opts = opts or Options()
     G, E = n_groups(cfg), cfg.attn_every
-    x = params["embed"][tokens][:, None].to(dtype)
+    x = shard_hint(embed_rows(params["embed"], tokens)[:, None].to(dtype),
+                   "batch", None, None)
     x0 = x
     sin, cos = rope_angles(positions[:, None], cfg.resolved_head_dim,
                            cfg.rope_theta)

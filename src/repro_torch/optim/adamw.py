@@ -60,6 +60,10 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _slices(x):
+    """x's elements as views of at most SLICE elements; a DTensor whole
+    (its shards are what each device updates)."""
+    if not type(x) is torch.Tensor and hasattr(x, "device_mesh"):
+        return [x]
     flat = x.view(-1)
     return [flat[i:i + SLICE] for i in range(0, flat.numel(), SLICE)]
 

@@ -23,7 +23,7 @@ import time
 import torch
 from torch.overrides import TorchFunctionMode
 
-from repro_torch.models.common import on_draw
+from repro_torch.models.common import on_draw, shard_hint
 
 
 class _LeafReads(TorchFunctionMode):
@@ -148,14 +148,20 @@ def init_serving_params(model, generator, device, dtype=torch.bfloat16):
     return _cast_tree(params, cast, dtype)
 
 
+def _greedy(logits, vocab_size: int):
+    """The argmax over the real vocabulary; a logits DTensor split over the
+    vocab is gathered first (its rows are one token's)."""
+    logits = shard_hint(logits, "batch", None)
+    return torch.argmax(logits[..., :vocab_size], dim=-1)
+
+
 def make_prefill_step(model):
     cfg = model.cfg
 
     def prefill_step(params, batch, cache=None):
         logits, cache = model.forward(params, batch, mode="prefill",
                                       cache=cache)
-        next_tok = torch.argmax(logits[..., :cfg.vocab_size], dim=-1)
-        return next_tok, cache
+        return _greedy(logits, cfg.vocab_size), cache
 
     return prefill_step
 
@@ -165,8 +171,7 @@ def make_decode_step(model):
 
     def serve_step(params, tokens, positions, cache):
         logits, cache = model.decode_step(params, tokens, positions, cache)
-        next_tok = torch.argmax(logits[..., :cfg.vocab_size], dim=-1)
-        return next_tok, cache
+        return _greedy(logits, cfg.vocab_size), cache
 
     return serve_step
 

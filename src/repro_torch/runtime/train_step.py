@@ -54,6 +54,21 @@ def value_and_grad(loss_fn, params, batch, timings=None):
     return (loss.detach(), {k: v.detach() for k, v in aux.items()}), grads
 
 
+def _microbatch(v, n_mb: int, i: int, axis: int = 0):
+    """Rows of microbatch i of n_mb along the batch axis `axis`: the i-th
+    contiguous block of the batch's rows.  On a DTensor, the i-th block of
+    each shard's rows, so no row moves between devices (the step's
+    gradient, the mean over the microbatches, is the same sum)."""
+    def block(x):
+        b = x.shape[axis]
+        return x.unflatten(axis, (n_mb, b // n_mb)).select(axis, i)
+    if not hasattr(v, "device_mesh"):
+        return block(v)
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(block(v.to_local()), v.device_mesh,
+                              v.placements, run_check=False)
+
+
 def make_train_step(model, rc):
     """Returns train_step(params, opt_state, batch, timings=None) ->
     (params, opt_state, metrics).  Params and moments are updated in place.
@@ -70,7 +85,9 @@ def make_train_step(model, rc):
         else:
             grads, loss = None, 0.0
             for i in range(n_mb):
-                mb = {k: v.reshape((n_mb, v.shape[0] // n_mb) + v.shape[1:])[i]
+                # mrope_positions carries the batch on axis 1 ((3, B, S))
+                mb = {k: _microbatch(v, n_mb, i,
+                                     1 if k == "mrope_positions" else 0)
                       for k, v in batch.items()}
                 (l, _), g = value_and_grad(loss_fn, params, mb, timings)
                 g = tree_map(lambda x: x.to(acc_dtype), g)

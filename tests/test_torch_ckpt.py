@@ -171,7 +171,7 @@ def test_restore_refuses_a_wrong_shape_and_a_mesh(tmp_path):
     ckpt.save(tmp_path, 1, {"a": torch.zeros(3)})
     with pytest.raises(ValueError, match="shape"):
         ckpt.restore(tmp_path, 1, {"a": torch.zeros(4)})
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh"):
         ckpt.restore(tmp_path, 1, {"a": torch.zeros(3)}, mesh=object())
 
 

@@ -78,6 +78,21 @@ def test_the_scheduler_modules_are_covered():
         "data/pipeline.py")} <= names
 
 
+def test_the_distribution_modules_are_covered():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    port = "src/repro_torch/"
+    assert {port + m for m in (
+        "runtime/sharding.py", "launch/mesh.py", "launch/dryrun.py",
+        "launch/hlo_analysis.py", "launch/hlo_debug.py",
+        "kernels/cost.py", "kernels/_dist.py")} <= names
+
+
+def test_only_the_dry_run_imports_the_fake_backend():
+    users = {p.relative_to(ROOT).as_posix() for p in PORT_FILES
+             if "torch.testing._internal" in p.read_text()}
+    assert users == {"src/repro_torch/launch/dryrun.py"}
+
+
 def test_entry_points_default_to_cuda():
     from repro_torch.launch import campaign, metg, serve, train
     from repro_torch.models import mamba2, model, rwkv, transformer, zamba

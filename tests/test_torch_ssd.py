@@ -341,8 +341,22 @@ def test_launcher_refuses(case, exc, match):
         kernel.ssd_cuda(xdt, dA, Bc, Cc, chunk=8 if case == "chunk" else 16)
 
 
+class _Elsewhere:
+    """A tensor stand-in on a device with neither kernel nor plain version
+    (a CPU build of torch can make no tensor on one)."""
+    device = torch.device("xla")
+
+    def __init__(self, t):
+        self.shape = t.shape
+
+
 def test_op_refuses_other_devices():
+    """Meta takes the plain version, which gives the shapes (the dry run
+    counts on it); a device that is not the CPU, the card or meta
+    raises."""
     xdt, dA, Bc, Cc = (torch.from_numpy(a).to("meta")
                        for a in _inputs(1, 16, 2, 16, 16))
+    y = ops.ssd(xdt, dA, Bc, Cc, chunk=16)
+    assert y.device.type == "meta" and y.shape == xdt.shape
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.ssd(xdt, dA, Bc, Cc, chunk=16)
+        ops.ssd(*map(_Elsewhere, (xdt, dA, Bc, Cc)), chunk=16)

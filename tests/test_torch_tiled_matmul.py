@@ -108,8 +108,15 @@ def test_launcher_refuses_what_the_kernel_does_not_take(a_shape, b_shape,
 
 
 def test_no_other_device_and_no_fallback():
-    """A tensor on another device than the CPU goes to the kernel or raises;
-    nothing takes the plain version there."""
+    """A tensor on another device than the CPU or meta (whose plain
+    version gives the shapes, for the dry run) goes to the kernel or
+    raises; nothing takes the plain version there."""
     a = torch.zeros((4, 4), device="meta")
+    assert ops.tiled_matmul(a, a).device.type == "meta"
+
+    class Elsewhere:
+        device = torch.device("xla")
+        shape = a.shape
+
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.tiled_matmul(a, a)
+        ops.tiled_matmul(Elsewhere(), Elsewhere())

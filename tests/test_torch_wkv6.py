@@ -194,10 +194,25 @@ def test_cpu_tensor_takes_plain_version():
     assert torch.equal(y, py) and torch.equal(state, ps)
 
 
+class _Elsewhere:
+    """A tensor stand-in on a device with neither kernel nor plain version
+    (a CPU build of torch can make no tensor on one)."""
+    device = torch.device("xla")
+
+    def __init__(self, t):
+        self.shape = t.shape
+
+
 def test_other_devices_raise():
+    """Meta takes the plain version, which gives the shapes (the dry run
+    counts on it); a device that is not the CPU, the card or meta
+    raises."""
     arrs = [a.to("meta") for a in _t(_inputs(1, 32, 1, 32))]
+    y, state = ops.wkv6(*arrs, chunk=16)
+    assert y.device.type == state.device.type == "meta"
+    assert y.shape == arrs[0].shape and state.shape == (1, 1, 32, 32)
     with pytest.raises(ValueError, match="no kernel"):
-        ops.wkv6(*arrs, chunk=16)
+        ops.wkv6(*map(_Elsewhere, arrs), chunk=16)
 
 
 @pytest.mark.parametrize("case,exc,match", [
