@@ -31,7 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.runtime.sharding import P, placements
+from repro_torch.placement import P, placements
 
 # numpy's header type for JAX's bfloat16 (ml_dtypes), whose arrays numpy
 # itself reads back as raw 2-byte void
@@ -142,7 +142,7 @@ def restore(directory: str, step: int, template, *, mesh=None,
     second copy of the tree is allocated; returns `template`.
 
     With `mesh` (a `DeviceMesh`) and `spec_tree` (the template's tree of
-    `runtime.sharding.P`), each leaf is read as above and placed on the
+    `repro_torch.placement.P`), each leaf is read as above and placed on the
     mesh's device type by its spec, each rank keeping its own shard of the
     whole leaf it read (no communication); returns a new tree of DTensors,
     `template` giving only shapes and dtypes (meta tensors will do)."""

@@ -64,13 +64,21 @@ def place(x, placements, op: str, mesh=None):
 
 def run(fn, mesh, args, in_placements, out_placements):
     """fn over the local shards of `args` (DTensors), its outputs DTensors
-    with `out_placements`: one output's placements, or a tuple of them."""
-    from torch.distributed.tensor import Placement
+    with `out_placements`: one output's placements, or a tuple of them.
+    An input replicated over a mesh dim that splits the outputs feeds
+    each shard's part of the work, so its gradient there is the sum of
+    the shards' (Partial)."""
+    from torch.distributed.tensor import Partial, Placement
     from torch.distributed.tensor.experimental import local_map
     if isinstance(out_placements[0], Placement):
         outs = list(out_placements)
+        first = outs
     else:
         outs = tuple(list(p) for p in out_placements)
+        first = outs[0]
+    grads = tuple([Partial() if p.is_replicate() and not o.is_replicate()
+                   else p for p, o in zip(ps, first)]
+                  for ps in in_placements)
     return local_map(fn, out_placements=outs,
                      in_placements=tuple(list(p) for p in in_placements),
-                     device_mesh=mesh)(*args)
+                     in_grad_placements=grads, device_mesh=mesh)(*args)

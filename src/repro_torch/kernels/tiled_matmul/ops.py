@@ -1,13 +1,12 @@
 """C = A^T B: the CUDA kernel for tensors on the card, the plain version for
 tensors on the CPU.  Nothing falls back: a CUDA tensor launches the kernel
 or raises.  There is no gradient, as the JAX op has none.  A meta tensor
-takes the plain version; on DTensors the op runs shard by shard over M and
-N (`kernels/_dist.py`), never over K, the dimension it reduces."""
+takes the plain version, which gives the shapes."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _dist, cost, count_launch
+from repro_torch.kernels import cost, count_launch
 from repro_torch.kernels.tiled_matmul.kernel import tiled_matmul_cuda
 from repro_torch.kernels.tiled_matmul.ref import tiled_matmul_ref
 
@@ -17,10 +16,6 @@ def tiled_matmul(a, b, *, out=None):
     written into `out` if given.  `tiled_matmul.launches` counts kernel
     launches.  On the card it raises while autograd records a graph through
     an input: the kernel has no backward."""
-    if _dist.is_dtensor(a):
-        if out is not None:
-            raise ValueError("tiled_matmul: no out= on DTensors")
-        return _sharded(a, b)
     (k, m), n = a.shape, b.shape[1]
     call = cost.kernel_call("tiled_matmul", lambda: cost.tiled_matmul(
         k, m, n, a.element_size()))
@@ -37,24 +32,6 @@ def tiled_matmul(a, b, *, out=None):
         c = tiled_matmul_cuda(a, b, out=out)
     count_launch(tiled_matmul)
     return c
-
-
-def _sharded(a, b):
-    """tiled_matmul on DTensors: a mesh dim may split A's columns (C's
-    rows) or B's (C's columns), not both and not K."""
-    from torch.distributed.tensor import Replicate, Shard
-    op = "tiled_matmul"
-    mesh = a.device_mesh
-    b = _dist.place(b, tuple(b.placements) if _dist.is_dtensor(b)
-                    else (Replicate(),) * mesh.ndim, op, mesh)
-    ra = _dist.roles(a, {1: "m"}, op)
-    rb = _dist.roles(b, {1: "n"}, op)
-    if any(x and y for x, y in zip(ra, rb)):
-        raise ValueError(f"{op}: A and B split over one mesh dim")
-    c_want = tuple(Shard(0) if x else Shard(1) if y else Replicate()
-                   for x, y in zip(ra, rb))
-    return _dist.run(tiled_matmul, mesh, (a, b),
-                     (tuple(a.placements), tuple(b.placements)), c_want)
 
 
 tiled_matmul.launches = 0

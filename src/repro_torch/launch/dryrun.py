@@ -193,9 +193,11 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, rc: RunConfig,
                "zero1": rc.zero1, "param_dtype": rc.param_dtype,
                "seq_shard_kv": rc.seq_shard_kv,
                "grad_compress": rc.grad_compress},
+        # the reference's two knobs, as the port always runs: the kernel
+        # and its plain version skip the tiles outside the band, and there
+        # is no fused cross-entropy
         "opts": {"q_block": opts.q_block, "kv_block": opts.kv_block,
-                 "skip_masked_blocks": opts.skip_masked_blocks,
-                 "fused_xent": opts.fused_xent,
+                 "skip_masked_blocks": True, "fused_xent": False,
                  "mla_absorb": opts.mla_absorb, "moe_group": opts.moe_group,
                  "probs_bf16": opts.probs_bf16,
                  "shard_params_2d": rc.shard_params_2d},
@@ -224,10 +226,8 @@ def run_one(args) -> int:
                    adam_state_dtype=args.adam_state_dtype,
                    shard_params_2d=args.shard_params_2d)
     opts = Options(q_block=args.q_block, kv_block=args.kv_block,
-                   skip_masked_blocks=args.skip_masked_blocks,
                    mla_absorb=args.mla_absorb, moe_group=args.moe_group,
-                   remat=args.remat, fused_xent=args.fused_xent,
-                   probs_bf16=args.probs_bf16)
+                   remat=args.remat, probs_bf16=args.probs_bf16)
     dims = _mesh_shape(args)
     mesh_name = "x".join(map(str, dims))
     out = cell_filename(args.arch, args.shape, mesh_name, args.tag,
@@ -317,8 +317,8 @@ def run_all(args) -> int:
                 for flag in ("q_block", "kv_block", "moe_group"):
                     cmd += [f"--{flag.replace('_', '-')}",
                             str(getattr(args, flag))]
-                for flag in ("skip_masked_blocks", "mla_absorb", "no_zero1",
-                             "fused_xent", "probs_bf16", "shard_params_2d"):
+                for flag in ("mla_absorb", "no_zero1", "probs_bf16",
+                             "shard_params_2d"):
                     if getattr(args, flag):
                         cmd.append(f"--{flag.replace('_', '-')}")
                 if args.seq_shard_kv or shape_name == "long_500k":
@@ -374,8 +374,6 @@ def parse_args(argv=None):
     ap.add_argument("--q-block", type=int, default=1024)
     ap.add_argument("--kv-block", type=int, default=1024)
     ap.add_argument("--moe-group", type=int, default=1024)
-    ap.add_argument("--skip-masked-blocks", action="store_true")
-    ap.add_argument("--fused-xent", action="store_true")
     ap.add_argument("--mla-absorb", action="store_true")
     ap.add_argument("--probs-bf16", action="store_true")
     ap.add_argument("--shard-params-2d", action="store_true")

@@ -48,7 +48,6 @@ def main(argv=None):
     ap.add_argument("--remat", default="none")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--probs-bf16", action="store_true")
-    ap.add_argument("--skip-masked-blocks", action="store_true")
     ap.add_argument("--shard-params-2d", action="store_true")
     ap.add_argument("--param-dtype", default="float32")
     ap.add_argument("--seq-shard-kv", action="store_true")
@@ -60,8 +59,7 @@ def main(argv=None):
                    grad_compress=args.grad_compress,
                    seq_shard_kv=args.seq_shard_kv,
                    shard_params_2d=args.shard_params_2d)
-    opts = Options(remat=args.remat, probs_bf16=args.probs_bf16,
-                   skip_masked_blocks=args.skip_masked_blocks)
+    opts = Options(remat=args.remat, probs_bf16=args.probs_bf16)
     counter = Counter(rows=True)
     dr.start_fake_group(256)
     try:

@@ -51,13 +51,9 @@ def shard_hint(x, *logical_axes):
     shard; DTensor could not reshape one).  Returns `x` itself when no
     mesh is installed or `x` is a plain tensor."""
     mesh = current_mesh()
-    if mesh is None:
+    if mesh is None or not hasattr(x, "device_mesh"):
         return x
-    from torch.distributed.tensor import DTensor
-
-    from repro_torch.runtime.sharding import placements
-    if not isinstance(x, DTensor):
-        return x
+    from repro_torch.placement import placements
     rules = current_rules() or {}
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     spec = []
@@ -66,16 +62,84 @@ def shard_hint(x, *logical_axes):
         n = math.prod(sizes[ax] for ax in
                       (e if isinstance(e, tuple) else (e,)) if ax)
         spec.append(e if x.shape[d] % n == 0 else None)
-    return x.redistribute(mesh, placements(mesh, spec))
+    return _Hint.apply(x, mesh, placements(mesh, spec))
 
 
-def embed_rows(table, tokens):
-    """table[tokens].  On a DTensor table split over its rows (the vocab),
-    `F.embedding`, which DTensor runs as a masked lookup on each shard and
-    a sum of the rows, where indexing would gather the whole table."""
-    if hasattr(table, "device_mesh"):
-        return F.embedding(tokens, table)
-    return table[tokens]
+class _Hint(torch.autograd.Function):
+    """x.redistribute(mesh, placements), whose gradient goes back to x's
+    placements as DTensor's own backward sends it, except that a partial
+    sum reaching a placement of another partial type (an embedding's
+    masked lookup: DTensor cannot convert one into the other) is summed
+    first."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.mesh, ctx.src = mesh, tuple(x.placements)
+        return x.redistribute(mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        want = tuple(
+            s if not s.is_partial() or (type(p) is type(s) and p == s)
+            else Replicate() for s, p in zip(ctx.src, g.placements))
+        return g.redistribute(ctx.mesh, want), None, None
+
+
+def write_at(dst, index: tuple, src):
+    """dst[index] = src in place, `index` a tuple of ints and slices of
+    step 1 over dst's leading dims.  On a DTensor dst, shard by shard:
+    `src` follows dst's split along a dim that `index` takes whole and is
+    made whole along the others, and each shard writes the part of `src`
+    that falls in it."""
+    if not hasattr(dst, "device_mesh"):
+        dst[index] = src
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = dst.device_mesh
+    index = tuple(index) + (slice(None),) * (dst.dim() - len(index))
+    ranges, src_dim = [], {}
+    for d, e in enumerate(index):
+        if isinstance(e, slice):
+            a, b, step = e.indices(dst.shape[d])
+            if step != 1:
+                raise ValueError(f"write_at: step {step}")
+            src_dim[d] = len(src_dim)
+            ranges.append((a, b))
+        else:
+            ranges.append(e % dst.shape[d])
+    whole = {d for d, r in enumerate(ranges) if r == (0, dst.shape[d])}
+    want = []
+    for p in dst.placements:
+        if p.is_partial():
+            raise ValueError(f"write_at: dst {dst.placements}")
+        want.append(Shard(src_dim[p.dim]) if p.is_shard() and p.dim in whole
+                    else Replicate())
+    if not hasattr(src, "device_mesh"):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    src_l = src.redistribute(mesh, want).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        dst.shape, mesh, dst.placements)
+    di, si = [], []
+    for d, r in enumerate(ranges):
+        lo, hi = offset[d], offset[d] + shape[d]
+        if d in whole:
+            di.append(slice(None))
+            si.append(slice(None))
+        elif isinstance(r, int):
+            if not lo <= r < hi:
+                return                      # not in this shard
+            di.append(r - lo)
+        else:
+            a, b = max(r[0], lo), min(r[1], hi)
+            if a >= b:
+                return
+            di.append(slice(a - lo, b - lo))
+            si.append(slice(a - r[0], b - r[0]))
+    dst.to_local()[tuple(di)] = src_l[tuple(si)]
 
 
 def write_rows(cache, new, positions):
@@ -313,34 +377,22 @@ class Options:
     compressed cache); moe_group is the MoE's largest token group.
     probs_bf16 rounds the attention probabilities to V's dtype before
     P.V, in the kernel and the plain version alike (`launch.serve` and
-    `launch.train` take it as --probs-bf16).
-
-    skip_masked_blocks and fused_xent are the JAX model's knobs, kept so
-    that the dry run records them as the reference does; they change no
-    number in the port.  The CUDA kernel and the plain blockwise version
-    always skip the tiles outside the band (the JAX model computes them
-    unless skip_masked_blocks), and nothing in the port has a fused
-    cross-entropy to switch to."""
+    `launch.train` take it as --probs-bf16)."""
 
     def __init__(self, *, q_block: int = 1024, kv_block: int = 1024,
-                 skip_masked_blocks: bool = False, mla_absorb: bool = False,
-                 remat: str = "none", moe_group: int = 1024,
-                 fused_xent: bool = False, probs_bf16: bool = False):
+                 remat: str = "none", mla_absorb: bool = False,
+                 moe_group: int = 1024, probs_bf16: bool = False):
         self.q_block = q_block
         self.kv_block = kv_block
-        self.skip_masked_blocks = skip_masked_blocks
-        self.mla_absorb = mla_absorb
         self.remat = remat
+        self.mla_absorb = mla_absorb
         self.moe_group = moe_group
-        self.fused_xent = fused_xent
         self.probs_bf16 = probs_bf16
 
     def replace(self, **kw):
         cur = dict(q_block=self.q_block, kv_block=self.kv_block,
-                   skip_masked_blocks=self.skip_masked_blocks,
-                   mla_absorb=self.mla_absorb, remat=self.remat,
-                   moe_group=self.moe_group, fused_xent=self.fused_xent,
-                   probs_bf16=self.probs_bf16)
+                   remat=self.remat, mla_absorb=self.mla_absorb,
+                   moe_group=self.moe_group, probs_bf16=self.probs_bf16)
         cur.update(kw)
         return Options(**cur)
 

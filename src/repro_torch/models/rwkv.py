@@ -18,9 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan.ops import wkv6
-from repro_torch.models.common import (dense_init, embed_init, embed_rows,
-                                       layer_norm, ones_init, shard_hint,
-                                       unstack, zeros_init)
+from repro_torch.models.common import (dense_init, embed_init, layer_norm,
+                                       ones_init, shard_hint, unstack,
+                                       zeros_init)
 
 
 def dims(cfg):
@@ -206,7 +206,7 @@ def forward(params, cfg, tokens, *, opts=None, mode: str = "train",
     (B,Vp), state) (prefill), the state in init_state's layout with tm_x and
     cm_x in the compute dtype.  `opts` and `cache` are accepted for the
     uniform model API and unused: prefill makes the state."""
-    x = shard_hint(embed_rows(params["embed"], tokens).to(dtype), "batch",
+    x = shard_hint(F.embedding(tokens, params["embed"]).to(dtype), "batch",
                    None, None)
     x = layer_norm(x, params["ln0"]["s"], params["ln0"]["b"])
     states = {"tm_x": [], "S": [], "cm_x": []}
@@ -242,7 +242,7 @@ def decode_step(params, cfg, tokens, positions, state, *, opts=None,
                 dtype=torch.bfloat16):
     """tokens (B,) -> (logits (B,Vp), new state).  RWKV needs no positions
     (kept for API uniformity)."""
-    x = shard_hint(embed_rows(params["embed"], tokens)[:, None].to(dtype),
+    x = shard_hint(F.embedding(tokens, params["embed"])[:, None].to(dtype),
                    "batch", None, None)
     x = layer_norm(x, params["ln0"]["s"], params["ln0"]["b"])
     new = {"tm_x": [], "S": [], "cm_x": []}

@@ -19,14 +19,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (Options, activation, dense_init,
-                                       embed_init, embed_rows, layer_params,
-                                       maybe_remat, ones_init, rms_norm,
-                                       shard_hint, softcap, unstack,
+                                       embed_init, layer_params, maybe_remat,
+                                       ones_init, rms_norm, shard_hint,
+                                       softcap, unstack, write_at,
                                        write_rows)
 from repro_torch.models.rope import apply_rope, mrope_angles, rope_angles
 
@@ -201,7 +202,7 @@ def _layer_windows(cfg, n_layers: int, seq_len: int):
 
 
 def _embed(params, cfg, tokens, dtype):
-    x = embed_rows(params["embed"], tokens).to(dtype)
+    x = F.embedding(tokens, params["embed"]).to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
     return shard_hint(x, "batch", None, None)
@@ -254,7 +255,7 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
             firsts.append(entry)
         elif mode == "prefill":
             for dst, src in zip(cache["first"][i], entry):
-                dst[:, :S] = src                              # in place
+                write_at(dst, (slice(None), slice(0, S)), src)      # in place
     entries = []
     block = maybe_remat(_train_block, opts.remat)
     for i, bp in enumerate(unstack(params["blocks"], L)):
@@ -269,7 +270,7 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
             entries.append(entry)
         elif mode == "prefill":
             for dst, src in zip(cache["layers"], entry):
-                dst[i, :, :S] = src                           # in place
+                write_at(dst, (i, slice(None), slice(0, S)), src)  # in place
 
     if mode == "prefill":
         # serving only needs next-token logits after prefill

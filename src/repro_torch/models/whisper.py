@@ -21,11 +21,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (Options, embed_init, embed_rows,
-                                       layer_norm, layer_params, shard_hint,
-                                       unstack, write_rows)
+from repro_torch.models.common import (Options, embed_init, layer_norm,
+                                       layer_params, shard_hint, unstack,
+                                       write_at, write_rows)
 from repro_torch.models.transformer import apply_ffn, init_ffn
 
 _ENC_KEYS = ("ln1", "attn", "ln2", "mlp")
@@ -137,7 +138,7 @@ def forward(params, cfg, tokens, *, encoder_frames, opts: Options = None,
     B, S = tokens.shape
     memory = encode(params, cfg, encoder_frames.to(dtype), opts=opts)
     dp = params["dec"]
-    x = embed_rows(params["embed"], tokens).to(dtype)
+    x = F.embedding(tokens, params["embed"]).to(dtype)
     x = x + sinusoid(torch.arange(S, device=tokens.device),
                      cfg.d_model).to(dtype)
     x = shard_hint(x, "batch", None, None)
@@ -160,7 +161,7 @@ def forward(params, cfg, tokens, *, encoder_frames, opts: Options = None,
             entries.append((k, v))
         elif mode == "prefill":
             for dst, src in zip(cache["kv"], (k, v)):
-                dst[i, :, :S] = src                           # in place
+                write_at(dst, (i, slice(None), slice(0, S)), src)  # in place
     x = _norm(x, dp["ln_post"])
     if mode == "prefill":
         # serving only needs next-token logits after prefill
@@ -169,7 +170,7 @@ def forward(params, cfg, tokens, *, encoder_frames, opts: Options = None,
             cache = {"kv": tuple(torch.stack(t) for t in zip(*entries)),
                      "memory": memory}
         else:
-            cache["memory"][...] = memory                     # in place
+            write_at(cache["memory"], (), memory)             # in place
         return logits, cache
     return shard_hint(_logits(params, x), "batch", None, "vocab")
 
@@ -194,7 +195,7 @@ def decode_step(params, cfg, tokens, positions, cache, *, opts: Options = None,
     B = tokens.shape[0]
     dp = params["dec"]
     memory = cache["memory"].to(dtype)
-    x = embed_rows(params["embed"], tokens[:, None]).to(dtype)
+    x = F.embedding(tokens[:, None], params["embed"]).to(dtype)
     x = x + sinusoid(positions[:, None], cfg.d_model).to(dtype)
     x = shard_hint(x, "batch", None, None)
     for i in range(cfg.n_layers):

@@ -17,12 +17,13 @@ package's tree and layout (`init_cache`).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.common import (Options, dense_init, embed_init,
-                                       embed_rows, ones_init, rms_norm,
-                                       shard_hint, unstack, write_rows)
+                                       ones_init, rms_norm, shard_hint,
+                                       unstack, write_at, write_rows)
 from repro_torch.models.rope import apply_rope, rope_angles
 from repro_torch.models.transformer import apply_ffn, init_ffn
 
@@ -77,8 +78,8 @@ def _shared_block(params, cfg, x, x0, sin, cos, adapter, *, opts, kv=None,
                                    probs_bf16=opts.probs_bf16)
         if kv is not None:
             S = x.shape[1]
-            kv[0][:, :S] = k                                    # in place
-            kv[1][:, :S] = v
+            write_at(kv[0], (slice(None), slice(0, S)), k)      # in place
+            write_at(kv[1], (slice(None), slice(0, S)), v)
     else:
         k_c, v_c = kv
         write_rows(k_c, k[:, 0], positions)                     # in place
@@ -114,7 +115,7 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
     prefill = mode == "prefill"
     if prefill and cache is None:
         cache = init_cache(cfg, B, S, dtype=dtype, device=tokens.device)
-    x = shard_hint(embed_rows(params["embed"], tokens).to(dtype), "batch",
+    x = shard_hint(F.embedding(tokens, params["embed"]).to(dtype), "batch",
                    None, None)
     x0 = x
     sin, cos = rope_angles(torch.arange(S, device=tokens.device),
@@ -126,8 +127,8 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
             if prefill:
                 out, st = mamba2.mamba_forward(layers[i], h, cfg,
                                                return_cache=True)
-                cache["mamba"]["ssm"][i] = st["ssm"]            # in place
-                cache["mamba"]["conv"][i] = st["conv"]
+                write_at(cache["mamba"]["ssm"], (i,), st["ssm"])  # in place
+                write_at(cache["mamba"]["conv"], (i,), st["conv"])
                 x = x + out
             else:
                 x = x + mamba2.mamba_forward(layers[i], h, cfg)
@@ -162,7 +163,7 @@ def decode_step(params, cfg, tokens, positions, cache, *, opts: Options = None,
     in place.  Returns (logits (B,Vp), cache)."""
     opts = opts or Options()
     G, E = n_groups(cfg), cfg.attn_every
-    x = shard_hint(embed_rows(params["embed"], tokens)[:, None].to(dtype),
+    x = shard_hint(F.embedding(tokens, params["embed"])[:, None].to(dtype),
                    "batch", None, None)
     x0 = x
     sin, cos = rope_angles(positions[:, None], cfg.resolved_head_dim,
@@ -174,8 +175,8 @@ def decode_step(params, cfg, tokens, positions, cache, *, opts: Options = None,
             h = rms_norm(x, norms[i], cfg.norm_eps)
             out, st = mamba2.mamba_decode(layers[i], h, cfg,
                                           {"ssm": ssm[i], "conv": conv[i]})
-            ssm[i] = st["ssm"]                                  # in place
-            conv[i] = st["conv"]
+            write_at(ssm, (i,), st["ssm"])                      # in place
+            write_at(conv, (i,), st["conv"])
             x = x + out
         x = _shared_block(params, cfg, x, x0, sin, cos, adapters[g],
                           opts=opts, kv=(cache["kv"][0][g], cache["kv"][1][g]),

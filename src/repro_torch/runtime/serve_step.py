@@ -21,6 +21,7 @@ import itertools
 import time
 
 import torch
+import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
 from repro_torch.models.common import on_draw, shard_hint
@@ -28,8 +29,9 @@ from repro_torch.models.common import on_draw, shard_hint
 
 class _LeafReads(TorchFunctionMode):
     """Sees every torch call while active.  For each param leaf, and each view
-    indexed or unbound out of one (a layer, embedding rows), it records
-    whether a call reads it through a cast to `dtype` or some other way."""
+    indexed or unbound out of one (a layer) and the rows an embedding
+    lookup takes from one, it records whether a call reads it through a
+    cast to `dtype` or some other way."""
 
     def __init__(self, leaves: dict, dtype):
         super().__init__()
@@ -48,8 +50,10 @@ class _LeafReads(TorchFunctionMode):
                 self.path[id(t)] = self.path[id(args[0])]
                 self.keep.append(t)
         elif read and isinstance(out, torch.Tensor):
-            if func is torch.Tensor.__getitem__ and id(args[0]) in self.path:
-                self.path[id(out)] = self.path[id(args[0])]
+            rows_of = (args[0] if func is torch.Tensor.__getitem__
+                       else args[1] if func is F.embedding else None)
+            if rows_of is not None and id(rows_of) in self.path:
+                self.path[id(out)] = self.path[id(rows_of)]
                 self.keep.append(out)
             elif func is torch.Tensor.to and out.dtype == self.dtype:
                 self.cast |= read

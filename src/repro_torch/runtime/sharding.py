@@ -3,17 +3,18 @@
 Parameter specs are derived from leaf names (stable across stacked /
 unstacked layouts); activations are guided by `shard_hint` logical rules.
 
-A spec is a `P`: a tuple of per-dimension entries, each None, a mesh axis
-name or a tuple of names (a dimension split over several axes), as JAX's
-`PartitionSpec`.  `to_named` turns a spec into DTensor placements on a
-`DeviceMesh`, and `distribute` places a tree of tensors with them.  A tree
-is nested dicts and tuples (a MoE model's "first" layers); a path is the
-tuple of its dict keys (str) and tuple indices (int).
+A spec is a `P` (`repro_torch.placement`).  `to_named` turns a spec into
+DTensor placements on a `DeviceMesh`, and `distribute` places a tree of
+tensors with them.  A tree is nested dicts and tuples (a MoE model's
+"first" layers); a path is the tuple of its dict keys (str) and tuple
+indices (int).
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
+
+from repro_torch.placement import P, placements  # noqa: F401 (re-exported)
 
 # leaf-name classes --------------------------------------------------------
 
@@ -29,19 +30,6 @@ _HEAD_MAT = {"u"}
 _REPLICATED = {"ln1", "ln2", "pn1", "pn2", "final_norm", "kv_norm", "ln0",
                "ln_x", "ln_out", "s", "b", "maa_x", "maa", "maa_w1", "maa_w2",
                "w0", "maa_k", "maa_r", "mamba_ln"}
-
-
-class P(tuple):
-    """A partition spec: P("model", None), P(("pod", "data"), None), P().
-    A one-name tuple entry is kept as the name, as JAX keeps it."""
-
-    def __new__(cls, *entries):
-        return super().__new__(cls, tuple(
-            e[0] if isinstance(e, tuple) and len(e) == 1 else e
-            for e in entries))
-
-    def __repr__(self):
-        return f"P{tuple.__repr__(self)}"
 
 
 def _mesh_sizes(mesh) -> dict:
@@ -311,21 +299,6 @@ def cache_specs(cfg, cache, mesh, *, global_batch: int,
 # ---------------------------------------------------------------------------
 # DTensor placements
 # ---------------------------------------------------------------------------
-
-
-def placements(mesh, spec) -> tuple:
-    """DTensor placements of `spec` on `mesh`: for each mesh dim, in mesh
-    order, Shard(d) where tensor dim d names that axis, else Replicate.  A
-    tensor dim named by several axes is sharded on each of them in mesh
-    order, JAX's major-to-minor order."""
-    from torch.distributed.tensor import Replicate, Shard
-    at = {}
-    for d, entry in enumerate(spec):
-        for ax in (entry if isinstance(entry, tuple) else (entry,)):
-            if ax is not None:
-                at[ax] = d
-    return tuple(Shard(at[ax]) if ax in at else Replicate()
-                 for ax in mesh.mesh_dim_names)
 
 
 def to_named(mesh, spec_tree):

@@ -56,17 +56,15 @@ def value_and_grad(loss_fn, params, batch, timings=None):
 
 def _microbatch(v, n_mb: int, i: int, axis: int = 0):
     """Rows of microbatch i of n_mb along the batch axis `axis`: the i-th
-    contiguous block of the batch's rows.  On a DTensor, the i-th block of
-    each shard's rows, so no row moves between devices (the step's
-    gradient, the mean over the microbatches, is the same sum)."""
-    def block(x):
-        b = x.shape[axis]
-        return x.unflatten(axis, (n_mb, b // n_mb)).select(axis, i)
-    if not hasattr(v, "device_mesh"):
-        return block(v)
-    from torch.distributed.tensor import DTensor
-    return DTensor.from_local(block(v.to_local()), v.device_mesh,
-                              v.placements, run_check=False)
+    contiguous block of the batch's rows, as the reference's reshape takes
+    them.  On a DTensor the block keeps v's placements: a batch split over
+    the devices holds block i on some of them only, so its rows are
+    gathered first and each device keeps its share."""
+    b = v.shape[axis] // n_mb
+    mb = v.narrow(axis, i * b, b)
+    if hasattr(v, "device_mesh"):
+        mb = mb.redistribute(v.device_mesh, v.placements)
+    return mb
 
 
 def make_train_step(model, rc):

@@ -11,6 +11,17 @@ restored onto a mesh and the DFM bridge on a mesh.
   one-device results and numpy's.
 - tests/test_mpi_list.py::test_mesh_bridge_single_device's program on a
   1x1 mesh, against numpy (the JAX side fails it on jax 0.9.0).
+- Models on a (2, 2) mesh of 4 processes, params, batch and cache placed
+  by `runtime.sharding`'s rules and run under `mesh_context`, against the
+  same steps on plain tensors (which the model tests hold against JAX),
+  in fp32: reduced gemma2 with one K/V group for two model shards (each
+  shard picks the group its heads read), rwkv6, zamba2 and
+  deepseek-v2-lite served (a prefill into a cache split over the
+  sequence, then two decode steps whose rows write into both halves of
+  it), and all four trained one step of two microbatches (the K/V
+  group, WKV and SSD gradients summed over the shards that share an
+  input, MoE groups, MLA, the loss over a vocab split).  Outputs,
+  caches, updated params and both Adam moments are gathered and compared.
 
 A group of several ranks lives in subprocesses, each with its timeout; a
 1x1 group lives in this process and is destroyed in a `finally`."""
@@ -30,10 +41,11 @@ dist = pytest.importorskip("torch.distributed")
 from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.core.mpi_list import mesh_ops  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
-from repro_torch.runtime.sharding import P, placements  # noqa: E402
+from repro_torch.placement import P, placements  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+# one thread a process: the file runs four at once beside other test files
+ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
 WORLD = 4
 TIMEOUT = 120
 
@@ -44,7 +56,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_ranks(script: str, *args) -> list:
+def _run_ranks(script: str, *args, timeout: int = TIMEOUT) -> list:
     """`script` in WORLD processes over gloo; each prints one JSON line."""
     port = _free_port()
     procs = [subprocess.Popen(
@@ -54,7 +66,7 @@ def _run_ranks(script: str, *args) -> list:
     outs = []
     try:
         for p in procs:
-            out, err = p.communicate(timeout=TIMEOUT)
+            out, err = p.communicate(timeout=timeout)
             assert p.returncode == 0, err[-3000:]
             outs.append(json.loads(out.strip().splitlines()[-1]))
     finally:
@@ -118,6 +130,153 @@ try:
             mesh, torch.arange(N) * 3)).tolist(),
         "placements": str(mo.repartition(mesh, it).placements),
     }
+    print(json.dumps(out))
+finally:
+    dist.destroy_process_group()
+"""
+# the models on a (2, 2) mesh against plain tensors; rank 0 compares
+_MODELS = _PROLOGUE + r"""
+import numpy as np
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import RunConfig, ShapeConfig, get_config
+from repro_torch.models.common import (Options, mesh_context, tree_leaves,
+                                       tree_map)
+from repro_torch.models.model import build_model
+from repro_torch.optim.adamw import OptState, init_opt
+from repro_torch.runtime.sharding import (P, batch_specs, cache_specs,
+                                          distribute, logical_rules,
+                                          opt_state_specs, param_specs)
+from repro_torch.runtime.train_step import make_train_step
+F32 = torch.float32
+B, S, T = 4, 32, 48
+POS = [S, 3, 20, S - 1]          # rows on both halves of the cache's split
+OPTS = Options(q_block=16, kv_block=16, moe_group=16)
+
+
+def full(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def diff(got, want):
+    got, want = [full(x) for x in tree_leaves(got)], tree_leaves(want)
+    assert len(got) == len(want)
+    return {"err": max((x.double() - y.double()).abs().max().item()
+                       for x, y in zip(got, want)),
+            "scale": max(y.double().abs().max().item() for y in want)}
+
+
+def n_split(tree):
+    return sum(1 for x in tree_leaves(tree)
+               if hasattr(x, "to_local") and x.to_local().numel() < x.numel())
+
+
+def on_mesh(fn, *args):
+    with mesh_context(mesh, logical_rules(mesh, global_batch=B)), \
+            implicit_replication():
+        return fn(*args)
+
+
+def serve(cfg):
+    model = build_model(cfg, OPTS)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
+    steps = [(torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B,)).astype(np.int32)),
+        torch.tensor(POS, dtype=torch.int32) + i) for i in range(2)]
+    cache = (None if cfg.family == "ssm"      # its prefill makes its state
+             else model.init_cache(B, T, dtype=F32, device="cpu"))
+
+    def run(params, batch, cache, steps):
+        logits, cache = model.forward(params, batch, mode="prefill",
+                                      cache=cache, dtype=F32)
+        outs = [logits]
+        for tok, pos in steps:
+            logits, cache = model.decode_step(params, tok, pos, cache,
+                                              dtype=F32)
+            outs.append(logits)
+        return outs, cache
+
+    if rank == 0:
+        want = run(params, {"tokens": tokens},
+                   None if cache is None else tree_map(torch.clone, cache),
+                   steps)
+    dec = batch_specs(cfg, ShapeConfig("c", T, B, "decode"), mesh)
+    d_steps = [tuple(distribute({"tokens": t, "positions": p}, mesh,
+                                dec).values()) for t, p in steps]
+    if cache is not None:
+        cache = distribute(cache, mesh, cache_specs(cfg, cache, mesh,
+                                                    global_batch=B))
+    outs, cache = on_mesh(
+        run, distribute(params, mesh, param_specs(params, cfg)),
+        distribute({"tokens": tokens}, mesh,
+                   batch_specs(cfg, ShapeConfig("c", S, B, "prefill"), mesh)),
+        cache, d_steps)
+    got = [[full(o) for o in outs], tree_map(full, cache)]
+    if rank:
+        return None
+    return {"split": {"cache": n_split(cache), "logits": n_split(outs)},
+            "prefill": diff(got[0][:1], want[0][:1]),
+            "decode": diff(got[0][1:], want[0][1:]),
+            "cache": diff(got[1], want[1])}
+
+
+class F32Model:
+    # the train step's loss through the model in fp32
+    def __init__(self, model):
+        self.model, self.cfg = model, model.cfg
+
+    def forward(self, params, batch, return_aux=False):
+        return self.model.forward(params, batch, dtype=F32,
+                                  return_aux=return_aux)
+
+
+def train(cfg):
+    model = build_model(cfg, OPTS)
+    rc = RunConfig(microbatches=2)
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
+        for k in ("tokens", "labels")}
+    step = make_train_step(F32Model(model), rc)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    if rank == 0:
+        mine = tree_map(torch.clone, params)
+        want = step(mine, init_opt(mine, rc), batch)
+    pspecs = param_specs(params, cfg)
+    ospecs = opt_state_specs(pspecs, params, mesh, rc.zero1)
+    opt = distribute(init_opt(params, rc), mesh,
+                     OptState(P(), ospecs, ospecs))
+    p, o, m = on_mesh(step, distribute(params, mesh, pspecs), opt,
+                      distribute(batch, mesh, batch_specs(
+                          cfg, ShapeConfig("c", S, B, "train"), mesh)))
+    got = [tree_map(full, p), tree_map(full, o.m), tree_map(full, o.v),
+           {k: full(v) for k, v in m.items()}]
+    if rank:
+        return None
+    return {"split": {"params": n_split(p), "moments": n_split((o.m, o.v))},
+            "params": diff(got[0], want[0]), "m": diff(got[1], want[1].m),
+            "v": diff(got[2], want[1].v),
+            "metrics": {k: [float(v), float(want[2][k])]
+                        for k, v in got[3].items()}}
+
+
+out = {}
+try:
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    gemma = get_config("gemma2-2b").reduced().replace(n_kv_heads=1)
+    deepseek = get_config("deepseek-v2-lite-16b").reduced()
+    for arch, cfg in (("gemma2-2b", gemma),
+                      ("rwkv6-1.6b", get_config("rwkv6-1.6b").reduced()),
+                      ("zamba2-2.7b", get_config("zamba2-2.7b").reduced()),
+                      ("deepseek-v2-lite-16b", deepseek)):
+        out[f"{arch} serve"] = serve(cfg)
+    for arch, cfg in (("gemma2-2b", gemma),
+                      ("rwkv6-1.6b", get_config("rwkv6-1.6b").reduced()),
+                      ("zamba2-2.7b", get_config("zamba2-2.7b").reduced()),
+                      ("deepseek-v2-lite-16b", deepseek)):
+        out[f"{arch} train"] = train(cfg)
     print(json.dumps(out))
 finally:
     dist.destroy_process_group()
@@ -195,6 +354,37 @@ def test_bridge_over_a_data_axis_of_4_processes(ranks):
     assert one["scan_max"] == np.maximum.accumulate(
         [(i * 7) % 11 for i in range(N)]).tolist()
     assert one["group"] == a[np.argsort(a % 3, kind="stable")].tolist()
+
+
+# ------------------------------------------------------ models on a mesh
+
+# fp32 on both sides; the readings are at most 5.3e-6 of the largest value
+REL_TOL = 2e-5
+SERVED = ["gemma2-2b serve", "rwkv6-1.6b serve", "zamba2-2.7b serve",
+          "deepseek-v2-lite-16b serve"]
+TRAINED = ["gemma2-2b train", "rwkv6-1.6b train", "zamba2-2.7b train",
+           "deepseek-v2-lite-16b train"]
+
+
+@pytest.fixture(scope="module")
+def models():
+    """Rank 0's comparisons from one run of WORLD gloo processes (45 s
+    alone, 240-260 s beside the rest of the suite under `-n 6`)."""
+    return _run_ranks(_MODELS, timeout=900)[0]
+
+
+@pytest.mark.parametrize("case", SERVED + TRAINED)
+def test_a_model_on_a_2x2_mesh_equals_it_on_plain_tensors(case, models):
+    r = models[case]
+    keys = ("prefill", "decode", "cache") if case in SERVED \
+        else ("params", "m", "v")
+    for k in keys:
+        assert r[k]["err"] <= REL_TOL * r[k]["scale"], (k, r[k])
+    # the mesh really splits them
+    assert all(n > 0 for n in r["split"].values()), r["split"]
+    if case in TRAINED:
+        for k, (got, want) in r["metrics"].items():
+            assert got == pytest.approx(want, rel=REL_TOL, abs=1e-9), k
 
 
 # ------------------------------------------------------------ 1x1 meshes

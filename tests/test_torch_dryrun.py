@@ -10,11 +10,14 @@
   attention computes every pair of the blocks it does not skip (all of
   them without skip_masked_blocks), the flash kernel's count only the
   allowed pairs.  That term is worked out block by block from
-  src/repro/models/attention.py:141-247.
+  src/repro/models/attention.py:141-247.  Its per-device HBM bytes and
+  collective bytes stay within a band of the reference's readings.
 - Train (full remat, 2 microbatches) and decode cells of a reduced
   gemma2, rwkv6, zamba2 and deepseek-v2-lite end ok on the 2x2 mesh, with
   the reference's record keys.
-- Applicable shapes and `Options` equal the reference's.
+- Applicable shapes equal the reference's, and `Options` carry the
+  reference's knobs but skip_masked_blocks and fused_xent, which the
+  record holds as the port runs.
 
 Every process group lives in a subprocess; they run concurrently."""
 import json
@@ -38,7 +41,9 @@ from repro_torch.models.attention import head_padding  # noqa: E402
 from repro_torch.models.common import Options  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+# one thread a process: the file runs five at once beside other test files
+ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+           OMP_NUM_THREADS="1")
 SEQ, BATCH, BLOCK = 64, 4, 32          # the reduced prefill cell
 CELL_ARCHS = ["gemma2-2b", "rwkv6-1.6b", "zamba2-2.7b",
               "deepseek-v2-lite-16b"]
@@ -194,6 +199,28 @@ def test_reduced_prefill_cell_is_within_5pc_of_the_reference(runs):
     assert rec["hlo_flops_per_device"] < 0.5 * rec["model_flops"]
 
 
+def test_reduced_prefill_cell_bytes_near_the_reference(runs):
+    """HBM bytes and collective bytes a device, against the reference's
+    partitioned HLO of the same cell.  Readings (torch 2.13, jax 0.9):
+    HBM 17.04e6 against 22.12e6, collectives 0.330e6 against 0.426e6
+    (bf16-corrected).  The port counts fewer bytes in part because the
+    flash op counts its kernel's q, k, v and output once where the
+    reference's blockwise attention writes every block's scores; the rest
+    of either gap is not broken down.  The band holds the port to the
+    readings' side of the reference, with room for either side's
+    version."""
+    rec, ref = runs["port_cell"], runs["ref_cell"]
+    hbm = rec["hlo_bytes_per_device"] / ref["hlo_bytes_per_device"]
+    coll = (rec["collective_bytes"]["total"]
+            / ref["collective_bytes"]["total_bf16_corrected"])
+    assert 0.6 <= hbm <= 1.1, hbm
+    assert 0.6 <= coll <= 1.1, coll
+    # the all-reduces of the row-split matmuls' outputs, bf16, two a layer
+    cfg = get_config("gemma2-2b").reduced()
+    assert rec["collective_bytes"]["all-reduce"] == \
+        2 * cfg.n_layers * (BATCH // 2) * SEQ * cfg.d_model * 2
+
+
 def test_a_record_carries_the_reference_keys(runs):
     rec, ref = runs["port_cell"], runs["ref_cell"]
     assert set(ref) <= set(rec)
@@ -202,7 +229,9 @@ def test_a_record_carries_the_reference_keys(runs):
     assert rec["memory"]["temp_bytes_per_device"] is None
     assert rec["memory"]["argument_bytes_per_device"] > 0
     assert rec["collective_bytes"]["total"] > 0
-    assert rec["opts"]["skip_masked_blocks"] is False
+    # the reference's two knobs, as the port runs: masked tiles skipped,
+    # no fused cross-entropy
+    assert rec["opts"]["skip_masked_blocks"] is True
     assert rec["opts"]["fused_xent"] is False
 
 
@@ -222,9 +251,14 @@ def test_applicable_shapes_equal_the_reference(arch):
 
 
 def test_options_carry_the_reference_knobs():
-    kw = dict(q_block=64, kv_block=32, skip_masked_blocks=True,
-              mla_absorb=True, remat="full", moe_group=128, fused_xent=True,
-              probs_bf16=True)
+    """The reference's knobs, less skip_masked_blocks and fused_xent, which
+    would change nothing in the port."""
+    kw = dict(q_block=64, kv_block=32, mla_absorb=True, remat="full",
+              moe_group=128, probs_bf16=True)
     ours, theirs = Options(**kw), JOptions(**kw)
-    assert vars(ours) == vars(theirs)
-    assert vars(ours.replace(q_block=8)) == vars(theirs.replace(q_block=8))
+
+    def knobs(o):
+        return {k: v for k, v in vars(o).items()
+                if k not in ("skip_masked_blocks", "fused_xent")}
+    assert vars(ours) == knobs(theirs)
+    assert vars(ours.replace(q_block=8)) == knobs(theirs.replace(q_block=8))

@@ -84,7 +84,7 @@ def test_the_distribution_modules_are_covered():
     assert {port + m for m in (
         "runtime/sharding.py", "launch/mesh.py", "launch/dryrun.py",
         "launch/hlo_analysis.py", "launch/hlo_debug.py",
-        "kernels/cost.py", "kernels/_dist.py")} <= names
+        "kernels/cost.py", "kernels/_dist.py", "placement.py")} <= names
 
 
 def test_only_the_dry_run_imports_the_fake_backend():
