@@ -36,9 +36,11 @@ Phases; any failure exits non-zero:
       (flash (1, 4200, 16/4, 256) beside torch.compile(flex_attention),
       (1, 4200, 32, 80) beside SDPA and deepseek-7b's (1, 4200, 32/32,
       128) beside SDPA; deepseek-v2-lite-16b's MLA prefill at q/k head dim
-      192 and v head dim 128, (1, 4200, 16/16, 192/128), and qwen2-vl-2b's
-      (1, 4200, 16/2, 128), each beside SDPA (torch.compile(flex_attention)
-      if SDPA refuses the shape), and the 192/128 pair at a ragged GQA case
+      192 and v head dim 128, (1, 4200, 16/16, 192/128), qwen2-vl-2b's
+      (1, 4200, 16/2, 128), qwen2.5-32b's (1, 4200, 48/8, 128) and
+      deepseek-67b's and arctic-480b's (1, 4200, 64/8, 128), each beside
+      SDPA (torch.compile(flex_attention) if SDPA refuses the shape; the
+      last two in fp32 too), and the 192/128 pair at a ragged GQA case
       (2, 203, 8/2) in bf16 and fp32; the WKV at (1, 4224, 32, 64), the SSD
       at (1, 4224, 80, 64) with its final state: "serve_b1" in the JSON
       rows); flash at whisper-base's three served shapes in bf16 and
@@ -170,6 +172,16 @@ Phases; any failure exits non-zero:
       none differ), the served first tokens the bf16 prefill's argmax, the
       MoE's dropped choices over the served prefills, prefill ms, decode
       ms a token, p50/p95/p99, the peak memory (held under 80 GB).  Then
+      the same traffic and checks through the three largest configs at
+      full width and cut depth (LARGE_SERVES, the depth set by patching
+      `launch.serve.get_config`): qwen2.5-32b at 32 of 64 layers (40 query
+      heads padded to 48 on 8 K/V heads, QKV bias), deepseek-67b at 24 of
+      95 and arctic-480b at 1 of 35 (128 experts top-2 beside its dense
+      residual; its kernel-vs-plain prefill on the first
+      ARCTIC_CHECK_PREFIX tokens of the first prompt, its routing pinned
+      where the paths choose differently, its dropped choices counted over
+      the full served prefills), each decode ms a token printed beside
+      its bound, the served params read once at the HBM rate.  Then
       the same traffic at whisper-base's text context (432-token prompts,
       16 new tokens) through full-width whisper-base (6 encoder and 6
       decoder layers, zero frames as launch.serve gives them; 80,117,760
@@ -248,7 +260,9 @@ Phases; any failure exits non-zero:
       deepseek, and its batch-1 prefill shape's figures, deepseek_b1;
       deepseek-v2-lite-16b's and qwen2-vl-2b's serves, deepseek_v2_lite
       and qwen2_vl, and their prefill shapes' figures,
-      deepseek_v2_lite_b1 and qwen2_vl_b1; the
+      deepseek_v2_lite_b1 and qwen2_vl_b1; the three largest configs'
+      serves, qwen2_5_32b, deepseek_67b and arctic_480b, and their prefill
+      shapes' figures, qwen2_5_32b_b1 and deepseek_67b_b1; the
       gemma2 flash row with its training run's train_launches,
       train_launches_per_forward, remat_launches, train_shape,
       train_bwd_ms and train_step_profile; the WKV row with
@@ -309,6 +323,34 @@ DSH, DSHD = 32, 128
 # heads padded to 16 on 2 K/V heads of 128 (GQA ratio 8), causal
 MLAH, MLAHD, MLAHDV = 16, 192, 128
 VLH, VLG, VLHD = 16, 2, 128
+# qwen2.5-32b's: 40 query heads padded to 48 on 8 K/V heads of 128 (GQA
+# ratio 6); deepseek-67b's 64 and arctic-480b's 56 padded to 64, on 8
+QWH, DS67H, BIGG, BIGHD = 48, 64, 8, 128
+# The three largest configs, served at full width and cut depth.  Each
+# depth keeps init_serving_params' peak, the served bf16 tree plus the
+# largest leaf drawn in fp32, under the card's 80 GB: 53.1, 53.9 and 46.0
+# GB.  arctic-480b at 2 layers would need 91.1 GB (a 55.4 GB tree and a
+# 35.7 GB fp32 expert stack).  tests/test_torch_large_configs.py counts
+# these on meta.
+QWEN32_LAYERS, DS67_LAYERS, ARCTIC_LAYERS = 32, 24, 1
+# arctic's kernel-vs-plain prefill runs on this prefix of the first served
+# prompt.  At all 4200 tokens the fp32 pass alone would cross 80 GB: the
+# padded dispatch's 525 groups x 128 experts x 8 slots hold 15.4 GB of
+# expert inputs, each (G, E, C, 4864) product 10.5 GB, and each expert
+# stack cast to fp32 17.9 GB, beside the 28.2 GB tree.  At 1024 tokens:
+# 16 groups of 64, 16,384 slots.
+ARCTIC_CHECK_PREFIX = 1024
+# (arch, depth, dims (layers, d_model, heads, KV heads, head dim, vocab),
+# parameters at that depth, the kernel-vs-plain prefill's prefix or None)
+LARGE_SERVES = (
+    ("qwen2.5-32b", QWEN32_LAYERS,
+     (QWEN32_LAYERS, 5120, 40, 8, 128, 152064), 17_496_085_504, None),
+    ("deepseek-67b", DS67_LAYERS,
+     (DS67_LAYERS, 8192, 64, 8, 128, 102400), 18_287_566_848, None),
+    ("arctic-480b", ARCTIC_LAYERS,
+     (ARCTIC_LAYERS, 7168, 56, 8, 128, 32000), 14_084_625_408,
+     ARCTIC_CHECK_PREFIX),
+)
 # its prefill, kernel path vs plain path in fp32: the two differ only in the
 # order of their fp32 sums (the flash kernel's tiles against the blockwise
 # version's), which moves the logits by far less than a wrong tile or a
@@ -2425,6 +2467,10 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
     # case in both types
     cases += [("bfloat16", 1, S, MLAH, MLAH, MLAHD, None, 0.0, MLAHDV),
               ("bfloat16", 1, S, VLH, VLG, VLHD, None, 0.0, VLHD)]
+    # qwen2.5-32b's (GQA 6) and deepseek-67b's / arctic-480b's (GQA 8)
+    # served prefill, one prompt each, in both types
+    cases += [(dt, 1, S, hq, BIGG, BIGHD, None, 0.0, BIGHD)
+              for hq in (QWH, DS67H) for dt in ("bfloat16", "float32")]
     cases += [(dt, 2, 203, 8, 2, MLAHD, 50, CAP, MLAHDV)
               for dt in ("bfloat16", "float32")]
     for dt, b, s, hq, g, hd, window, cap, hd_v in cases:
@@ -2460,12 +2506,14 @@ def phase_kernel(torch, fa_ops, fa_ref, fa_kernel):
         main_b1 = (b, s, hq, g, hd) == (1, S, HQ, G, HD)
         serve_b1 = (b, s, hq, g, hd) == (1, ZSS, ZH, ZH, ZHD)
         deepseek_b1 = (b, s, hq, g, hd) == (1, S, DSH, DSH, DSHD)
-        # deepseek-v2-lite-16b's and qwen2-vl-2b's served prefill shapes
+        # the other served prefill shapes in bf16, the type they are served
+        # in
         served_b1 = {(1, S, MLAH, MLAH, MLAHD, MLAHDV): "deepseek_v2_lite_b1",
-                     (1, S, VLH, VLG, VLHD, VLHD): "qwen2_vl_b1"}.get(
-            (b, s, hq, g, hd, hd_v))
-        big = (main_shape or serve_shape or main_b1 or serve_b1 or deepseek_b1
-               or served_b1)
+                     (1, S, VLH, VLG, VLHD, VLHD): "qwen2_vl_b1",
+                     (1, S, QWH, BIGG, BIGHD, BIGHD): "qwen2_5_32b_b1",
+                     (1, S, DS67H, BIGG, BIGHD, BIGHD): "deepseek_67b_b1"}.get(
+            (b, s, hq, g, hd, hd_v)) if dt == "bfloat16" else None
+        big = main_shape or serve_shape or (b, s) == (1, S)
         ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **kw),
                      5 if big else 20)
         plain_ms = cuda_ms(lambda: fa_ref.flash_attention_blockwise(
@@ -3337,17 +3385,21 @@ class RoutePin(RouteLog):
 
 
 def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
-                      dims, n_params, argv=None, per_batch=None):
-    """`arch` (deepseek-7b, deepseek-v2-lite-16b, qwen2-vl-2b, whisper-base)
-    at full width and depth through `launch.serve` and `Client.serve`
-    (`argv`, by default ARGV: four batches of 1): the front door's checks,
+                      dims, n_params, argv=None, per_batch=None, depth=None,
+                      prefix=None):
+    """`arch` (deepseek-7b, deepseek-v2-lite-16b, qwen2-vl-2b, whisper-base;
+    at a cut `depth`, LARGE_SERVES) at full width, and at full depth unless
+    `depth` names one, through `launch.serve` and `Client.serve` (`argv`,
+    by default ARGV: four batches of 1; the depth set by patching
+    `serve.get_config`, as `launch.serve` has no flag for it): the front
+    door's checks,
     `dims` (layers, d_model, heads, KV heads, head dim, vocab) and the
     parameter count, the flash kernel launched `per_batch` times a prefill
     batch (by default once a layer), 4 replies of 16 in-vocab tokens.
     Then the first served batch's prefill on the kernel path and the plain
     path (the params read through an fp32 cast), in fp32 and bf16
-    (printed); an audio model's on seeded random frames (the serve gave it
-    zeros).  A MoE
+    (printed), on its first `prefix` tokens where `prefix` is given; an
+    audio model's on seeded random frames (the serve gave it zeros).  A MoE
     model's router may pick another expert on the two paths where a token
     sits near a top-k tie (they sum attention in other orders): each
     layer's choices are recorded, the last position's printed per layer on
@@ -3359,17 +3411,39 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
     without experts), else against the plain path rerun with its routing
     pinned to the kernel path's choices (`RoutePin`), the unpinned error
     printed beside it.  The
-    served first tokens are the bf16 kernel path's argmax.  Prints prefill
-    ms, decode ms a token, p50/p95/p99, the peak memory (held under 80 GB)
-    and, for a MoE model, the choices dropped over the served prefills, and
-    the phase's seconds."""
+    served first tokens are the bf16 kernel path's argmax over the whole
+    prompts.  Prints prefill ms, decode ms a token beside its bound (the
+    bytes a decode step needs, `decode_step_bytes`, at the HBM rate; and
+    beside that the served tree's bytes at that rate), p50/p95/p99, the peak
+    memory (held under 80 GB; the init's and the serve's apart) and, for a
+    MoE model, the choices dropped over the served prefills (every token's
+    k choices in every MoE layer counted), and the phase's seconds with the
+    path checks' peak memory."""
     torch.cuda.reset_peak_memory_stats()
     fa_ops.flash_attention.launches = 0
+    init, marks = serve.init_serving_params, {}
+
+    def init_then_mark(*args, **kwargs):
+        """The init's peak, then the count restarted for the serve's."""
+        out = init(*args, **kwargs)
+        marks["init"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
     t0 = time.perf_counter()
-    res = serve.main(argv or ["--arch", arch, *ARGV])
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(serve, "init_serving_params",
+                                              init_then_mark))
+        if depth is not None:
+            full = serve.get_config
+            stack.enter_context(mock.patch.object(
+                serve, "get_config",
+                lambda a: full(a).replace(n_layers=depth)))
+        res = serve.main(argv or ["--arch", arch, *ARGV])
     wall = time.perf_counter() - t0
     launches = fa_ops.flash_attention.launches
-    peak = torch.cuda.max_memory_allocated()
+    serve_peak = torch.cuda.max_memory_allocated()
+    peak = max(marks["init"], serve_peak)
     model, params = res["model"], res["params"]
     cfg = model.cfg
     got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -3379,12 +3453,28 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
         raise SystemExit(f"{arch}: served {got} with {n:,} parameters, "
                          f"want {dims} with {n_params:,}")
     p50, p95, p99 = front_door_checks(res, arch)
+    served_bytes = sum(t.numel() * t.element_size()
+                       for _, t in leaf_items(params))
+    served_ms = served_bytes / H100_BYTES_S * 1e3
+    B = len(res["prompts"]) // len(res["batches"])
+    steps = res["decode_steps"] // len(res["batches"])
+    need, cache_need = decode_step_bytes(
+        model, params, B, len(res["prompts"][0]) + (steps + 1) / 2)
+    decode_bound_ms = need / H100_BYTES_S * 1e3
     print(f"[c] {arch} served {len(res['replies'])} requests in {wall:.1f}s "
-          f"(weights included: {n:,} parameters, {cfg.n_layers} layers); "
-          f"prefill_ms={res['prefill_s'] * 1e3:.1f} decode_ms_per_token="
-          f"{res['decode_s'] * 1e3 / res['decode_steps']:.2f} latency_ms "
+          f"(weights included: {n:,} parameters, {cfg.n_layers} layers"
+          f"{' of ' + str(full(arch).n_layers) if depth is not None else ''}"
+          f"); prefill_ms={res['prefill_s'] * 1e3:.1f} decode_ms_per_token="
+          f"{res['decode_s'] * 1e3 / res['decode_steps']:.2f} (bound "
+          f"{decode_bound_ms:.3f}: the {need / 1e9:.3f} GB a step of a batch "
+          f"of {B} needs, the cache's {cache_need / 1e9:.3f} GB among them; "
+          f"the served tree read once, as the padded MoE dispatch reads "
+          f"its experts: {served_bytes / 1e9:.2f} GB, {served_ms:.2f} ms) "
+          f"latency_ms "
           f"p50={p50:.1f} p95={p95:.1f} p99={p99:.1f} "
-          f"max_memory_allocated_GB={peak / 1e9:.2f}")
+          f"max_memory_allocated_GB={peak / 1e9:.2f} (the init's "
+          f"{marks['init'] / 1e9:.2f}, the serve's {serve_peak / 1e9:.2f} "
+          f"with the served tree's {served_bytes / 1e9:.2f} in it)")
     per_batch = per_batch or cfg.n_layers
     want = per_batch * len(res["batches"])
     print(f"[c] {arch} flash_attention launches={launches} (want "
@@ -3401,8 +3491,9 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
             raise SystemExit(f"{arch}: bad reply {row}")
     V = cfg.vocab_size
     first = res["batches"][0]
+    torch.cuda.reset_peak_memory_stats()          # the path checks' peak
     toks = torch.as_tensor(np.stack(res["prompts"][:first]),
-                           device="cuda").long()
+                           device="cuda").long()[:, :prefix]
     batch = serve_batch(torch, cfg, toks)
     if cfg.family == "audio":
         batch["encoder_frames"] = torch.randn(
@@ -3475,7 +3566,9 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
     a16 = logits[torch.bfloat16, "kernel"]
     b16 = logits[torch.bfloat16, "plain"]
     print(f"[c] {arch} prefill of the first served batch ({first} "
-          f"prompt(s) of {toks.shape[1]} tokens), kernel vs plain path"
+          f"prompt(s), {'the first ' if prefix else ''}{toks.shape[1]} "
+          f"tokens{' of ' + str(len(res['prompts'][0])) if prefix else ''}),"
+          f" kernel vs plain path"
           f"{' (its routing pinned to the kernel path' + chr(39) + 's)' if unpinned else ''}: "
           f"fp32 logits max_abs_err={err:.3e} (tol {DS_FP32_LOGIT_TOL})"
           f"{unpinned}, |logit|max={float(b.abs().max()):.3f}, top-2 margins="
@@ -3503,6 +3596,12 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
     if log.calls:
         dropped = sum(int((~r.keep).sum()) for r in log.calls)
         choices = sum(r.keep.numel() for r in log.calls)
+        want = ((cfg.n_layers - cfg.moe.first_dense_layers)
+                * len(res["prompts"]) * len(res["prompts"][0])
+                * cfg.moe.top_k)
+        if choices != want:
+            raise SystemExit(f"{arch}: the served prefills routed {choices} "
+                             f"choices, want {want}")
         r0 = log.calls[0]
         print(f"[c] {arch} MoE over the {len(res['batches'])} served "
               f"prefills: {len(log.calls)} routings of groups of "
@@ -3512,15 +3611,23 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
                         group=r0.idx.shape[1] // cfg.moe.top_k,
                         capacity=r0.capacity)
     phase_s = time.perf_counter() - t0
-    print(f"[c] {arch} serve phase: {phase_s:.1f}s")
+    check_peak = torch.cuda.max_memory_allocated()
+    print(f"[c] {arch} serve phase: {phase_s:.1f}s; the path checks' "
+          f"max_memory_allocated_GB={check_peak / 1e9:.2f} (printed)")
     return {"launches": launches,
             "launches_per_forward": launches // len(res["batches"]),
             "prefill_ms": res["prefill_s"] * 1e3,
             "decode_ms_per_token": res["decode_s"] * 1e3
             / res["decode_steps"],
+            "decode_bound_ms": decode_bound_ms,
+            "decode_served_tree_ms": served_ms,
             "latency_ms": [p50, p95, p99], "peak_gb": peak / 1e9,
-            "params": n, "fp32_logit_err": err, "serve_phase_s": phase_s,
-            **moe_keys}
+            "init_peak_gb": marks["init"] / 1e9,
+            "serve_peak_gb": serve_peak / 1e9,
+            "check_peak_gb": check_peak / 1e9,
+            "params": n, "n_layers": cfg.n_layers,
+            "check_tokens": toks.shape[1], "fp32_logit_err": err,
+            "serve_phase_s": phase_s, **moe_keys}
 
 
 def zamba_cache_rel(a, b):
@@ -3737,6 +3844,34 @@ def phase_serve_zamba(torch, ssd_ops, fa_ops, attention, fa_ref, serve):
                          "decode disagree")
     print(f"[c] zamba2 serve phase took {time.perf_counter() - t_phase:.1f}s")
     return (n_ssd, n_ssd // nb), (n_fa, n_fa // nb), figures
+
+
+def decode_step_bytes(model, params, batch, positions):
+    """(bytes, of which the cache's) that one greedy decode step of `batch`
+    sequences must read, each once: every served leaf, except the input
+    embedding (its `batch` rows, where a head of its own gives the logits),
+    the encoder (it ran at the prefill) and a MoE layer's routed experts
+    (the at most batch x top_k of them the step picks: w1, w3 and w2 beside
+    a router); and the cache over `positions` filled positions (a mean over
+    the steps) with its parts of fixed length (an encoder's memory)."""
+    cfg = model.cfg
+    leaves = dict(leaf_items(params))
+    n = 0
+    for path, t in leaves.items():
+        b = t.numel() * t.element_size()
+        head, name = path.rsplit("/", 1)
+        if path == "/embed" and "/head" in leaves:
+            b = batch * t.shape[-1] * t.element_size()
+        elif path.startswith("/enc/"):
+            b = 0
+        elif name in ("w1", "w2", "w3") and head + "/router" in leaves:
+            E = cfg.moe.n_experts
+            b = b * min(E, batch * cfg.moe.top_k) // E
+        n += b
+    one, two = (sum(t.numel() * t.element_size() for _, t in leaf_items(
+        model.init_cache(batch, L, device="meta"))) for L in (1, 2))
+    cache = (one - (two - one)) + (two - one) * positions
+    return n + cache, cache
 
 
 def leaf_items(tree, prefix=""):
@@ -4428,6 +4563,13 @@ def run(where: dict) -> int:
         (28, 1536, 12, 2, 128, 151936), 1_587_965_440)
     gc.collect()
     torch.cuda.empty_cache()
+    for arch, depth, dims, n_params, prefix in LARGE_SERVES:
+        where["phase"] = f"(c) {arch} serve at {depth} layers"
+        row[arch.replace("-", "_").replace(".", "_")] = phase_serve_model(
+            torch, fa_ops, attention, fa_ref, moe, serve, arch, dims,
+            n_params, depth=depth, prefix=prefix)
+        gc.collect()
+        torch.cuda.empty_cache()
     where["phase"] = "(c) whisper-base serve"
     wrow.update(phase_serve_model(
         torch, fa_ops, attention, fa_ref, moe, serve, "whisper-base",

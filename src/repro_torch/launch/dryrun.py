@@ -25,6 +25,7 @@ cell to a size the tests run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -84,6 +85,29 @@ def start_fake_group(world_size: int):
     from torch.testing._internal.distributed.fake_pg import FakeStore
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=world_size)
+
+
+@contextlib.contextmanager
+def _alltoall_as_on_a_card_mesh():
+    """Within: DTensor moves a split from one dim to another with its
+    all-to-all op, as it does on a mesh of cards.  On a CPU mesh it
+    all-gathers instead and keeps its chunk (gloo has no all-to-all), which
+    moves n times the bytes over n devices.  The fake group runs the op as
+    it runs every collective, without moving data."""
+    from torch.distributed.tensor import placement_types
+
+    def alltoall(x, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            x, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    # raises AttributeError where torch no longer routes the move through
+    # this name, rather than patching a name nothing reads
+    cpu_path = getattr(placement_types, "shard_dim_alltoall")
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = cpu_path
 
 
 def _local_bytes(tree) -> int:
@@ -154,7 +178,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, rc: RunConfig,
 
     t0 = time.time()
     counter = counter or Counter()
-    with mesh_context(mesh, rules), implicit_replication(), counter:
+    with mesh_context(mesh, rules), implicit_replication(), \
+            _alltoall_as_on_a_card_mesh(), counter:
         out = step(*args)
     t_run = time.time() - t0
     ana = counter.report()
@@ -216,9 +241,10 @@ def _mesh_shape(args) -> tuple:
     return (2, 16, 16) if args.multi_pod else (16, 16)
 
 
-def run_one(args) -> int:
-    """Starts the fake group, counts the cell, writes its record (with
-    "ok": false and the error if it fails) and destroys the group."""
+def lower_from_args(args, counter: Counter = None) -> dict:
+    """Starts the fake group, counts the one cell the command line names
+    (with `counter`, a fresh `Counter` unless given) and destroys the
+    group; returns the record."""
     rc = RunConfig(remat=args.remat, microbatches=args.microbatches,
                    zero1=not args.no_zero1, param_dtype=args.param_dtype,
                    seq_shard_kv=args.seq_shard_kv,
@@ -229,32 +255,37 @@ def run_one(args) -> int:
                    mla_absorb=args.mla_absorb, moe_group=args.moe_group,
                    remat=args.remat, probs_bf16=args.probs_bf16)
     dims = _mesh_shape(args)
-    mesh_name = "x".join(map(str, dims))
+    start_fake_group(math.prod(dims))
+    try:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+        sh = SHAPES[args.shape]
+        if args.seq_len or args.global_batch:
+            sh = ShapeConfig(sh.name, args.seq_len or sh.seq_len,
+                             args.global_batch or sh.global_batch, sh.mode)
+        mesh = None
+        if args.mesh_shape:
+            from torch.distributed.device_mesh import init_device_mesh
+            names = (("pod", "data", "model") if len(dims) == 3
+                     else ("data", "model"))
+            mesh = init_device_mesh("cpu", dims, mesh_dim_names=names)
+        return lower_cell(args.arch, args.shape, args.multi_pod, rc, opts,
+                          cfg=cfg, shape=sh, mesh=mesh, counter=counter)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_one(args) -> int:
+    """Counts the cell, writes its record (with "ok": false and the error
+    if it fails)."""
+    mesh_name = "x".join(map(str, _mesh_shape(args)))
     out = cell_filename(args.arch, args.shape, mesh_name, args.tag,
                         args.out_dir)
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
     try:
-        start_fake_group(math.prod(dims))
-        try:
-            cfg = get_config(args.arch)
-            if args.reduced:
-                cfg = cfg.reduced()
-            sh = SHAPES[args.shape]
-            if args.seq_len or args.global_batch:
-                sh = ShapeConfig(sh.name, args.seq_len or sh.seq_len,
-                                 args.global_batch or sh.global_batch,
-                                 sh.mode)
-            mesh = None
-            if args.mesh_shape:
-                from torch.distributed.device_mesh import init_device_mesh
-                names = (("pod", "data", "model") if len(dims) == 3
-                         else ("data", "model"))
-                mesh = init_device_mesh("cpu", dims, mesh_dim_names=names)
-            rec = lower_cell(args.arch, args.shape, args.multi_pod, rc, opts,
-                             cfg=cfg, shape=sh, mesh=mesh)
-        finally:
-            dist.destroy_process_group()
+        rec = lower_from_args(args)
     except Exception as e:  # noqa: BLE001 - recorded, not swallowed
         rec = {"arch": args.arch, "shape": args.shape, "mesh": mesh_name,
                "ok": False, "error": f"{type(e).__name__}: {e}",
@@ -341,21 +372,12 @@ def run_all(args) -> int:
     return 1 if fails else 0
 
 
-def parse_args(argv=None):
-    ap = argparse.ArgumentParser(description="production-mesh dry run")
+def cell_parser(description: str) -> argparse.ArgumentParser:
+    """The arguments that name one cell and its knobs."""
+    ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--arch")
     ap.add_argument("--shape", choices=list(SHAPES))
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--all", action="store_true")
-    ap.add_argument("--archs", default="")
-    ap.add_argument("--shapes", default="")
-    ap.add_argument("--meshes", default="both",
-                    choices=["both", "pod", "multipod"])
-    ap.add_argument("--force", action="store_true")
-    ap.add_argument("--tag", default="")
-    ap.add_argument("--out-dir", default="",
-                    help=f"where records go (default {RESULTS_DIR})")
-    ap.add_argument("--cell-timeout", type=int, default=3600)
     # cut a cell to a test's size
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--mesh-shape", default="",
@@ -377,6 +399,21 @@ def parse_args(argv=None):
     ap.add_argument("--mla-absorb", action="store_true")
     ap.add_argument("--probs-bf16", action="store_true")
     ap.add_argument("--shard-params-2d", action="store_true")
+    return ap
+
+
+def parse_args(argv=None):
+    ap = cell_parser("production-mesh dry run")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--archs", default="")
+    ap.add_argument("--shapes", default="")
+    ap.add_argument("--meshes", default="both",
+                    choices=["both", "pod", "multipod"])
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--out-dir", default="",
+                    help=f"where records go (default {RESULTS_DIR})")
+    ap.add_argument("--cell-timeout", type=int, default=3600)
     return ap, ap.parse_args(argv)
 
 

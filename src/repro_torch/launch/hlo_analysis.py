@@ -15,8 +15,9 @@ each op on the local shards, and those calls are counted:
     ops count nothing; an in-place write counts what it writes, so a write
     into a slice (a cache update) counts the slice, not the buffer (the
     reference's dynamic-update-slice rule);
-  * collectives: the output bytes of each `_c10d_functional` op by kind,
-    and their total.
+  * collectives: the output bytes of each `_c10d_functional` op by kind
+    (and of DTensor's own all-to-all, `_dtensor.shard_dim_alltoall`), and
+    their total.
 
 DTensor's sharding propagation runs each op once more on FakeTensors at
 the global shapes; those calls are not counted.  The reference's
@@ -28,6 +29,7 @@ nothing needs correcting for loops counted once.
 from __future__ import annotations
 
 import contextlib
+import re
 import sys
 from collections import defaultdict
 
@@ -47,6 +49,7 @@ _COLL_KIND = {
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all", "broadcast": "collective-permute",
     "broadcast_": "collective-permute",
+    "shard_dim_alltoall": "all-to-all",        # the _dtensor namespace's
 }
 
 _aten = torch.ops.aten
@@ -58,6 +61,9 @@ _NO_BYTES = {_aten.empty.memory_format, _aten.empty_strided.default,
              _aten._local_scalar_dense.default, _aten.set_.source_Storage,
              _aten.resize_.default, _aten.sym_size.int,
              _aten.sym_stride.int, _aten.sym_numel.default}
+# the functional collectives' autograd wrapper and their wait: identities
+# on the tensor the collective wrote
+_NO_BYTES_NAMES = {"_wrap_tensor_autograd", "wait_tensor"}
 # gathers: they read the rows they take, not the table
 _GATHERS = {"index", "index_select", "gather", "embedding"}
 # in-place scatters into `self`: they write what their source holds, not
@@ -83,9 +89,9 @@ def _op_bytes(func, args, kwargs, out) -> int:
     indices and its output twice (the rows read, then written); an
     in-place scatter its source and indices, read, and the source's bytes
     again, written."""
-    if func.is_view or func in _NO_BYTES:
-        return 0
     name = func._schema.name.split("::")[-1]
+    if func.is_view or func in _NO_BYTES or name in _NO_BYTES_NAMES:
+        return 0
     if name in _GATHERS:
         idx = [t for t in tree_leaves((args[1:], kwargs))
                if isinstance(t, torch.Tensor)]
@@ -113,16 +119,32 @@ def _op_bytes(func, args, kwargs, out) -> int:
     return n
 
 
+_MODEL_FRAME = re.compile(r'repro_torch/models/(\w+)\.py", line \d+, in (\w+)')
+
+
 def _model_tag() -> str:
     """The innermost `repro_torch.models` function on the stack, as
-    "module.function" (the reference's op_name metadata)."""
-    f = sys._getframe(2)
+    "module.function" (the reference's op_name metadata).  An op that the
+    backward runs is tagged "bwd:" and the backward node's name, and, where
+    anomaly mode recorded the forward's stack on the node, the innermost
+    model function the forward ran it in.  Any other op is tagged with the
+    innermost function of the port outside this module (the train step,
+    the optimizer), or "-"."""
+    f, outer = sys._getframe(2), None
     while f is not None:
         mod = f.f_globals.get("__name__", "")
         if mod.startswith("repro_torch.models"):
             return f"{mod.rsplit('.', 1)[-1]}.{f.f_code.co_name}"
+        if outer is None and mod.startswith("repro_torch.") \
+                and mod != __name__:
+            outer = f"{mod.rsplit('.', 1)[-1]}.{f.f_code.co_name}"
         f = f.f_back
-    return "-"
+    node = torch._C._current_autograd_node()
+    if node is None:
+        return outer or "-"
+    found = _MODEL_FRAME.findall("".join(node.metadata.get("traceback_", ())))
+    where = f" {found[-1][0]}.{found[-1][1]}" if found else ""
+    return f"bwd:{node.name()}{where}"
 
 
 class Counter(TorchDispatchMode):
@@ -164,7 +186,7 @@ class Counter(TorchDispatchMode):
         nb = _op_bytes(func, args, kwargs, out)
         cb = 0.0
         ns = func.namespace
-        if ns in ("_c10d_functional", "c10d_functional"):
+        if ns in ("_c10d_functional", "c10d_functional", "_dtensor"):
             kind = _COLL_KIND.get(func._schema.name.split("::")[-1])
             if kind is not None:
                 cb = float(sum(_nbytes(t) for t in tree_leaves(out)

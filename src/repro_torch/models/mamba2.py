@@ -131,10 +131,15 @@ def mamba_forward(p, x, cfg, *, initial_state=None, return_state=False,
     B_, S, D = x.shape
     Q = min(s.chunk, S)
     pad = (-S) % Q
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    # On a mesh the fused projection and the conv's output are each
+    # gathered once and split locally: a slice of a split dim gathers the
+    # whole tensor for each piece.  The conv runs split by channels, so
+    # that its backward gathers its input's gradient once, not per piece.
+    zxbcdt = shard_hint(x @ p["in_proj"].to(x.dtype), "batch", None, None)
     z, xin, Bc, Cc, dt = _split_proj(zxbcdt, cfg)
-    xBC, ring = _conv(torch.cat([xin, Bc, Cc], -1), p["conv_w"],
-                      p["conv_b"])
+    xBC = shard_hint(torch.cat([xin, Bc, Cc], -1), "batch", None, "model_ff")
+    xBC, ring = _conv(xBC, p["conv_w"], p["conv_b"])
+    xBC = shard_hint(xBC, "batch", None, None)
     xin, Bc, Cc = (xBC[..., :d_inner], xBC[..., d_inner:d_inner + G * N],
                    xBC[..., d_inner + G * N:])
     xin = shard_hint(xin, "batch", None, "model_ff")

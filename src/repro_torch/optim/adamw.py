@@ -68,10 +68,24 @@ def _slices(x):
     return [flat[i:i + SLICE] for i in range(0, flat.numel(), SLICE)]
 
 
+def _as_moment(g, m):
+    """A DTensor gradient placed as its moment is (ZeRO-1: each device's
+    share of the data axis): a partial sum over the data axis becomes one
+    reduce-scatter, and the norm and the update then run on the shards
+    alone.  A plain tensor as it is."""
+    if not hasattr(g, "device_mesh") or tuple(g.placements) == \
+            tuple(m.placements):
+        return g
+    return g.redistribute(m.device_mesh, m.placements)
+
+
 @torch.no_grad()
 def adamw_update(grads, state: OptState, params, rc):
-    """Returns (params, state, metrics); params, grads and the moments are
-    updated in place."""
+    """Returns (params, state, metrics); params and the moments are updated
+    in place, and so are the gradients, unless they are DTensors placed
+    otherwise than their moments (then their copies placed as the moments
+    are)."""
+    grads = tree_map(_as_moment, grads, state.m)
     if rc.grad_clip:
         grads, gnorm = clip_by_global_norm(grads, rc.grad_clip)
     else:

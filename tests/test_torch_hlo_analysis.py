@@ -226,7 +226,8 @@ import torch, torch.distributed as dist
 import torch.distributed._functional_collectives as funcol
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
-from repro_torch.launch.dryrun import start_fake_group
+from repro_torch.launch.dryrun import (_alltoall_as_on_a_card_mesh,
+                                      start_fake_group)
 from repro_torch.launch.hlo_analysis import analyze
 
 start_fake_group(4)
@@ -243,7 +244,11 @@ try:
         mesh, [Shard(0), Replicate()]))
     t = torch.empty(32, 8, device="meta")
     ar = analyze(lambda: funcol.all_reduce(t, "sum", (mesh, 1)))
-    print(json.dumps({"mlp": mlp, "ar": ar}))
+    y = distribute_tensor(torch.empty(64, 32, device="meta"), mesh,
+                          [Shard(0), Replicate()])
+    with _alltoall_as_on_a_card_mesh():
+        a2a = analyze(lambda: y.redistribute(mesh, [Shard(1), Replicate()]))
+    print(json.dumps({"mlp": mlp, "ar": ar, "a2a": a2a}))
 finally:
     dist.destroy_process_group()
 """
@@ -273,6 +278,15 @@ def test_all_reduce_counts_its_output(on_mesh):
     coll = on_mesh["ar"]["collectives"]
     assert coll["all-reduce"] == 32 * 8 * 4
     assert coll["total"] == coll["total_bf16_corrected"] == 32 * 8 * 4
+
+
+def test_a_split_to_split_move_counts_as_an_all_to_all(on_mesh):
+    """The dry run's patch is live: a Shard(0) -> Shard(1) move over the
+    data axis is DTensor's all-to-all, its output (64, 32 / 2) fp32 a
+    device, and no all-gather."""
+    coll = on_mesh["a2a"]["collectives"]
+    assert coll["all-to-all"] == 64 * 16 * 4, coll
+    assert coll["total"] == 64 * 16 * 4 and not coll.get("all-gather"), coll
 
 
 def test_a_served_prefill_counts_the_same_on_the_cpu_and_on_meta():
