@@ -173,10 +173,10 @@ Phases; any failure exits non-zero:
       MoE's dropped choices over the served prefills, prefill ms, decode
       ms a token, p50/p95/p99, the peak memory (held under 80 GB).  Then
       the same traffic and checks through the three largest configs at
-      full width and cut depth (LARGE_SERVES, the depth set by patching
-      `launch.serve.get_config`): qwen2.5-32b at 32 of 64 layers (40 query
-      heads padded to 48 on 8 K/V heads, QKV bias), deepseek-67b at 24 of
-      95 and arctic-480b at 1 of 35 (128 experts top-2 beside its dense
+      full width (LARGE_SERVES, a cut depth set by patching
+      `launch.serve.get_config`): qwen2.5-32b whole, at all 64 layers (40
+      query heads padded to 48 on 8 K/V heads, QKV bias), deepseek-67b at
+      47 of 95 and arctic-480b at 1 of 35 (128 experts top-2 beside its dense
       residual; its kernel-vs-plain prefill on the first
       ARCTIC_CHECK_PREFIX tokens of the first prompt, its routing pinned
       where the paths choose differently, its dropped choices counted over
@@ -231,10 +231,20 @@ Phases; any failure exits non-zero:
       no more than its largest leaf), its losses are finite; step 4's
       params restored again onto a 1x1 mesh on the card with the port's
       `param_specs` (DTensors with their specs' placements, bit for bit);
-      (c) `python -m repro_torch.launch.dryrun --arch gemma2-2b --shape
-      decode_32k` in a subprocess (a fake group of 256 ranks on the CPU):
-      it must end ok within 120 s, its roofline terms and seconds printed;
-      then the four new checks' seconds and their total;
+      (c) full-width gemma2-2b at 2 layers (its 256000 x 2304 fp32
+      embedding, 2.36 GB, a leaf past 2^31 bytes) trained 1 step at batch
+      2 x 1024 and saved, then --resume one step further: held as the
+      reduced run, and the resumed step's loss and grad norm against the
+      saving run's state carried one step further on the same batch; the
+      checkpoint's bytes and its save's and restore's seconds printed, the
+      checkpoint deleted; beside it, on the CPU, the dry-run cells
+      (DRYRUN_CELLS: `python -m repro_torch.launch.dryrun` subprocesses,
+      gemma2-2b x decode_32k on a fake 16x16 mesh, the reduced zamba2-2.7b
+      prefill_32k and train_4k cells on a fake 2x2 mesh): each must end ok
+      within 120 s, its per-device FLOPs, bytes and collectives, roofline
+      terms and seconds printed; then the seconds of the three large
+      serves and of the full-width resume with the dry-run cells, and their
+      total;
   (d) last lines: the card, a JSON line of per-kernel results (flash
       attention once per path; A^T B at the ladder's top, with every shape
       it was held at; the WKV row with its stages' ms, scratch bytes,
@@ -250,8 +260,9 @@ Phases; any failure exits non-zero:
       mpi_list, mesh_ops_ms, elastic, run_pool, metg_schedulers (the tree
       rows' mean us a hop, hop_us, in front_door); the gemma2 flash row's
       pmake campaigns, campaign, and its served run's observability,
-      serve_obs (with the analysed prefill, analysis), and the dry run's
-      cell, dryrun; the flash row with the served figures and the two
+      serve_obs (with the analysed prefill, analysis), the dry run's
+      cells, dryrun, and the full-width resume, resume_full; the flash row
+      with the served figures and the two
       profiles, serve; a third flash row, whisper-base's: its encoder
       shape's figures, cross, decoder, fp32, probs_bf16, grad_cross, its
       serve's launches and figures and its training's train_* keys; the
@@ -326,13 +337,19 @@ VLH, VLG, VLHD = 16, 2, 128
 # qwen2.5-32b's: 40 query heads padded to 48 on 8 K/V heads of 128 (GQA
 # ratio 6); deepseek-67b's 64 and arctic-480b's 56 padded to 64, on 8
 QWH, DS67H, BIGG, BIGHD = 48, 64, 8, 128
-# The three largest configs, served at full width and cut depth.  Each
-# depth keeps init_serving_params' peak, the served bf16 tree plus the
-# largest leaf drawn in fp32, under the card's 80 GB: 53.1, 53.9 and 46.0
-# GB.  arctic-480b at 2 layers would need 91.1 GB (a 55.4 GB tree and a
-# 35.7 GB fp32 expert stack).  tests/test_torch_large_configs.py counts
+# The three largest configs at full width.  init_serving_params fills each
+# stacked leaf a matrix at a time, so its peak is the served tree plus one
+# fp32 matrix (the embedding or the head); the serve and the path checks
+# then need a few GB beside the tree.  qwen2.5-32b is served whole, at all
+# 64 layers (a 66.87 GB tree; its phase peaked at 74.58 GB, the path
+# checks').  deepseek-67b at the deepest depth whose phase peak leaves 4 GB
+# of the card's 80 free: the path checks peaked at 76.67 GB at 48 layers
+# (a 69.80 GB tree), so 47 (68.41 GB; 1.384 GB a layer).
+# arctic-480b stays at 1 layer: its padded MoE dispatch needs 31.45 GB
+# beside the tree at 4200 tokens (on an H100 80GB), which 2 layers' 55.4
+# GB tree would push past 80.  tests/test_torch_large_configs.py counts
 # these on meta.
-QWEN32_LAYERS, DS67_LAYERS, ARCTIC_LAYERS = 32, 24, 1
+QWEN32_LAYERS, DS67_LAYERS, ARCTIC_LAYERS = 64, 47, 1
 # arctic's kernel-vs-plain prefill runs on this prefix of the first served
 # prompt.  At all 4200 tokens the fp32 pass alone would cross 80 GB: the
 # padded dispatch's 525 groups x 128 experts x 8 slots hold 15.4 GB of
@@ -344,9 +361,9 @@ ARCTIC_CHECK_PREFIX = 1024
 # parameters at that depth, the kernel-vs-plain prefill's prefix or None)
 LARGE_SERVES = (
     ("qwen2.5-32b", QWEN32_LAYERS,
-     (QWEN32_LAYERS, 5120, 40, 8, 128, 152064), 17_496_085_504, None),
+     (QWEN32_LAYERS, 5120, 40, 8, 128, 152064), 33_435_030_528, None),
     ("deepseek-67b", DS67_LAYERS,
-     (DS67_LAYERS, 8192, 64, 8, 128, 102400), 18_287_566_848, None),
+     (DS67_LAYERS, 8192, 64, 8, 128, 102400), 34_205_327_360, None),
     ("arctic-480b", ARCTIC_LAYERS,
      (ARCTIC_LAYERS, 7168, 56, 8, 128, 32000), 14_084_625_408,
      ARCTIC_CHECK_PREFIX),
@@ -357,7 +374,21 @@ LARGE_SERVES = (
 # dropped key block would (those move them by O(0.1) and more)
 DS_FP32_LOGIT_TOL = 1e-3
 FP32_TOL = 1e-4       # fp32 output vs plain version: summation order only
-DRYRUN_TIMEOUT_S = 120   # the gemma2-2b x decode_32k dry-run cell
+# (arch, shape, mesh, arguments) of the dry-run cells, each a subprocess
+# on the CPU: gemma2-2b's decode on the production 16x16 mesh, and zamba2's
+# reduced prefill and train cells of tests/test_torch_dryrun.py on a 2x2
+# mesh, which raised on torch 2.11 until DTensor's pad rule was bypassed
+# (models.common.zero_pad); each ends ok within DRYRUN_TIMEOUT_S
+_REDUCED_2X2 = ["--reduced", "--mesh-shape", "2x2", "--seq-len", "32",
+                "--global-batch", "4", "--q-block", "16", "--kv-block", "16",
+                "--moe-group", "64"]
+DRYRUN_CELLS = (
+    ("gemma2-2b", "decode_32k", "16x16", []),
+    ("zamba2-2.7b", "prefill_32k", "2x2", _REDUCED_2X2),
+    ("zamba2-2.7b", "train_4k", "2x2",
+     _REDUCED_2X2 + ["--remat", "full", "--microbatches", "2"]),
+)
+DRYRUN_TIMEOUT_S = 120
 MESH_ON_MESH_ROWS = 1 << 22   # the DFM bridge's rows on a 1x1 mesh
 BF16_ATOL = 1e-5      # bf16 output: one rounding of the fp32 result, see below
 LOGIT_TOL = 0.15               # prefill logits, kernel path vs plain path
@@ -421,6 +452,17 @@ RWKV_TRAIN_ARGV = ["--arch", "rwkv6-1.6b"] + GEMMA_TRAIN_ARGV[2:]
 # gemma2 step 1 with --remat full against the run without: the same ops
 # rerun, so only the order cuBLAS and the kernels sum in could differ
 REMAT_LOSS_TOL, REMAT_NORM_TOL = 1e-5, 1e-3
+# the full-width resume: gemma2-2b at 2 layers, batch 2 x 1024, one step
+# saved, then resumed one step.  The resumed step runs the same ops as the
+# saving run's own next step, on bit-equal params and moments and the same
+# batch: the forward's loss may differ only if a sum's order did, which
+# the forward never changes; the backward's grad norm by the order of its
+# atomic sums (the embedding's gradient)
+RESUME_SEQ, RESUME_BATCH = 1024, 2
+RESUME_ARGV = ["--arch", "gemma2-2b", "--no-reduced", "--layers", "2",
+               "--global-batch", str(RESUME_BATCH), "--seq", str(RESUME_SEQ),
+               "--device", "cuda"]
+RESUME_LOSS_TOL, RESUME_NORM_TOL = 1e-6, 1e-5
 # A^T B as (K, M, N): the JAX kernel sweep (tests/test_kernels.py:18-29), a
 # ragged shape, and the METG ladder's squares (launch/metg.py)
 MATMUL_SWEEP = [(256, 256, 256), (512, 256, 384), (384, 128, 512),
@@ -2197,44 +2239,69 @@ def mesh_ops_on_mesh(torch, mo, x, dest, tree):
     return secs
 
 
-def phase_dryrun():
-    """`python -m repro_torch.launch.dryrun --arch gemma2-2b --shape
-    decode_32k` as a subprocess (a fake group of 256 ranks on the CPU):
-    it must end ok within DRYRUN_TIMEOUT_S; prints its roofline terms (counts
-    over the H100 data-sheet rates, not times measured on the card) and
-    its seconds."""
+def start_dryrun():
+    """The DRYRUN_CELLS as subprocesses of `python -m
+    repro_torch.launch.dryrun` (each a fake group on the CPU), all started
+    together: {cell: (process, its record's path, start time)}."""
     out_dir = ROOT / "build" / "chip_dryrun"
-    rec_path = out_dir / "gemma2-2b__decode_32k__16x16.json"
-    if rec_path.exists():
-        rec_path.unlink()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    try:
-        r = subprocess.run(
+    procs = {}
+    for arch, shape, mesh, args in DRYRUN_CELLS:
+        rec_path = out_dir / f"{arch}__{shape}__{mesh}.json"
+        if rec_path.exists():
+            rec_path.unlink()
+        procs[arch, shape, mesh] = (subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "gemma2-2b", "--shape", "decode_32k", "--out-dir",
-             str(out_dir)], env=env, capture_output=True, text=True,
-            timeout=DRYRUN_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        raise SystemExit(f"the dry run did not end within "
-                         f"{DRYRUN_TIMEOUT_S} s") from None
-    secs = time.perf_counter() - t0
-    rec = json.loads(rec_path.read_text()) if rec_path.exists() else {}
-    print(f"[c] dry run gemma2-2b x decode_32k on a fake 16x16 mesh: "
-          f"ok={rec.get('ok')} rc={r.returncode} in {secs:.1f}s (the cell "
-          f"itself {rec.get('seconds')}s); per device flops="
-          f"{rec.get('hlo_flops_per_device')} hbm_bytes="
-          f"{rec.get('hlo_bytes_per_device')} collective bytes="
-          f"{rec.get('collective_bytes', {}).get('total')}; roofline terms "
-          f"(counts over H100 SXM data-sheet rates) {rec.get('roofline')}; "
-          f"error {rec.get('error')}")
-    if r.returncode != 0 or rec.get("ok") is not True:
-        print(r.stderr[-3000:], file=sys.stderr)
-        raise SystemExit(f"the dry run failed: {rec.get('error')}")
-    return {"seconds": secs, "roofline": rec["roofline"],
+             arch, "--shape", shape, *args, "--out-dir", str(out_dir)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True), rec_path, time.perf_counter())
+    return procs
+
+
+def phase_dryrun(procs):
+    """The dry-run cells `start_dryrun` started: each must end ok within
+    DRYRUN_TIMEOUT_S of its start; prints each cell's per-device FLOPs,
+    HBM bytes and collective bytes, its roofline terms (counts over the
+    H100 data-sheet rates, not times measured on the card) and its
+    seconds.  Returns {cell name: its figures}."""
+    out, failed = {}, []
+    for (arch, shape, mesh), (p, rec_path, t0) in procs.items():
+        try:
+            _, err = p.communicate(
+                timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter()
+                                                     - t0)))
+        except subprocess.TimeoutExpired:
+            for q, _, _ in procs.values():
+                q.kill()
+                q.communicate()
+            raise SystemExit(f"the dry run of {arch} x {shape} on {mesh} "
+                             f"did not end within {DRYRUN_TIMEOUT_S} s") \
+                from None
+        secs = time.perf_counter() - t0
+        rec = json.loads(rec_path.read_text()) if rec_path.exists() else {}
+        coll = rec.get("collective_bytes", {})
+        print(f"[c] dry run {arch} x {shape} on a fake {mesh} mesh: "
+              f"ok={rec.get('ok')} rc={p.returncode}, collected {secs:.1f}s "
+              f"after its start (the cell itself {rec.get('seconds')}s); per "
+              f"device flops="
+              f"{rec.get('hlo_flops_per_device')} hbm_bytes="
+              f"{rec.get('hlo_bytes_per_device')} collective bytes="
+              f"{coll.get('total')} "
+              f"{ {k: v for k, v in coll.items() if 'total' not in k} }; "
+              f"roofline terms (counts over H100 SXM data-sheet rates) "
+              f"{rec.get('roofline')}; error {rec.get('error')}")
+        if p.returncode != 0 or rec.get("ok") is not True:
+            print(err[-3000:], file=sys.stderr)
+            failed.append(f"{arch} x {shape}: {rec.get('error')}")
+            continue
+        out[f"{arch}__{shape}__{mesh}"] = {
+            "seconds": secs, "roofline": rec["roofline"],
             "flops_per_device": rec["hlo_flops_per_device"],
             "bytes_per_device": rec["hlo_bytes_per_device"],
-            "collective_bytes": rec["collective_bytes"]["total"]}
+            "collective_bytes": coll["total"]}
+    if failed:
+        raise SystemExit(f"the dry run failed: {failed}")
+    return out
 
 
 def phase_elastic(torch, mm_ops, metg, card, dev="cuda"):
@@ -3418,7 +3485,8 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
     memory (held under 80 GB; the init's and the serve's apart) and, for a
     MoE model, the choices dropped over the served prefills (every token's
     k choices in every MoE layer counted), and the phase's seconds with the
-    path checks' peak memory."""
+    path checks' peak memory (also held under 80 GB) and what the phase's
+    peak leaves free of 80 GB."""
     torch.cuda.reset_peak_memory_stats()
     fa_ops.flash_attention.launches = 0
     init, marks = serve.init_serving_params, {}
@@ -3613,7 +3681,12 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
     phase_s = time.perf_counter() - t0
     check_peak = torch.cuda.max_memory_allocated()
     print(f"[c] {arch} serve phase: {phase_s:.1f}s; the path checks' "
-          f"max_memory_allocated_GB={check_peak / 1e9:.2f} (printed)")
+          f"max_memory_allocated_GB={check_peak / 1e9:.2f}; the phase's peak "
+          f"{max(peak, check_peak) / 1e9:.2f} GB leaves "
+          f"{(80e9 - max(peak, check_peak)) / 1e9:.2f} of 80 free")
+    if check_peak >= 80e9:
+        raise SystemExit(f"{arch}: the path checks' peak memory "
+                         f"{check_peak / 1e9:.2f} GB")
     return {"launches": launches,
             "launches_per_forward": launches // len(res["batches"]),
             "prefill_ms": res["prefill_s"] * 1e3,
@@ -4306,6 +4379,64 @@ def ckpt_onto_mesh(torch, d, step):
     return secs
 
 
+def same_bytes(torch, t, arr) -> bool:
+    """Tensor `t` holds exactly the bytes of numpy array `arr`."""
+    a = t.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+    return np.array_equal(a, np.ascontiguousarray(arr).reshape(-1)
+                          .view(np.uint8))
+
+
+def restore_spy(torch, ckpt, calls: list):
+    """A stand-in for `ckpt.restore` that calls it and appends to `calls`,
+    for each call: the restored leaves' keys, the step's arrays.npz keys,
+    the leaves not on the card or not equal to arrays.npz bit for bit,
+    whether the restore wrote into the template's tensors (in place), how
+    far the allocated device memory grew during it, the largest leaf's
+    bytes and the restore's seconds.  The leaves are compared as soon as
+    they are restored: the train step then updates them in place."""
+    real = ckpt.restore
+
+    def spy(directory, step, template, **kw):
+        items = list(ckpt._items(template))
+        ptrs = [t.data_ptr() for _, t in items]
+        largest = max(t.numel() * t.element_size() for _, t in items)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree = real(directory, step, template, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        grown = torch.cuda.max_memory_allocated() - before
+        items = list(ckpt._items(tree))
+        with np.load(Path(directory) / f"step_{step:08d}"
+                     / "arrays.npz") as data:
+            files = sorted(data.files)
+            diff = [k for k, t in items if t.device.type != "cuda"
+                    or k not in files or not same_bytes(torch, t, data[k])]
+        calls.append({
+            "keys": sorted(k for k, _ in items), "files": files,
+            "diff": diff, "in_place": tree is template
+            and [t.data_ptr() for _, t in items] == ptrs,
+            "grown": grown, "largest": largest, "seconds": secs})
+        return tree
+
+    return spy
+
+
+def restore_checks(got: dict, what: str):
+    """Fails unless the restore `restore_spy` recorded put every leaf of
+    the checkpoint on the card bit for bit, wrote in place and grew the
+    allocated device memory by no more than the largest leaf."""
+    if got["diff"] or got["keys"] != got["files"]:
+        raise SystemExit(f"{what}: restored leaves differ from the "
+                         f"checkpoint: {got['diff']}")
+    if not got["in_place"] or got["grown"] > got["largest"]:
+        raise SystemExit(f"{what}: restore did not write into the run's "
+                         f"tensors in place, or allocated more than one leaf "
+                         f"on the card")
+
+
 def phase_ckpt(torch, train):
     """Reduced gemma2-2b on the card, 4 steps saving every 2 into a
     temporary directory under build/, then --resume --steps 6: the run
@@ -4316,27 +4447,6 @@ def phase_ckpt(torch, train):
     are finite."""
     from repro_torch.checkpoint import ckpt
     restored = []
-    real_restore = ckpt.restore
-
-    def spy(directory, step, template, **kw):
-        items = list(ckpt._items(template))
-        ptrs = [t.data_ptr() for _, t in items]
-        largest = max(t.numel() * t.element_size() for _, t in items)
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        tree = real_restore(directory, step, template, **kw)
-        torch.cuda.synchronize()
-        items = list(ckpt._items(tree))
-        restored.append({   # the train step then updates the tree in place
-            "leaves": [(k, t.device.type, t.detach().cpu().clone())
-                       for k, t in items],
-            "in_place": tree is template
-            and [t.data_ptr() for _, t in items] == ptrs,
-            "grown": torch.cuda.max_memory_allocated() - before,
-            "largest": largest})
-        return tree
-
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         argv = ["--arch", "gemma2-2b", "--reduced", "--global-batch", "2",
@@ -4344,37 +4454,137 @@ def phase_ckpt(torch, train):
                 "--device", "cuda"]
         train.main(argv + ["--steps", "4"])
         out = io.StringIO()
-        with mock.patch.object(ckpt, "restore", spy), \
+        with mock.patch.object(ckpt, "restore",
+                               restore_spy(torch, ckpt, restored)), \
                 contextlib.redirect_stdout(out):
             res = train.main(argv + ["--steps", "6", "--resume"])
         print(out.getvalue(), end="")
-        got = restored[0]
-        with np.load(Path(d) / "step_00000004" / "arrays.npz") as data:
-            files = sorted(data.files)
-            diff = [k for k, dev, t in got["leaves"]
-                    if dev != "cuda" or t.numpy().tobytes()
-                    != data[k].tobytes()]
         n_saved = sorted(p.name for p in Path(d).glob("step_*"))
-        mesh_s = ckpt_onto_mesh(torch, d, 4)
+        ckpt_onto_mesh(torch, d, 4)
+    got = restored[0]
     said = "[train] resumed from step 4" in out.getvalue()
-    n = len(got["leaves"])
+    n = len(got["keys"])
     print(f"[c] checkpoint on the card: resumed={said}; {n} leaves restored "
-          f"onto the card, {n - len(diff)} equal to step 4's arrays.npz bit "
-          f"for bit; in place: {got['in_place']}; allocated device memory "
-          f"grew by {got['grown']} B during the restore (largest leaf "
-          f"{got['largest']} B); resumed losses "
+          f"onto the card, {n - len(got['diff'])} equal to step 4's "
+          f"arrays.npz bit for bit; in place: {got['in_place']}; allocated "
+          f"device memory grew by {got['grown']} B during the restore "
+          f"(largest leaf {got['largest']} B); resumed losses "
           f"{[round(x, 4) for x in res['losses']]}; steps kept {n_saved}")
     if not said or res["start_step"] != 4 or len(res["losses"]) != 2:
         raise SystemExit("the run did not resume from step 4")
-    if diff or sorted(k for k, _, _ in got["leaves"]) != files:
-        raise SystemExit(f"restored leaves differ from the checkpoint: "
-                         f"{diff}")
-    if not got["in_place"] or got["grown"] > got["largest"]:
-        raise SystemExit("restore did not write into the run's tensors in "
-                         "place, or allocated more than one leaf on the card")
+    restore_checks(got, "checkpoint")
     if not np.isfinite(res["losses"]).all():
         raise SystemExit("non-finite loss after the resume")
-    return mesh_s
+
+
+def phase_resume_full(torch, train):
+    """Full-width gemma2-2b (d_model 2304, the 256000-row tied embedding:
+    a 2.36 GB fp32 leaf, past 2^31 bytes) at RESUME_ARGV's 2 layers: one
+    step saved into a directory under build/ (the checkpoint: fp32 params
+    and both AdamW moments), then --resume --steps 2 (its own save of the
+    last step skipped).  Held as phase_ckpt
+    holds its reduced run (it resumed; every leaf restored onto the card
+    equal to arrays.npz bit for bit; in place; the device memory grown by
+    no more than the largest leaf; a finite loss), and the resumed step's
+    loss and grad norm against the saving run's own state carried one step
+    further by the same train step on the same batch (the pipeline's first:
+    a resumed run is fed the first batches again, ROADMAP Queue 3), within
+    RESUME_LOSS_TOL and RESUME_NORM_TOL.  Prints the checkpoint's bytes and
+    the seconds of its save (the device-to-host copy, then the write) and
+    of its restore; the directory is deleted at the end.  Returns the
+    phase's figures."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.runtime.train_step import make_train_step
+    t_phase = time.perf_counter()
+    restored, skipped, saves = [], [], {"copy_s": [], "write_s": []}
+    copy, write = ckpt.AsyncCheckpointer.save, ckpt.save
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            saves[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(dir=ROOT / "build", prefix="resume_full_")
+    try:
+        argv = RESUME_ARGV + ["--ckpt-dir", d, "--ckpt-every", "1"]
+        with mock.patch.object(ckpt.AsyncCheckpointer, "save",
+                               timed("copy_s", copy)), \
+                mock.patch.object(ckpt, "save", timed("write_s", write)):
+            first = train.main(argv + ["--steps", "1"])
+        step_dir = Path(d) / "step_00000001"
+        nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        out = io.StringIO()
+        # --ckpt-dir saves a run's last step too; the resumed run's save of
+        # step 2 (another 9 GB, ~18 s) is skipped: the check reads step 1's
+        with mock.patch.object(ckpt, "restore",
+                               restore_spy(torch, ckpt, restored)), \
+                mock.patch.object(ckpt.AsyncCheckpointer, "save",
+                                  lambda self, step, *a, **k:
+                                  skipped.append(step)), \
+                contextlib.redirect_stdout(out):
+            res = train.main(argv + ["--steps", "2", "--resume"])
+        print(out.getvalue(), end="")
+        n_saved = sorted(p.name for p in Path(d).glob("step_*"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    # the saving run's state, one step further on the batch the resumed
+    # step was fed
+    model, rc = first["model"], res["rc"]
+    batch = next(Pipeline(model.cfg.vocab_size, RESUME_SEQ, RESUME_BATCH,
+                          seed=rc.seed).batches(1))
+    _, _, m = make_train_step(model, rc)(
+        first["params"], first["opt_state"],
+        train.to_device(batch, "cuda", model.cfg))
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    got, rec = restored[0], res["records"][0]
+    said = "[train] resumed from step 1" in out.getvalue()
+    loss_rel = abs(rec["loss"] - loss) / abs(loss)
+    norm_rel = abs(rec["grad_norm"] - norm) / norm
+    big = max(t.numel() * t.element_size() for _, t in leaf_items(
+        res["params"]))
+    n = len(got["keys"])
+    save_s = saves["copy_s"][0] + saves["write_s"][0]
+    phase_s = time.perf_counter() - t_phase
+    print(f"[c] full-width checkpoint on the card (gemma2-2b, "
+          f"{res['model'].cfg.n_layers} layers, d_model "
+          f"{res['model'].cfg.d_model}, {first['records'][0]['step']} step "
+          f"saved): {nbytes / 1e9:.3f} GB on disk, saved in "
+          f"{save_s:.1f}s (device to host {saves['copy_s'][0]:.1f}s, write "
+          f"{saves['write_s'][0]:.1f}s), restored in {got['seconds']:.1f}s "
+          f"(the resumed run's saves of steps {skipped} skipped); "
+          f"resumed={said}; {n} leaves "
+          f"restored "
+          f"onto the card, {n - len(got['diff'])} equal to arrays.npz bit "
+          f"for bit, the largest {got['largest']} B (params' largest "
+          f"{big} B); in place: {got['in_place']}; allocated device memory "
+          f"grew by {got['grown']} B during the restore; resumed step 2 loss "
+          f"{rec['loss']:.6f} vs {loss:.6f} uninterrupted (rel "
+          f"{loss_rel:.2e}, tol {RESUME_LOSS_TOL:.0e}), grad norm "
+          f"{rec['grad_norm']:.6f} vs {norm:.6f} (rel {norm_rel:.2e}, tol "
+          f"{RESUME_NORM_TOL:.0e}); steps kept {n_saved}; phase "
+          f"{phase_s:.1f}s")
+    if not said or res["start_step"] != 1 or len(res["losses"]) != 1 \
+            or len(saves["write_s"]) != 1 or skipped != [2]:
+        raise SystemExit("the full-width run did not save step 1 once and "
+                         "resume from it")
+    restore_checks(got, "full-width checkpoint")
+    if got["largest"] < 1 << 31:
+        raise SystemExit(f"the largest restored leaf has {got['largest']} "
+                         f"B, not past 2^31")
+    if not np.isfinite(res["losses"]).all():
+        raise SystemExit("non-finite loss after the full-width resume")
+    if loss_rel > RESUME_LOSS_TOL or norm_rel > RESUME_NORM_TOL:
+        raise SystemExit("the resumed step differs from the uninterrupted "
+                         "run's")
+    return {"ckpt_bytes": nbytes, "save_s": save_s,
+            "restore_s": got["seconds"],
+            "largest_leaf_bytes": got["largest"], "loss": rec["loss"],
+            "loss_uninterrupted": loss, "phase_s": phase_s}
 
 
 def phase_train_model(torch, fa_ops, train, argv, name, dims, n_params,
@@ -4563,11 +4773,14 @@ def run(where: dict) -> int:
         (28, 1536, 12, 2, 128, 151936), 1_587_965_440)
     gc.collect()
     torch.cuda.empty_cache()
+    new_s = {}      # the seconds of the large serves and the full resume
     for arch, depth, dims, n_params, prefix in LARGE_SERVES:
         where["phase"] = f"(c) {arch} serve at {depth} layers"
-        row[arch.replace("-", "_").replace(".", "_")] = phase_serve_model(
+        key = arch.replace("-", "_").replace(".", "_")
+        row[key] = phase_serve_model(
             torch, fa_ops, attention, fa_ref, moe, serve, arch, dims,
             n_params, depth=depth, prefix=prefix)
+        new_s[f"{arch} serve"] = row[key]["serve_phase_s"]
         gc.collect()
         torch.cuda.empty_cache()
     where["phase"] = "(c) whisper-base serve"
@@ -4631,12 +4844,23 @@ def run(where: dict) -> int:
                                                             train)
     wkv_row.update(keys)
     where["phase"] = "(c) checkpoint on the card"
-    new_s = {"ckpt_onto_mesh": phase_ckpt(torch, train)}
-    new_s["serve_analysis"] = row["serve_obs"]["analysis"]["seconds"]
-    new_s["mesh_ops_on_mesh"] = mm_row["mesh_ops_ms"].pop("mesh_s")
-    where["phase"] = "(c) the dry run of gemma2-2b x decode_32k"
-    row["dryrun"] = phase_dryrun()
-    new_s["dryrun"] = row["dryrun"]["seconds"]
+    phase_ckpt(torch, train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the dry-run cells run on the CPU beside the full-width resume, which
+    # waits mostly on the disk
+    where["phase"] = "(c) full-width checkpoint and resume, the dry-run cells"
+    t0 = time.perf_counter()
+    dryrun = start_dryrun()
+    try:
+        row["resume_full"] = phase_resume_full(torch, train)
+    except BaseException:
+        for p, _, _ in dryrun.values():
+            p.kill()
+            p.communicate()
+        raise
+    row["dryrun"] = phase_dryrun(dryrun)
+    new_s["resume_full and the dry-run cells"] = time.perf_counter() - t0
     print(f"[c] new phases' seconds: "
           + ", ".join(f"{k} {v:.1f}" for k, v in new_s.items())
           + f"; total {sum(new_s.values()):.1f}s")

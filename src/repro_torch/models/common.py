@@ -142,6 +142,25 @@ def write_at(dst, index: tuple, src):
     dst.to_local()[tuple(di)] = src_l[tuple(si)]
 
 
+def zero_pad(x, pad):
+    """F.pad(x, pad) with zeros.  On a DTensor each shard is padded on its
+    own (DTensor's own rule for the pad raises an IndexError in its
+    redistribution on torch 2.11), so a padded dim must not be split."""
+    if not hasattr(x, "device_mesh"):
+        return F.pad(x, pad)
+    from torch.distributed.tensor import DTensor
+    shape = list(x.shape)
+    for i, n in enumerate(pad):
+        shape[-1 - i // 2] += n
+    padded = {x.dim() - 1 - i // 2 for i, n in enumerate(pad) if n}
+    if any(p.is_shard() and p.dim in padded for p in x.placements):
+        raise ValueError(f"zero_pad: {pad} on a dim split by {x.placements}")
+    return DTensor.from_local(
+        F.pad(x.to_local(), pad), x.device_mesh, x.placements,
+        run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def write_rows(cache, new, positions):
     """cache[b, positions[b]] = new[b] for every row b, in place: a decode
     step's entry (new (B, ...)) into a cache (B, T, ...).  On a DTensor
@@ -185,9 +204,9 @@ _on_draw = None        # see `on_draw`
 
 @contextlib.contextmanager
 def on_draw(fn):
-    """Within: each tensor that dense_init and embed_init draw is passed,
-    in draw order, through fn, which returns the tensor to keep (so a
-    caller can cast each matrix as soon as it is drawn)."""
+    """Within: dense_init and embed_init ask fn(shape, device), once a leaf
+    and in draw order, for the empty leaf to fill (by default fp32), so a
+    caller can keep each matrix in another dtype, cast as it is drawn."""
     global _on_draw
     prev, _on_draw = _on_draw, fn
     try:
@@ -196,25 +215,47 @@ def on_draw(fn):
         _on_draw = prev
 
 
-def _drawn(t):
-    return t if _on_draw is None else _on_draw(t)
+def _fill(leaf, draw):
+    """Fills `leaf` a matrix (its last two dims) at a time, each drawn in
+    fp32 by draw(t), in place, and cast into the leaf if it is not fp32: a
+    stacked (L, ...) leaf is never drawn whole in fp32, so the init's peak
+    is its tree plus one fp32 matrix."""
+    if leaf.dim() > 2:
+        for m in leaf.unbind(0):
+            _fill(m, draw)
+    elif leaf.dtype == torch.float32:
+        draw(leaf)
+    else:
+        leaf.copy_(draw(torch.empty(leaf.shape, device=leaf.device,
+                                     dtype=torch.float32)))
+
+
+def _leaf(shape, device, draw):
+    leaf = (torch.empty(shape, device=device, dtype=torch.float32)
+            if _on_draw is None
+            else _on_draw(tuple(shape), device))
+    _fill(leaf, draw)
+    return leaf
 
 
 def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
-               device="cuda", dtype=torch.float32):
+               device="cuda"):
     """Truncated-normal (+-2 sigma) fan-in init. `shape` may include a leading
     stack dim — pass `in_axis_size` explicitly for stacked weights."""
     fan_in = in_axis_size if in_axis_size is not None else shape[-2]
-    t = torch.empty(shape, device=device, dtype=torch.float32)
-    # inverse-CDF sampling of a normal truncated to [-2, 2]
-    t.uniform_(_TRUNC_LO, -_TRUNC_LO, generator=gen)
-    t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
-    return _drawn(t.mul_(1.0 / math.sqrt(fan_in)).to(dtype))
+
+    def draw(t):
+        # inverse-CDF sampling of a normal truncated to [-2, 2]
+        t.uniform_(_TRUNC_LO, -_TRUNC_LO, generator=gen)
+        t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+        return t.mul_(1.0 / math.sqrt(fan_in))
+
+    return _leaf(shape, device, draw)
 
 
-def embed_init(gen: torch.Generator, shape, device="cuda", dtype=torch.float32):
-    t = torch.empty(shape, device=device, dtype=torch.float32)
-    return _drawn(t.normal_(0.0, 0.02, generator=gen).to(dtype))
+def embed_init(gen: torch.Generator, shape, device="cuda"):
+    return _leaf(shape, device,
+                 lambda t: t.normal_(0.0, 0.02, generator=gen))
 
 
 def zeros_init(shape, device="cuda", dtype=torch.float32):

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
 from repro_torch.models.common import (dense_init, ones_init, rms_norm,
-                                       shard_hint, zeros_init)
+                                       shard_hint, zero_pad, zeros_init)
 
 
 def dims(cfg):
@@ -78,7 +78,7 @@ def _conv(xBC, w, b, conv_state=None):
     if conv_state is not None:
         full = torch.cat([conv_state.to(xBC.dtype), xBC], dim=1)
     else:
-        full = F.pad(xBC, (0, 0, W - 1, 0))
+        full = zero_pad(xBC, (0, 0, W - 1, 0))
     S = xBC.shape[1]
     out = full[:, 0:S] * w[0].to(xBC.dtype)
     for i in range(1, W):
@@ -150,10 +150,10 @@ def mamba_forward(p, x, cfg, *, initial_state=None, return_state=False,
     Bh = Bc.reshape(B_, S, G, N).float()
     Ch = Cc.reshape(B_, S, G, N).float()
     if pad:
-        dA = F.pad(dA, (0, 0, 0, pad))
-        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
-        Bh = F.pad(Bh, (0, 0, 0, 0, 0, pad))
-        Ch = F.pad(Ch, (0, 0, 0, 0, 0, pad))
+        dA = zero_pad(dA, (0, 0, 0, pad))
+        xdt = zero_pad(xdt, (0, 0, 0, 0, 0, pad))
+        Bh = zero_pad(Bh, (0, 0, 0, 0, 0, pad))
+        Ch = zero_pad(Ch, (0, 0, 0, 0, 0, pad))
     with_state = return_state or return_cache
     Y = ssd_ops.ssd(xdt, dA, Bh, Ch, chunk=Q, initial_state=initial_state,
                     return_state=with_state)

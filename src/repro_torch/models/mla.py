@@ -79,6 +79,20 @@ def mla_forward(p, x, cfg, sin, cos, *, q_block=1024, kv_block=1024,
     return shard_hint(out, "batch", None, None), (ckv, krope)
 
 
+def _rows_times(c, w):
+    """c @ w, c (B, T, r) and w (r, n).  On a mesh, where the cache c is
+    split over B and T: w is made whole (a weight, small beside the cache)
+    and each shard multiplies its own rows.  DTensor's matmul on torch 2.11
+    folds B and T through a view, which it refuses with T split."""
+    if not hasattr(c, "device_mesh"):
+        return c @ w
+    from repro_torch.kernels import _dist
+    _dist.roles(c, {0: "batch", 1: "sequence"}, "mla_decode")
+    w = shard_hint(w, None, None)
+    return _dist.run(torch.matmul, c.device_mesh, (c, w),
+                     (c.placements, w.placements), c.placements)
+
+
 def mla_decode(p, x, cfg, sin, cos, cache, positions, *, absorb=False):
     """One decode step.  x (B,1,D); cache: (ckv (B,T,r), krope (B,T,dr))
     views of one layer of the decode cache, into which the new token's
@@ -110,13 +124,17 @@ def mla_decode(p, x, cfg, sin, cos, cache, positions, *, absorb=False):
         ctx = torch.einsum("bshr,rhd->bshd", ctx_r.to(x.dtype), wuv)
     else:
         ckv_x = ckv_c.to(x.dtype)
-        kn = (ckv_x @ p["wuk"].to(x.dtype)).reshape(B, T, H, dn)
-        vv = (ckv_x @ p["wuv"].to(x.dtype)).reshape(B, T, H, dv)
-        q = torch.cat([qn, qr], dim=-1)
+        kn = _rows_times(ckv_x, p["wuk"].to(x.dtype)).reshape(B, T, H, dn)
+        vv = _rows_times(ckv_x, p["wuv"].to(x.dtype)).reshape(B, T, H, dv)
+        # q whole over the heads (one token's: tiny) and the cache split
+        # over its sequence, as attention.decode_attention: an einsum
+        # folds B and H, which DTensor on torch 2.11 refuses with H split
+        q = shard_hint(torch.cat([qn, qr], dim=-1), "batch", None, None, None)
         k = torch.cat([kn, krope_c.to(x.dtype)[:, :, None, :]
                        .expand(B, T, H, dr)], dim=-1)
         s = torch.einsum("bshe,bthe->bhst", q.float(), k.float()) * scale
-        prob = torch.softmax(torch.where(allow, s, NEG_INF), dim=-1)
+        s = torch.where(allow, s, NEG_INF)
+        prob = attn._softmax_keys(shard_hint(s, "batch", None, None, "kv_seq"))
         ctx = torch.einsum("bhst,bthd->bshd", prob, vv.float()).to(x.dtype)
     out = ctx.reshape(B, 1, H * dv) @ p["wo"].to(x.dtype)
     return out, (ckv_c, krope_c)

@@ -154,9 +154,11 @@ def time_mix_decode(p, x, cfg, state):
     v = (x_v @ p["wv"].to(x.dtype)).reshape(B, H, hd).float()
     g = F.silu(x_g @ p["wg"].to(x.dtype))[:, 0]
     u = p["u"].float()
-    # y = r . (S0 + u (x) k v^T); S1 = diag(w) S0 + k v^T
-    kv = torch.einsum("bhk,bhv->bhkv", k, v)
-    y = torch.einsum("bhk,bhkv->bhv", r, S0 + u[None, ..., None] * kv)
+    # y = r . (S0 + u (x) k v^T); S1 = diag(w) S0 + k v^T.  Elementwise
+    # products and a sum, not einsums: on a mesh (B and H split) an einsum
+    # folds B and H through a view, which DTensor on torch 2.11 refuses
+    kv = k[..., :, None] * v[..., None, :]
+    y = (r[..., :, None] * (S0 + u[None, ..., None] * kv)).sum(-2)
     S1 = S0 * w[..., None] + kv
     y = (_group_norm(y, p["ln_x"]).to(x.dtype) * g) @ p["out"].to(x.dtype)
     return y[:, None], (x[:, -1], S1)

@@ -138,10 +138,14 @@ def forward(params, cfg, tokens, *, encoder_frames, opts: Options = None,
     B, S = tokens.shape
     memory = encode(params, cfg, encoder_frames.to(dtype), opts=opts)
     dp = params["dec"]
-    x = F.embedding(tokens, params["embed"]).to(dtype)
+    # the lookup placed before the positional term is added: on a mesh it
+    # reads a vocab-split table, and DTensor on torch 2.11, adding a
+    # replicated term to the lookup's output, calls aten::equal, which meta
+    # tensors lack
+    x = shard_hint(F.embedding(tokens, params["embed"]).to(dtype),
+                   "batch", None, None)
     x = x + sinusoid(torch.arange(S, device=tokens.device),
                      cfg.d_model).to(dtype)
-    x = shard_hint(x, "batch", None, None)
     kw = dict(scale=_scale(cfg), q_block=opts.q_block, kv_block=opts.kv_block)
     entries = []
     for i, lp in enumerate(unstack({k: dp[k] for k in _DEC_KEYS},
@@ -195,9 +199,9 @@ def decode_step(params, cfg, tokens, positions, cache, *, opts: Options = None,
     B = tokens.shape[0]
     dp = params["dec"]
     memory = cache["memory"].to(dtype)
-    x = F.embedding(tokens[:, None], params["embed"]).to(dtype)
+    x = shard_hint(F.embedding(tokens[:, None], params["embed"]).to(dtype),
+                   "batch", None, None)     # placed first, as in forward
     x = x + sinusoid(positions[:, None], cfg.d_model).to(dtype)
-    x = shard_hint(x, "batch", None, None)
     for i in range(cfg.n_layers):
         lp = layer_params({k: dp[k] for k in _DEC_KEYS}, i)
         h = _norm(x, lp["ln1"])

@@ -122,9 +122,9 @@ def _draw_paths(model) -> dict:
     running `model.init` on the meta device (no storage)."""
     drawn = []
 
-    def keep(t):
-        drawn.append(t)
-        return t
+    def keep(shape, device):
+        drawn.append(torch.empty(shape, device=device, dtype=torch.float32))
+        return drawn[-1]
 
     with on_draw(keep):
         params = model.init(torch.Generator().manual_seed(0), "meta")
@@ -134,17 +134,19 @@ def _draw_paths(model) -> dict:
 
 def init_serving_params(model, generator, device, dtype=torch.bfloat16):
     """`serving_params(model, model.init(generator, device), dtype)`, bit
-    for bit, without the whole fp32 tree: each matrix is drawn in fp32 in
-    `Model.init`'s order from `generator` and, if the model reads it only
-    through a cast to `dtype`, cast as soon as it is drawn.  The peak is
-    the served params plus the largest fp32 matrix, where `serving_params`
-    of a whole fp32 tree holds both trees at once."""
+    for bit, without the whole fp32 tree: each leaf that the model reads
+    only through a cast to `dtype` is made in `dtype`, and `Model.init`
+    fills it from `generator` a matrix at a time, each drawn in fp32 and
+    cast as it is drawn.  The peak is the served params plus one fp32
+    matrix, where `serving_params` of a whole fp32 tree holds both trees
+    at once."""
     cast = _cast_only_leaves(model, dtype)
     paths = _draw_paths(model)
     count = itertools.count()
 
-    def finish(t):
-        return t.to(dtype) if paths.get(next(count)) in cast else t
+    def finish(shape, device):
+        keep = dtype if paths.get(next(count)) in cast else torch.float32
+        return torch.empty(shape, device=device, dtype=keep)
 
     with on_draw(finish):
         params = model.init(generator, device)

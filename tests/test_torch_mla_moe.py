@@ -371,7 +371,9 @@ SERVED = ["gemma2-2b", "rwkv6-1.6b", "zamba2-2.7b", "deepseek-7b",
 @pytest.mark.parametrize("arch", SERVED)
 def test_leaf_by_leaf_serving_params_equal_serving_params(arch):
     """init_serving_params equals serving_params of Model.init's whole fp32
-    tree bit for bit: the same leaves, dtypes and values."""
+    tree bit for bit: the same leaves, dtypes and values.  Both fill each
+    stacked leaf a matrix at a time, the served one casting each matrix as
+    it is drawn."""
     model = build_model(get_config(arch).reduced(), Options(moe_group=64))
     want = serving_params(model, model.init(
         torch.Generator().manual_seed(7), "cpu"))
