@@ -48,6 +48,11 @@ REQ_REJECTED = "req_rejected"   # bounced by admission backpressure
 REQ_TIMEOUT = "req_timeout"     # queued past its deadline (never dispatched)
 BATCH_FORMED = "batch_formed"   # requests coalesced into one engine task
 
+# a named stretch of the program (`tracing.span`): stamped at its end,
+# extra: name, t0 (its start), parent (the enclosing span's name or None)
+# and the caller's own keys
+SPAN = "span"
+
 TERMINAL = (COMPLETED, FAILED)
 
 

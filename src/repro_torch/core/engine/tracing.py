@@ -25,10 +25,17 @@ quantities *measured from the running system* rather than modelled:
 `crosscheck()` compares an empirical value against the analytic scaling
 laws in `repro_torch.core.metg` and reports whether they agree to within an
 order of magnitude — the engine's validation loop for the models.
+
+`span(name, tracer)` names a stretch of the program: on a recorder's
+clock as one SPAN event, and, while a torch profiler records, as a
+profiler range, so that the device operations launched inside it carry
+the program's layer names in the device trace.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import sys
 import threading
 from collections import deque
 from dataclasses import dataclass, field
@@ -37,9 +44,84 @@ from typing import Callable, Optional
 from repro_torch.core.engine.model import (BATCH_FORMED, COMPLETED, FAILED,
                                            REQ_DONE, REQ_ENQUEUED,
                                            REQ_REJECTED, REQUEUED, RETRIED,
-                                           RPC, RUN_END, RUN_START, STOLEN,
+                                           RPC, RUN_END, RUN_START, SPAN,
                                            XFER, TraceEvent, real_clock)
 from repro_torch.core.metg import same_order
+
+_NO_SPAN = contextlib.nullcontext()
+_open = threading.local()          # .names: this thread's open SPANs
+
+
+def _profiling() -> bool:
+    """Whether a torch profiler records, on any thread (none can where
+    torch was never imported).  A profiler records the ranges of the
+    thread that started it, and of every other thread only where it was
+    started with `profile_all_threads`."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd.profiler._is_profiler_enabled
+
+
+def _autograd():
+    return sys.modules["torch"]._C._autograd
+
+
+class _Range:
+    """The user range that `torch.profiler.record_function(name)` opens,
+    by its C entry points: a third of the cost."""
+    __slots__ = ("name", "handle")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.handle = _autograd()._record_function_with_args_enter(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        _autograd()._record_function_with_args_exit(self.handle)
+        return False
+
+
+class _Span:
+    """A span with a tracer: one SPAN event at its exit, and a profiler
+    range around it while a profiler records."""
+    __slots__ = ("name", "tracer", "extra", "range", "t0", "parent")
+
+    def __init__(self, name: str, tracer, profiling: bool, extra: dict):
+        self.name, self.tracer, self.extra = name, tracer, extra
+        self.range = _Range(name) if profiling else None
+
+    def __enter__(self):
+        names = _open.__dict__.setdefault("names", [])
+        self.parent = names[-1] if names else None
+        names.append(self.name)
+        self.t0 = self.tracer.clock()
+        if self.range is not None:
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.range is not None:
+            self.range.__exit__()
+        _open.names.pop()
+        self.tracer.emit_at(self.tracer.clock(), SPAN, name=self.name,
+                            t0=self.t0, parent=self.parent, **self.extra)
+        return False
+
+
+def span(name: str, tracer: Optional["TraceRecorder"] = None, **extra):
+    """A context manager naming a stretch of the program.  With `tracer`,
+    it records one SPAN event on the tracer's clock at its exit (extra:
+    `name`, `t0` its start, `parent` the name of the enclosing span with a
+    tracer on this thread, and `extra`, which the body may add to through
+    the entered span's `.extra`).  While a torch profiler records, it also
+    opens the user range that `torch.profiler.record_function(name)`
+    would.  With neither, it returns one shared null context: no
+    allocation, nothing recorded."""
+    profiling = _profiling()
+    if tracer is not None:
+        return _Span(name, tracer, profiling, extra)
+    return _Range(name) if profiling else _NO_SPAN
 
 
 def percentile(sorted_vals: list, q: float) -> float:
@@ -380,7 +462,6 @@ class OverheadReport:
     virtual_s: float = 0.0           # injected straggler time (not walled)
     rpc_s: float = 0.0               # total scheduler round-trip time
     n_rpc: int = 0
-    dispatch_s: float = 0.0          # total stolen -> run_start latency
     rpc_by_op: dict = field(default_factory=dict)  # op -> (count, total_s)
     # data plane (transport="proc"): dependency-value fetch accounting,
     # unsampled — every fetch emits exactly one XFER, no scale-up needed
@@ -403,22 +484,16 @@ class OverheadReport:
     def from_trace(cls, trace: TraceRecorder, workers: int = 1
                    ) -> "OverheadReport":
         # pair lifecycle events sequentially per task: a requeued task
-        # re-executes and emits a second stolen/run_start/run_end triple,
-        # so last-write-wins dicts would pair across executions and
-        # produce negative durations
-        compute = virtual = dispatch = 0.0
+        # re-executes and emits a second run_start/run_end pair, so
+        # last-write-wins dicts would pair across executions and produce
+        # negative durations
+        compute = virtual = 0.0
         open_start: dict = {}
-        open_steal: dict = {}
         with trace._lock:
             events = list(trace.events)
         for e in events:
-            if e.event == STOLEN:
-                open_steal[e.task] = e.t
-            elif e.event == RUN_START:
+            if e.event == RUN_START:
                 open_start[e.task] = e.t
-                t_stolen = open_steal.pop(e.task, None)
-                if t_stolen is not None:
-                    dispatch += e.t - t_stolen
             elif e.event == RUN_END:
                 t_start = open_start.pop(e.task, None)
                 if t_start is not None:
@@ -474,7 +549,6 @@ class OverheadReport:
             virtual_s=virtual,
             rpc_s=rpc_s,
             n_rpc=n_rpc,
-            dispatch_s=dispatch,
             rpc_by_op=by_op,
             xfer_s=xfer_s,
             n_xfer=n_xfer,
@@ -503,14 +577,6 @@ class OverheadReport:
     def rpc_per_task_s(self) -> float:
         """Server-side handling time per terminal task (dwork RTT analog)."""
         return self.rpc_s / self.n_tasks if self.n_tasks else 0.0
-
-    @property
-    def queue_latency_per_task_s(self) -> float:
-        """Mean stolen -> run_start latency.  NOTE: includes time waiting
-        for a free slot (backlog), so it measures queue pressure, not pure
-        scheduler cost — use `rpc_per_task_s` / `per_task_overhead_s` for
-        overhead accounting."""
-        return self.dispatch_s / self.n_tasks if self.n_tasks else 0.0
 
     def empirical_metg(self) -> float:
         """Task duration at which measured overhead = compute (50% eff)."""

@@ -7,7 +7,10 @@ Lane layout (one `tid` per lane, stable across exports):
 
   * one lane per worker, in pool order (`w0`, `w1`, ...): each task
     execution is an `X` (complete) span from RUN_START to RUN_END,
-    with worker deaths and failures as instant markers on the lane
+    with worker deaths and failures as instant markers on the lane, and
+    the program's SPAN events (`tracing.span`) inside an execution as
+    `X` slices nested under it; a SPAN inside no execution goes to a
+    `spans` lane
   * an `rpc` lane: every sampled scheduler round-trip as a span ending
     at its emit time (rpc events are stamped on completion with `dt`)
   * one lane per `hop:*` op (`hop:L1`, `hop:L1:s0`, ...): the
@@ -33,13 +36,15 @@ forwards here.
 """
 from __future__ import annotations
 
+import bisect
 import json
 from typing import Optional
 
 from repro_torch.core.engine.model import (BATCH_FORMED, CANCELLED,
                                            FAILED, REQ_DONE, REQ_ENQUEUED,
                                            REQ_REJECTED, REQUEUED, RPC,
-                                           RUN_END, RUN_START, WORKER_DEAD)
+                                           RUN_END, RUN_START, SPAN,
+                                           WORKER_DEAD)
 
 PID = 1
 
@@ -55,7 +60,8 @@ def to_chrome_trace(trace, path: Optional[str] = None, *,
                     critical_path: Optional[list] = None) -> dict:
     with trace._lock:
         events = list(trace.events)
-    t0 = min((e.t for e in events), default=0.0)
+    t0 = min((e.extra["t0"] if e.event == SPAN else e.t for e in events),
+             default=0.0)
 
     def us(t: float) -> float:
         return (t - t0) * 1e6
@@ -69,14 +75,19 @@ def to_chrome_trace(trace, path: Optional[str] = None, *,
     workers: set = set()
     hop_lanes: set = set()
     other_lanes: set = set()
+    runs: list = []              # (start, end, worker) of each execution
+    program: list = []           # SPAN events, placed once runs are known
     for e in events:
         ev = e.event
         if ev == RUN_START:
             open_start[e.task] = e.t
+        elif ev == SPAN:
+            program.append(e)
         elif ev == RUN_END:
             ts = open_start.pop(e.task, None)
             if ts is not None and e.worker is not None:
                 workers.add(e.worker)
+                runs.append((ts, e.t, e.worker))
                 spans.append((("w", e.worker), {
                     "ph": "X", "name": e.task, "cat": "task",
                     "ts": us(ts), "dur": max(us(e.t) - us(ts), 0.0)}))
@@ -160,6 +171,27 @@ def to_chrome_trace(trace, path: Optional[str] = None, *,
                 "cat": "scheduler", "ts": us(e.t),
                 "args": dict(e.extra)}))
 
+    # program spans: nested under the execution that holds them
+    runs.sort()
+    starts = [r[0] for r in runs]
+    for e in program:
+        a = e.extra["t0"]
+        i = bisect.bisect_right(starts, a) - 1
+        while i >= 0 and runs[i][1] < e.t:
+            i -= 1
+        if i >= 0:
+            lane = ("w", runs[i][2])
+        else:
+            lane = ("spans",)
+            other_lanes.add("spans")
+        args = {k: v for k, v in e.extra.items()
+                if k not in ("name", "t0", "parent")}
+        rec = {"ph": "X", "name": e.extra["name"], "cat": "span",
+               "ts": us(a), "dur": max(us(e.t) - us(a), 0.0)}
+        if args:
+            rec["args"] = args
+        spans.append((lane, rec))
+
     # critical-path overlay: a dedicated lane repeating the path's final
     # executions in order, plus s/f flow arrows stitching consecutive
     # path tasks together across the worker lanes
@@ -191,6 +223,8 @@ def to_chrome_trace(trace, path: Optional[str] = None, *,
     lanes.extend(("hop", op) for op in sorted(hop_lanes))
     if "scheduler" in other_lanes:
         lanes.append(("scheduler",))
+    if "spans" in other_lanes:
+        lanes.append(("spans",))
     if "requests" in other_lanes:
         lanes.append(("requests",))
     tid_of = {lane: i + 1 for i, lane in enumerate(lanes)}

@@ -25,7 +25,7 @@ from typing import Callable, Optional
 from repro_torch.core.engine.model import (BATCH_FORMED, REQ_DONE,
                                            REQ_ENQUEUED, REQ_REJECTED,
                                            REQ_TIMEOUT, WorkerCrash, next_seq)
-from repro_torch.core.engine.tracing import LatencyReport, percentile
+from repro_torch.core.engine.tracing import LatencyReport, percentile, span
 from repro_torch.core.metg import METGModel, pick_batch_size
 
 
@@ -374,27 +374,38 @@ class Frontend:
         self.engine.submit(name, fn=lambda: self._run_batch(reqs))
 
     def _run_batch(self, reqs: tuple):
-        clock = self.engine.tracer.clock
-        t0 = clock()
-        try:
-            values = self.execute_batch([r.payload for r in reqs])
-        except WorkerCrash:
-            raise          # worker dies; the engine requeues the batch
-        except Exception as e:                        # noqa: BLE001
-            err = repr(e)
-            for r in reqs:
-                self._resolve(r, ok=False, error=err)
-            raise          # the batch task is marked failed, consistently
-        dt = clock() - t0
-        a = self._ewma_alpha
-        self._per_req_s = ((1 - a) * self._per_req_s
-                           + a * max(dt / len(reqs), 1e-9))
-        if isinstance(values, (list, tuple)) and len(values) == len(reqs):
-            for r, v in zip(reqs, values):
-                self._resolve(r, ok=True, value=v)
-        else:
-            for r in reqs:
-                self._resolve(r, ok=True, value=values)
+        """One batch on an engine worker, in three spans on the engine's
+        tracer: `serve.batch` (extra: `size`, and `wait_sum_s`, the sum of
+        the requests' waits from enqueue to the batch's start) around
+        `serve.execute` (the model's call) and `serve.resolve` (the
+        replies)."""
+        tracer = self.engine.tracer
+        with span("serve.batch", tracer, size=len(reqs)) as batch:
+            batch.extra["wait_sum_s"] = sum(batch.t0 - r.t_enqueue
+                                            for r in reqs)
+            try:
+                with span("serve.execute", tracer):
+                    t0 = tracer.clock()
+                    values = self.execute_batch([r.payload for r in reqs])
+                    dt = tracer.clock() - t0
+            except WorkerCrash:
+                raise          # worker dies; the engine requeues the batch
+            except Exception as e:                        # noqa: BLE001
+                err = repr(e)
+                for r in reqs:
+                    self._resolve(r, ok=False, error=err)
+                raise      # the batch task is marked failed, consistently
+            a = self._ewma_alpha
+            self._per_req_s = ((1 - a) * self._per_req_s
+                               + a * max(dt / len(reqs), 1e-9))
+            with span("serve.resolve", tracer):
+                if (isinstance(values, (list, tuple))
+                        and len(values) == len(reqs)):
+                    for r, v in zip(reqs, values):
+                        self._resolve(r, ok=True, value=v)
+                else:
+                    for r in reqs:
+                        self._resolve(r, ok=True, value=values)
         return True
 
     def _resolve(self, req: ServeRequest, *, ok: bool, value=None,

@@ -13,6 +13,12 @@ accept the option and ignore it there too.  In training, `forward(...,
 return_aux=True)` also returns the sum over the MoE layers of
 `apply_moe`'s router aux loss, which `runtime.train_step` adds to the
 loss, as the JAX package's train mode returns and adds it.
+
+Each block runs in two spans (`core.engine.tracing.span`): `block.attention`,
+holding `attention.qkv` (projections and rope), `attention.cache_write`,
+`attention.core` (flash in prefill, `decode_attention` in decode) and
+`attention.out`, then `block.ffn`; the embedding and the head run in
+`model.embed` and `model.head`.  Without a profiler they record nothing.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.engine.tracing import span
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -106,22 +113,29 @@ def _attention(bp, h, cfg, sin, cos, *, opts: Options, window, cache,
                                    q_block=opts.q_block,
                                    kv_block=opts.kv_block,
                                    probs_bf16=opts.probs_bf16)
-    q, k, v = attn.project_qkv(bp["attn"], h, cfg)
-    q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
+    with span("attention.qkv"):
+        q, k, v = attn.project_qkv(bp["attn"], h, cfg)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
     if cache is not None:
         k_c, v_c = cache
-        write_rows(k_c, k[:, 0], positions)                 # in place
-        write_rows(v_c, v[:, 0], positions)
-        ctx = attn.decode_attention(
-            q, k_c.to(q.dtype), v_c.to(q.dtype), positions, window=window,
-            logit_softcap=cfg.attn_logit_softcap, scale=_attn_scale(cfg))
+        with span("attention.cache_write"):
+            write_rows(k_c, k[:, 0], positions)             # in place
+            write_rows(v_c, v[:, 0], positions)
+        with span("attention.core"):
+            ctx = attn.decode_attention(
+                q, k_c.to(q.dtype), v_c.to(q.dtype), positions,
+                window=window, logit_softcap=cfg.attn_logit_softcap,
+                scale=_attn_scale(cfg))
     else:
-        ctx = attn.flash_attention(
-            q, k, v, window=window, logit_softcap=cfg.attn_logit_softcap,
-            scale=_attn_scale(cfg), q_block=opts.q_block,
-            kv_block=opts.kv_block, probs_bf16=opts.probs_bf16)
-    return attn.project_out(bp["attn"], ctx, cfg), (k, v)
+        with span("attention.core"):
+            ctx = attn.flash_attention(
+                q, k, v, window=window,
+                logit_softcap=cfg.attn_logit_softcap,
+                scale=_attn_scale(cfg), q_block=opts.q_block,
+                kv_block=opts.kv_block, probs_bf16=opts.probs_bf16)
+    with span("attention.out"):
+        return attn.project_out(bp["attn"], ctx, cfg), (k, v)
 
 
 def apply_block(bp, x, cfg, sin, cos, *, opts: Options, window=None,
@@ -137,22 +151,25 @@ def apply_block(bp, x, cfg, sin, cos, *, opts: Options, window=None,
     written into the cache in place at each row's position before
     attention reads it.
     """
-    h = _norm(x, bp["ln1"], cfg)
-    a_out, entry = _attention(bp, h, cfg, sin, cos, opts=opts, window=window,
-                              cache=cache, positions=positions)
-    if cfg.post_norms:
-        a_out = _norm(a_out, bp["pn1"], cfg)
-    x = x + a_out
+    with span("block.attention"):
+        h = _norm(x, bp["ln1"], cfg)
+        a_out, entry = _attention(bp, h, cfg, sin, cos, opts=opts,
+                                  window=window, cache=cache,
+                                  positions=positions)
+        if cfg.post_norms:
+            a_out = _norm(a_out, bp["pn1"], cfg)
+        x = x + a_out
 
-    h = _norm(x, bp["ln2"], cfg)
-    if "router" in bp["mlp"]:
-        f_out, aux = moe_mod.apply_moe(bp["mlp"], h, cfg,
-                                       group_size=opts.moe_group)
-    else:
-        f_out, aux = apply_ffn(bp["mlp"], h, cfg), None
-    if cfg.post_norms:
-        f_out = _norm(f_out, bp["pn2"], cfg)
-    return x + f_out, entry, aux
+    with span("block.ffn"):
+        h = _norm(x, bp["ln2"], cfg)
+        if "router" in bp["mlp"]:
+            f_out, aux = moe_mod.apply_moe(bp["mlp"], h, cfg,
+                                           group_size=opts.moe_group)
+        else:
+            f_out, aux = apply_ffn(bp["mlp"], h, cfg), None
+        if cfg.post_norms:
+            f_out = _norm(f_out, bp["pn2"], cfg)
+        return x + f_out, entry, aux
 
 
 def _train_block(bp, x, sin, cos, *, cfg, opts: Options, window):
@@ -202,19 +219,21 @@ def _layer_windows(cfg, n_layers: int, seq_len: int):
 
 
 def _embed(params, cfg, tokens, dtype):
-    x = F.embedding(tokens, params["embed"]).to(dtype)
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
-    return shard_hint(x, "batch", None, None)
+    with span("model.embed"):
+        x = F.embedding(tokens, params["embed"]).to(dtype)
+        if cfg.embed_scale:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
+        return shard_hint(x, "batch", None, None)
 
 
 def _head(params, cfg, x):
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(x.dtype).T
-    else:
-        logits = x @ params["head"].to(x.dtype)
-    return shard_hint(softcap(logits, cfg.final_logit_softcap), "batch", None,
-                      "vocab")
+    with span("model.head"):
+        if cfg.tie_embeddings:
+            logits = x @ params["embed"].to(x.dtype).T
+        else:
+            logits = x @ params["head"].to(x.dtype)
+        return shard_hint(softcap(logits, cfg.final_logit_softcap), "batch",
+                          None, "vocab")
 
 
 def _angles(cfg, positions, mrope_positions=None):
@@ -254,8 +273,9 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
         if mode == "prefill" and cache is None:
             firsts.append(entry)
         elif mode == "prefill":
-            for dst, src in zip(cache["first"][i], entry):
-                write_at(dst, (slice(None), slice(0, S)), src)      # in place
+            with span("attention.cache_write"):
+                for dst, src in zip(cache["first"][i], entry):
+                    write_at(dst, (slice(None), slice(0, S)), src)  # in place
     entries = []
     block = maybe_remat(_train_block, opts.remat)
     for i, bp in enumerate(unstack(params["blocks"], L)):
@@ -269,8 +289,9 @@ def forward(params, cfg, tokens, *, opts: Options = None, mode: str = "train",
         if mode == "prefill" and cache is None:
             entries.append(entry)
         elif mode == "prefill":
-            for dst, src in zip(cache["layers"], entry):
-                write_at(dst, (i, slice(None), slice(0, S)), src)  # in place
+            with span("attention.cache_write"):
+                for dst, src in zip(cache["layers"], entry):
+                    write_at(dst, (i, slice(None), slice(0, S)), src)
 
     if mode == "prefill":
         # serving only needs next-token logits after prefill

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
+from repro_torch.core.engine.tracing import span
 from repro_torch.models.common import on_draw, shard_hint
 
 
@@ -157,8 +158,9 @@ def init_serving_params(model, generator, device, dtype=torch.bfloat16):
 def _greedy(logits, vocab_size: int):
     """The argmax over the real vocabulary; a logits DTensor split over the
     vocab is gathered first (its rows are one token's)."""
-    logits = shard_hint(logits, "batch", None)
-    return torch.argmax(logits[..., :vocab_size], dim=-1)
+    with span("serve_step.sample"):
+        logits = shard_hint(logits, "batch", None)
+        return torch.argmax(logits[..., :vocab_size], dim=-1)
 
 
 def make_prefill_step(model):
@@ -194,7 +196,9 @@ def greedy_generate(model, params, batch, max_new: int, cache_len: int,
     """Prefill then greedy-decode: returns (B, max_new) int64 tokens.
 
     If `timings` is a dict, it receives "prefill_s" and "decode_s" (the
-    device synchronised at each boundary)."""
+    device synchronised at each boundary).  The steps run in the spans
+    `serve_step.cache_init`, `serve_step.prefill` and one
+    `serve_step.decode` a step (`core.engine.tracing.span`)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
@@ -202,14 +206,17 @@ def greedy_generate(model, params, batch, max_new: int, cache_len: int,
     t0 = _now(dev) if timings is not None else 0.0
     # an ssm prefill returns its state; a transformer's or a hybrid's fills
     # this cache
-    cache = (None if model.cfg.family == "ssm"
-             else model.init_cache(B, cache_len, device=dev))
-    tok, cache = prefill(params, batch, cache)
+    with span("serve_step.cache_init"):
+        cache = (None if model.cfg.family == "ssm"
+                 else model.init_cache(B, cache_len, device=dev))
+    with span("serve_step.prefill"):
+        tok, cache = prefill(params, batch, cache)
     t1 = _now(dev) if timings is not None else 0.0
     out = [tok]
     for t in range(S, S + max_new - 1):
-        pos = torch.full((B,), t, dtype=torch.long, device=dev)
-        tok, cache = decode(params, tok, pos, cache)
+        with span("serve_step.decode"):
+            pos = torch.full((B,), t, dtype=torch.long, device=dev)
+            tok, cache = decode(params, tok, pos, cache)
         out.append(tok)
     if timings is not None:
         timings["prefill_s"] = t1 - t0
