@@ -61,7 +61,12 @@ Phases; any failure exits non-zero:
       kernel); the gradients through the flash op against autograd through
       its plain version, and its backward's ms, also not causal at 448
       queries against 1500 keys and at q/k 192 with v 128, each also
-      against the plain version's fp64 autograd;
+      against the plain version's fp64 autograd; decode attention in bf16
+      against a cache of 4097 positions at deepseek-7b's (8 and 1, 32/32,
+      128), gemma2-2b's (1, 16/4, 256, window 4096, softcap 50) and
+      zamba2-2.7b's (1, 32/32, 80): held within the exact function's
+      allowance (DECODE_FLIP_EPS), a rerun bit for bit; the kernel's ms and
+      each of its three kernels', the plain version's ms, the bound;
   (c) the main paths, each with the launch counts set to 0 just before and
       read just after: the paper's dwork scheduler running the METG ladder
       of A^T B tasks (launch.metg: n = 256 ... 4096, backlogs of up to
@@ -412,6 +417,26 @@ STATE_TOL = 1e-3
 # the shared block's attention at q/k/v (B, S, 32, 80), no GQA, causal only
 SSD_MAIN = (2, 1024, 80, 64, 64, 64)
 ZB, ZS, ZH, ZHD = 2, 1024, 32, 80
+# decode attention: one new token a row against a cache of 4097 positions
+# (the benchmark's 4080-token prompts, 16 new tokens and one more), every
+# row at its last position; (what, B, Hq_pad, G, hd, window, softcap)
+DECODE_T = 4097
+DECODE_CASES = (("deepseek-7b batch 8", 8, DSH, DSH, DSHD, None, 0.0),
+                ("deepseek-7b batch 1", 1, DSH, DSH, DSHD, None, 0.0),
+                ("gemma2-2b", 1, HQ, G, HD, 4096, CAP),
+                ("zamba2-2.7b", 1, ZH, ZH, ZHD, None, 0.0))
+DECODE_KERNELS = ("decode_attn_scores", "decode_attn_pv", "decode_attn_out")
+# The kernel and the plain version sum q.k and p.v in fp32 in other orders:
+# each sum is off by a few units of 2^-24 relative, which 1e-5 of the
+# element's sum_t p_t |v_t| covers; and where a key's p lies within 1e-5
+# relative of a rounding boundary of the cache's type, either order may
+# round it to the other neighbour, one ulp of p times |v_t| apart.  Away
+# from the boundaries both round p alike, so a missing rounding of p, a
+# lost key or the wrong group shows (tests/test_torch_decode_attention_cuda.py
+# holds the same rule at every served shape)
+DECODE_FLIP_EPS = 1e-5
+# the served paths' decode-attention launch counts (hold_decode_launches)
+DECODE_PATHS: dict = {}
 # zamba2-2.7b serving, 4 x 4200 (ARGV): each layer's prefill SSD at 66
 # chunks of 64 (4200 padded to 4224), zero initial state, final state
 # returned; the shared block's flash at q/k/v (4, 4200, 32, 80), causal
@@ -2435,6 +2460,131 @@ def grad_check(torch, name, kernel_fn, plain_fn, ins, g, out_tol):
     return max(errs), ms
 
 
+def decode_beyond_allowance(torch, out, q, kc, vc, pos, window, cap,
+                            scale) -> float:
+    """How far the decode-attention output `out` lies beyond the exact
+    function's allowance, in its worst element (held <= 0; see
+    DECODE_FLIP_EPS): |out - exact| less half an ulp of exact in out's
+    type, less 1e-5 of the element's sum_t p_t |v_t|, less one ulp of p_t
+    in the cache's type times |v_t| at each key whose p_t lies within
+    DECODE_FLIP_EPS of a rounding boundary.  `exact` is the function in
+    fp64 from the same operands, p rounded to the cache's type."""
+    B, _, Hq, hd = q.shape
+    G = kc.shape[2]
+    qg = q.reshape(B, G, Hq // G, hd).to(kc.dtype).double()
+    s = torch.einsum("bgmh,btgh->bgmt", qg, kc.double()) * scale
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    t = torch.arange(kc.shape[1], device=q.device)
+    allow = t[None, :] <= pos[:, None]
+    if window is not None:
+        allow &= (pos[:, None] - t[None, :]) < window
+    p64 = torch.softmax(s.masked_fill(~allow[:, None, None], -torch.inf), -1)
+    p = p64.to(kc.dtype).double()
+    flip = ((p64 * (1 + DECODE_FLIP_EPS)).to(kc.dtype).double()
+            - (p64 * (1 - DECODE_FLIP_EPS)).to(kc.dtype).double()).abs()
+    exact = torch.einsum("bgmt,btgh->bgmh", p, vc.double())
+    allowance = torch.einsum("bgmt,btgh->bgmh",
+                             DECODE_FLIP_EPS * p64 + flip, vc.double().abs())
+    exact, allowance = (x.reshape(B, 1, Hq, hd) for x in (exact, allowance))
+    half_ulp = torch.zeros_like(exact)
+    if out.dtype != torch.float32:
+        _, e = torch.frexp(exact.float())
+        half_ulp = torch.where(exact == 0, half_ulp, torch.ldexp(
+            torch.ones_like(exact), e - 9).double())
+    return float(((out.double() - exact).abs() - half_ulp - allowance).max())
+
+
+def hold_decode_launches(res, what, per_step, launches):
+    """A served path's decode-attention op calls: per_step a decode step
+    (its attention layers) times the serve's decode steps.  Records the
+    count in DECODE_PATHS for the JSON `kernels` row."""
+    want = per_step * res["decode_steps"]
+    print(f"[c] {what} decode_attention launches={launches} (want "
+          f"{per_step} a step x {res['decode_steps']} decode steps)")
+    if launches != want:
+        raise SystemExit(f"{what}: decode_attention launched {launches} "
+                         f"times, want {want}")
+    DECODE_PATHS[what] = {"launches": launches, "per_step": per_step,
+                          "decode_steps": res["decode_steps"]}
+
+
+def phase_decode_attention(torch, da_ops, da_ref, da_kernel, regs):
+    """The decode-attention kernel at the served decode shapes (bf16),
+    against the plain version on the card: the output held within the
+    exact function's allowance (`decode_beyond_allowance`, the card tests'
+    rule), its excess beyond one bf16 rounding of the plain version's fp32
+    result printed, a rerun bit for bit, one launch a call; the kernel's ms
+    and each of its three kernels' (torch.profiler), the plain version's ms
+    and the bound from `kernels/cost.py` (bytes at 3.35 TB/s or FLOPs at
+    the bf16 peak).  Returns the row for the JSON `kernels` line; the
+    served paths' launch counts join it under "paths" (DECODE_PATHS)."""
+    from repro_torch.kernels import cost
+    print("[b] decode_attention kernel vs plain version, cache of "
+          f"{DECODE_T} positions")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    row = {"kernel": "decode_attention",
+           "replaces": None, "why": "the JAX model's decode attention is an "
+           "einsum; the plain version copied the bf16 cache to fp32",
+           "file": "src/repro_torch/csrc/decode_attention.cu",
+           "regs": {kern: {"registers": n, "spill_store_bytes": st,
+                           "spill_load_bytes": ld}
+                    for kern, n, st, ld in regs}}
+    for what, b, hq, g, hd, window, cap in DECODE_CASES:
+        q, kc, vc = (torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for shape in ((b, 1, hq, hd), (b, DECODE_T, g, hd),
+                                          (b, DECODE_T, g, hd)))
+        pos = torch.full((b,), DECODE_T - 1, dtype=torch.long, device="cuda")
+        kw = dict(window=window, logit_softcap=cap, scale=hd ** -0.5)
+
+        def call():
+            return da_ops.decode_attention(q, kc, vc, pos, **kw)
+
+        before = da_ops.decode_attention.launches
+        out = call()
+        torch.cuda.synchronize()
+        if da_ops.decode_attention.launches != before + 1:
+            raise SystemExit("decode_attention: no launch counted")
+        if not torch.equal(out, call()):
+            raise SystemExit(f"decode_attention {what}: a rerun differs")
+        # q in fp32 rounds to the cache's bf16 alike, and the output stays
+        # the fp32 result
+        excess = bf16_excess(out, da_ref.decode_attention_ref(
+            q.float(), kc, vc, pos, **kw))
+        beyond = decode_beyond_allowance(torch, out, q, kc, vc, pos, window,
+                                         cap, hd ** -0.5)
+        ms = cuda_ms(call, 50)
+        plain_ms = cuda_ms(
+            lambda: da_ref.decode_attention_ref(q, kc, vc, pos, **kw), 5)
+        stages = stage_ms(torch, DECODE_KERNELS, call)
+        c = cost.decode_attention(b, DECODE_T, hq, g, hd, itemsize=2,
+                                  window=window)
+        t_ops, t_bytes = c.flops / H100_BF16_FLOPS, c.nbytes / H100_BYTES_S
+        bound = max(t_ops, t_bytes) * 1e3
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        p = da_kernel.plan(b, g, hq // g, DECODE_T)
+        row[what.replace(" ", "_").replace("-", "_").replace(".", "_")] = {
+            "shape": [b, DECODE_T, hq, g, hd], "window": window,
+            "softcap": cap, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "roofline_pct": 100.0 * bound / ms,
+            "flops": c.flops, "bytes": c.nbytes, "stage_ms": stages,
+            "excess_vs_plain": excess, "beyond_allowance": beyond,
+            "plan": p._asdict(),
+            "blocks": p.blocks(b, g)}
+        print(f"[b] decode_attention {what} (B {b}, T {DECODE_T}, {hq}/{g}, "
+              f"hd {hd}, window {window}, softcap {cap}): kernel ms={ms:.4f} "
+              f"plain ms={plain_ms:.4f} bound ms={bound:.4f} ({by}; "
+              f"{100.0 * bound / ms:.1f} % of it) stages={stages} excess "
+              f"beyond one bf16 rounding of the plain version={excess:.3e} "
+              f"beyond the exact function's allowance={beyond:.3e} (held "
+              f"<= 0) plan={tuple(p)} blocks={p.blocks(b, g)}")
+        if beyond > 0:
+            raise SystemExit(f"decode_attention {what}: {beyond:.3e} beyond "
+                             f"the exact function's allowance")
+        del q, kc, vc, out
+    return row
+
+
 def phase_grads(torch, fa_ops, fa_ref):
     """Gradients through the flash op at zamba2's training shape, fp32,
     against autograd through the plain version; then not causal at 448
@@ -3175,13 +3325,16 @@ def check_observability(res, rounds, name: str) -> dict:
 def phase_serve(torch, fa_ops, attention, fa_ref, serve):
     """The main path at full width with its live stats server scraped and
     its Chrome trace written (`check_observability`), then kernel-path vs
-    plain-path logits."""
+    plain-path logits; the decode-attention kernel launched once a layer
+    a decode step."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
     torch.cuda.reset_peak_memory_stats()
-    fa_ops.flash_attention.launches = 0
+    fa_ops.flash_attention.launches = da_ops.decode_attention.launches = 0
     t0 = time.perf_counter()
     res, rounds = observed_serve(serve, ARGV)
     wall = time.perf_counter() - t0
     launches = fa_ops.flash_attention.launches
+    n_decode = da_ops.decode_attention.launches
     model, params = res["model"], res["params"]
     cfg = model.cfg
     assert (cfg.n_layers, cfg.d_model, cfg.vocab_size) == (26, 2304, 256000)
@@ -3196,6 +3349,7 @@ def phase_serve(torch, fa_ops, attention, fa_ref, serve):
           f"(want {cfg.n_layers} layers x {len(res['batches'])} batches)")
     if launches != want:
         raise SystemExit(f"kernel launched {launches} times, want {want}")
+    hold_decode_launches(res, "gemma2-2b serve", cfg.n_layers, n_decode)
     front_door_checks(res, "gemma2-2b")
     obs = check_observability(res, rounds, "gemma2-2b")
     if len(res["replies"]) != 4:
@@ -3453,7 +3607,7 @@ class RoutePin(RouteLog):
 
 def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
                       dims, n_params, argv=None, per_batch=None, depth=None,
-                      prefix=None):
+                      prefix=None, decode_per_step=None):
     """`arch` (deepseek-7b, deepseek-v2-lite-16b, qwen2-vl-2b, whisper-base;
     at a cut `depth`, LARGE_SERVES) at full width, and at full depth unless
     `depth` names one, through `launch.serve` and `Client.serve` (`argv`,
@@ -3462,7 +3616,9 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
     door's checks,
     `dims` (layers, d_model, heads, KV heads, head dim, vocab) and the
     parameter count, the flash kernel launched `per_batch` times a prefill
-    batch (by default once a layer), 4 replies of 16 in-vocab tokens.
+    batch (by default once a layer), the decode-attention kernel
+    `decode_per_step` times a decode step (by default once a layer; MLA
+    decodes by its own einsums), 4 replies of 16 in-vocab tokens.
     Then the first served batch's prefill on the kernel path and the plain
     path (the params read through an fp32 cast), in fp32 and bf16
     (printed), on its first `prefix` tokens where `prefix` is given; an
@@ -3487,8 +3643,9 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
     k choices in every MoE layer counted), and the phase's seconds with the
     path checks' peak memory (also held under 80 GB) and what the phase's
     peak leaves free of 80 GB."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
     torch.cuda.reset_peak_memory_stats()
-    fa_ops.flash_attention.launches = 0
+    fa_ops.flash_attention.launches = da_ops.decode_attention.launches = 0
     init, marks = serve.init_serving_params, {}
 
     def init_then_mark(*args, **kwargs):
@@ -3510,6 +3667,7 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
         res = serve.main(argv or ["--arch", arch, *ARGV])
     wall = time.perf_counter() - t0
     launches = fa_ops.flash_attention.launches
+    n_decode = da_ops.decode_attention.launches
     serve_peak = torch.cuda.max_memory_allocated()
     peak = max(marks["init"], serve_peak)
     model, params = res["model"], res["params"]
@@ -3550,6 +3708,9 @@ def phase_serve_model(torch, fa_ops, attention, fa_ref, moe, serve, arch,
     if launches != want:
         raise SystemExit(f"{arch}: flash launched {launches} times, want "
                          f"{want}")
+    hold_decode_launches(res, f"{arch} serve", cfg.n_layers
+                         if decode_per_step is None else decode_per_step,
+                         n_decode)
     if peak >= 80e9:
         raise SystemExit(f"{arch}: peak memory {peak / 1e9:.2f} GB")
     if len(res["replies"]) != 4:
@@ -3739,15 +3900,20 @@ def phase_serve_zamba(torch, ssd_ops, fa_ops, attention, fa_ref, serve):
     their plain versions) in bf16 and fp32, and in fp32 the chunked prefill
     of the first DECODE_CHECK_LEN tokens against token-by-token decode.
     Returns the SSD op calls and the flash launches of the served run, each
-    with its count per prefill batch, and the served figures."""
+    with its count per prefill batch, and the served figures; the
+    decode-attention kernel launched once a shared-block application a
+    decode step."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
     print(f"[c] zamba2-2.7b serve on {card_line()}")
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     ssd_ops.ssd.launches = fa_ops.flash_attention.launches = 0
+    da_ops.decode_attention.launches = 0
     t0 = time.perf_counter()
     res = serve.main(["--arch", "zamba2-2.7b", *ARGV])
     wall = time.perf_counter() - t0
     n_ssd, n_fa = ssd_ops.ssd.launches, fa_ops.flash_attention.launches
+    n_decode = da_ops.decode_attention.launches
     peak = torch.cuda.max_memory_allocated()
     model, params = res["model"], res["params"]
     cfg = model.cfg
@@ -3776,6 +3942,7 @@ def phase_serve_zamba(torch, ssd_ops, fa_ops, attention, fa_ref, serve):
     if (n_ssd, n_fa) != (cfg.n_layers * nb, n_app * nb):
         raise SystemExit(f"zamba2 serve: {n_ssd} SSD op calls and {n_fa} "
                          f"flash launches over {nb} batches")
+    hold_decode_launches(res, "zamba2-2.7b serve", n_app, n_decode)
     if len(res["replies"]) != 4:
         raise SystemExit("not every request was answered")
     for row in res["replies"]:
@@ -4670,6 +4837,9 @@ def run(where: dict) -> int:
         print(why, flush=True)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -4695,10 +4865,13 @@ def run(where: dict) -> int:
     print(f"[a] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}; devices={torch.cuda.device_count()}")
     builds, regs = build_all(_build, ("flash_attention", "wkv6", "mamba2_ssd",
-                                      "tiled_matmul"))
+                                      "tiled_matmul", "decode_attention"))
 
     where["phase"] = "(b) flash_attention"
     row, zrow = phase_kernel(torch, fa_ops, fa_ref, fa_kernel)
+    where["phase"] = "(b) decode_attention"
+    da_row = phase_decode_attention(torch, da_ops, da_ref, da_kernel,
+                                    regs["decode_attention"])
     where["phase"] = "(b) flash_attention at whisper-base's shapes"
     wrow, mla_train_shape = phase_kernel_whisper(torch, fa_ops, fa_ref,
                                                  fa_kernel)
@@ -4764,7 +4937,7 @@ def run(where: dict) -> int:
     where["phase"] = "(c) deepseek-v2-lite-16b serve"
     row["deepseek_v2_lite"] = phase_serve_model(
         torch, fa_ops, attention, fa_ref, moe, serve, "deepseek-v2-lite-16b",
-        (27, 2048, 16, 16, 128, 102400), 15_706_484_224)
+        (27, 2048, 16, 16, 128, 102400), 15_706_484_224, decode_per_step=0)
     gc.collect()
     torch.cuda.empty_cache()
     where["phase"] = "(c) qwen2-vl-2b serve"
@@ -4787,6 +4960,7 @@ def run(where: dict) -> int:
     wrow.update(phase_serve_model(
         torch, fa_ops, attention, fa_ref, moe, serve, "whisper-base",
         (6, 512, 8, 8, 64, 51865), 80_117_760, WH_ARGV, 18))
+    da_row["paths"] = DECODE_PATHS
     gc.collect()
     torch.cuda.empty_cache()
     where["phase"] = "(c) whisper-base training"
@@ -4868,7 +5042,7 @@ def run(where: dict) -> int:
     print(f"[d] total {time.perf_counter() - t_start:.1f}s")
     print(card_line())
     print(json.dumps({"kernels": [row, zrow, wrow, wkv_row, ssd_row,
-                                  mm_row]}))
+                                  mm_row, da_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

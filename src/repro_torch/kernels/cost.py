@@ -38,6 +38,18 @@ def flash_attention(b, s, hq, g, hd, *, window=None, itemsize, hd_v=None,
     return Cost(flops, nbytes)
 
 
+def decode_attention(b, t, hq, g, hd, *, itemsize, window=None) -> Cost:
+    """One new token a batch row against a cache of t keys: 2*hd FLOPs for
+    q.k and 2*hd for p.v per (head, key), over t keys a row (the window's,
+    if smaller: the positions lie on the card, so every row counts its
+    whole reach); q read once, K and V (b, keys, g, hd) once, o written
+    once."""
+    keys = min(t, window) if window else t
+    flops = 4.0 * hd * b * hq * keys
+    nbytes = itemsize * (2 * b * keys * g * hd + 2 * b * hq * hd)
+    return Cost(flops, nbytes)
+
+
 def _pairs(s, t, window, causal) -> int:
     """Sum over queries i < s of the keys j < t with (not causal or
     j <= i) and (no window or i - j < window), in closed form."""

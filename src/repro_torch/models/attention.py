@@ -9,8 +9,11 @@ Keeping that layout lets the parity tests load JAX params unchanged.
 card, the plain blockwise version on the CPU, causal or not (whisper's
 encoder and cross-attention), with the key length free of the query
 length.  It reads K/V by group, so the expanded K/V copy is never built on
-the card.  `attend_once` is the one-shot softmax whisper's decode runs its
-cross-attention through, as the JAX model does.
+the card.  `decode_attention` is the decode step's wrapper, one new token
+against the cache: a CUDA kernel that reads the cache in place on the card
+(DTensors there shard by shard), the plain grouped version on the CPU and
+on meta, DTensors included (kernels/decode_attention).  `attend_once` is the one-shot softmax
+whisper's decode runs its cross-attention through, as the JAX model does.
 """
 from __future__ import annotations
 
@@ -19,9 +22,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: F401
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
 from repro_torch.kernels.flash_attention.ref import NEG_INF, expand_kv  # noqa: F401
-from repro_torch.models.common import dense_init, grad_cast, shard_hint, softcap
+from repro_torch.models.common import dense_init, grad_cast, shard_hint
 
 MODEL_AXIS_SIZE = 16          # the JAX package's production model-axis width
 
@@ -81,17 +85,6 @@ def _gather_weights(x, w) -> bool:
     if not hasattr(x, "device_mesh"):
         return False
     return w.shape[0] <= math.prod(x.to_local().shape[:-1])
-
-
-def _softmax_keys(s):
-    """Softmax over the last dim (the keys).  On a DTensor split over the
-    keys, each shard's max and sum reduce across the shards
-    (flash-decoding), where `torch.softmax` would gather the scores."""
-    if not (hasattr(s, "device_mesh")
-            and any(p.is_shard(s.dim() - 1) for p in s.placements)):
-        return torch.softmax(s, dim=-1)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
 
 
 def project_qkv(p, x, cfg):
@@ -156,38 +149,3 @@ def attend_once(q, k, v, *, scale: float):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgmst,btgh->bsgmh", p, v.float())
     return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
-
-
-# ---------------------------------------------------------------------------
-# Decode attention (one new token against the cache) — plain torch
-# ---------------------------------------------------------------------------
-
-
-def decode_attention(q, k_cache, v_cache, positions, *, window=None,
-                     logit_softcap: float = 0.0, scale: float):
-    """Single-token decode: q (B,1,Hq_pad,hd) against a cache (B,T,G,hd).
-    positions: (B,) absolute index of the new token (its KV already written).
-
-    GQA by a grouped product: only q is reshaped, the cache is never
-    expanded.  Operands take the cache's dtype and the products accumulate
-    in fp32, with the probabilities rounded to the cache's dtype before P.V,
-    as the JAX version does."""
-    B, T, G, hd = k_cache.shape
-    hq_pad = q.shape[2]
-    # q whole over the heads (one token's: tiny); the cache is split over
-    # its sequence instead
-    q = shard_hint(q, "batch", None, None, None)
-    qg = q.reshape(B, G, hq_pad // G, hd).to(k_cache.dtype).float()
-    kpos = torch.arange(T, device=q.device)
-    allow = kpos[None, :] <= positions[:, None]                 # (B,T)
-    if window is not None:
-        allow &= (positions[:, None] - kpos[None, :]) < window
-    kc = shard_hint(k_cache, "batch", "kv_seq", None, None)
-    vc = shard_hint(v_cache, "batch", "kv_seq", None, None)
-    s = torch.einsum("bgmh,btgh->bgmt", qg, kc.float()) * scale
-    s = softcap(s, logit_softcap)
-    s = torch.where(allow[:, None, None, :], s, NEG_INF)
-    s = shard_hint(s, "batch", None, None, "kv_seq")
-    p = _softmax_keys(s).to(vc.dtype).float()
-    ctx = torch.einsum("bgmt,btgh->bgmh", p, vc.float())
-    return ctx.reshape(B, 1, hq_pad, hd).to(q.dtype)

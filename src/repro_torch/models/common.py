@@ -353,6 +353,17 @@ def softcap(x, cap: float):
     return cap * torch.tanh(x / cap)
 
 
+def softmax_keys(s):
+    """Softmax over the last dim (the keys).  On a DTensor split over the
+    keys, each shard's max and sum reduce across the shards
+    (flash-decoding), where `torch.softmax` would gather the scores."""
+    if not (hasattr(s, "device_mesh")
+            and any(p.is_shard(s.dim() - 1) for p in s.placements)):
+        return torch.softmax(s, dim=-1)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
 # ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------

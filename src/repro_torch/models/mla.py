@@ -17,7 +17,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import NEG_INF
 from repro_torch.models.common import (dense_init, ones_init, rms_norm,
-                                       shard_hint, write_rows)
+                                       shard_hint, softmax_keys, write_rows)
 from repro_torch.models.rope import apply_rope
 
 
@@ -134,7 +134,7 @@ def mla_decode(p, x, cfg, sin, cos, cache, positions, *, absorb=False):
                        .expand(B, T, H, dr)], dim=-1)
         s = torch.einsum("bshe,bthe->bhst", q.float(), k.float()) * scale
         s = torch.where(allow, s, NEG_INF)
-        prob = attn._softmax_keys(shard_hint(s, "batch", None, None, "kv_seq"))
+        prob = softmax_keys(shard_hint(s, "batch", None, None, "kv_seq"))
         ctx = torch.einsum("bhst,bthd->bshd", prob, vv.float()).to(x.dtype)
     out = ctx.reshape(B, 1, H * dv) @ p["wo"].to(x.dtype)
     return out, (ckv_c, krope_c)

@@ -1,11 +1,12 @@
 #!/bin/bash
-# Planted faults in the CUDA A^T B, flash-attention, SSD and WKV kernels
-# (four, four, six and three): each one is applied to a copy of
-# src/, tests/ and chip_smoke.py in a temporary directory, then the card
-# tests of that kernel run against the copy
+# Planted faults in the CUDA A^T B, flash-attention, SSD, WKV and
+# decode-attention kernels (four, four, six, three and four): each one is
+# applied to a copy of src/, tests/ and chip_smoke.py in a temporary
+# directory, then the card tests of that kernel run against the copy
 # (tests/test_torch_tiled_matmul_cuda.py, which include the METG ladder's
 # shapes, tests/test_torch_flash_attention_cuda.py,
-# tests/test_torch_ssd_cuda.py or tests/test_torch_wkv6_cuda.py); for A^T B
+# tests/test_torch_ssd_cuda.py, tests/test_torch_wkv6_cuda.py or
+# tests/test_torch_decode_attention_cuda.py); for A^T B
 # also a short METG ladder run, for the SSD backward and WKV chip_smoke.py.
 # Every fault must fail the card tests; a fault on the METG path's fp32
 # product must also stop the ladder with failed tasks, and an SSD or WKV
@@ -22,6 +23,7 @@ MM=src/repro_torch/csrc/tiled_matmul.cu
 FA=src/repro_torch/csrc/flash_attention.cu
 SSD=src/repro_torch/csrc/mamba2_ssd.cu
 WKV=src/repro_torch/csrc/wkv6.cu
+DA=src/repro_torch/csrc/decode_attention.cu
 declare -A FILES FAULTS
 # A^T B: the k loops stop one k-stage early (fp32 and bf16)
 FILES[drop_last_k_slice]=$MM
@@ -78,6 +80,19 @@ FAULTS[drop_bonus]='s|const float bt = sBeta\[tr + i\];|const float bt = 0.f;|'
 # WKV, stage 1: k scaled by exp(cumw[Q-1]) without subtracting cumw[j]
 FILES[k_decay_from_chunk_start]=$WKV
 FAULTS[k_decay_from_chunk_start]='s|sK\[i\] \*= expf(wlast\[i % HD\] - sW\[i\]);|sK[i] *= expf(wlast[i % HD]);|'
+# decode attention: p not rounded to the cache's type before P.V
+FILES[p_unrounded]=$DA
+FAULTS[p_unrounded]='s|p = Elem<E>::round(|p = (|'
+# decode attention: the window one key wider (pos - t <= window)
+FILES[window_one_wider]=$DA
+FAULTS[window_one_wider]='s|long long lo = a.window > 0 ? p - a.window + 1 : 0;|long long lo = a.window > 0 ? p - a.window : 0;|'
+# decode attention: the chunks' sums of exp added without rescaling each
+# to the row's max
+FILES[chunk_sums_unscaled]=$DA
+FAULTS[chunk_sums_unscaled]='s|l += st\[2 \* c + 1\] \* expf(st\[2 \* c\] - mx);|l += st[2 * c + 1];|'
+# decode attention: the key at the row's own position skipped
+FILES[own_key_skipped]=$DA
+FAULTS[own_key_skipped]='s|k.t1 = min(k.c0 + a.chunk - 1, k.hi);|k.t1 = min(k.c0 + a.chunk - 1, k.hi - 1);|'
 work=$(mktemp -d)
 trap 'rm -rf "$work"' EXIT
 for fault in $(if [ $# -gt 0 ]; then printf '%s\n' "$@"; else
@@ -93,6 +108,7 @@ for fault in $(if [ $# -gt 0 ]; then printf '%s\n' "$@"; else
     "$MM") tests=tests/test_torch_tiled_matmul_cuda.py ;;
     "$FA") tests=tests/test_torch_flash_attention_cuda.py ;;
     "$WKV") tests=tests/test_torch_wkv6_cuda.py ;;
+    "$DA") tests=tests/test_torch_decode_attention_cuda.py ;;
     *) tests=tests/test_torch_ssd_cuda.py ;;
   esac
   echo "== $fault ($(basename "$file"))"
